@@ -5,19 +5,35 @@ Needs one NVIDIA Hopper card and the CUDA toolkit (``nvcc``).  Phases,
 each of which fails the run hard:
 
 1. device report: ``nvidia-smi`` name and power limit, torch and CUDA
-   versions, and the build of every kernel from ``src/repro_torch``;
-2. each kernel against its plain PyTorch version on the card, at the
-   reference test shapes and at the main path's shapes (a strided
-   per-layer view of a [512, 16, 30, 3, 64] pool);
-3. the main path at full width: ``smollm-135m`` (random weights from a
-   seed) served by the ``slot_paged`` engine to 4 client sessions x 4
-   requests, every stream complete and exactly-once, the kernel launched
-   30 times per model forward;
-4. CPU/CUDA parity: the SMOKE config at float32, same weights on both
-   devices, identical greedy tokens;
-5. kernel timing at the main path's shapes (CUDA events), beside its
-   bound, the plain version and a labelled gather + SDPA yardstick.
+   versions, and the build of every kernel from ``src/repro_torch`` (one
+   ``nvcc`` per source, all started together);
+2. each kernel against its plain PyTorch version on the card: paged
+   attention at the reference test shapes and the paged main path's (a
+   strided per-layer view of a [512, 16, 30, 3, 64] pool); flash
+   attention at the reference test shapes, ragged T and S, and the dense
+   main path's (B=1 causal prefills of 64/256/512 tokens over a ring
+   slice, a T=1 decode at S=513 over a strided B=4 ring slice); and the
+   dense decode read — the paged kernel over a [4, 1024] ring viewed as
+   identity pages — against both plain versions;
+3. the paged main path at full width: ``smollm-135m`` (random weights
+   from a seed) served by the ``slot_paged`` engine to 4 client sessions
+   x 4 requests, every stream complete and exactly-once, the paged kernel
+   launched 30 times per model forward; then where one dispatch's time
+   goes;
+4. the dense main path at full width: the same 16 requests under
+   ``slot_fused`` (flash launches = 30 x prefills, paged launches = 30 x
+   decode steps), then 4 requests each under ``slot_chunked`` and
+   ``wave``; then where a prefill's and a decode block's time goes;
+5. CPU/CUDA parity: the SMOKE config at float32, same weights on both
+   devices, identical greedy tokens under ``slot_paged``, ``slot_fused``
+   and ``wave``;
+6. kernel timing at the main paths' shapes (CUDA events), beside each
+   kernel's bound, its plain version and, for flash, the one PyTorch call
+   that computes the same function (``scaled_dot_product_attention``, a
+   yardstick the port never calls).
 
+Every kernel counter is set to 0 just before a served run and read just
+after it; launches made to compare or time a kernel are not counted.
 Prints one JSON line of kernel results, then the device line
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero, printing no
 result, without a card or outside a checkout of the repository.
@@ -42,6 +58,10 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 MAIN = dict(n_pages=512, ps=16, L=30, Hkv=3, hd=64, B=8, H=9, P=64,
             chunk=64)
+# The dense main path (slot_fused): a [4, 1024] ring per layer, B=1
+# prefills of bucketed prompts, B=4 decode.
+DENSE = dict(L=30, B=4, size=1024, Hkv=3, hd=64, H=9, prefill=(64, 256, 512),
+             decode_S=513)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -82,11 +102,12 @@ def timed(fn, reps: int = 5, inner: int = 50) -> float:
 # ---------------------------------------------------------------------------
 def phase_build():
     import torch
-    from repro_torch.kernels import paged_attention as pa
-    builders = {"paged_attention": pa.build}
+    from repro_torch.kernels import build, flash_attention, paged_attention
+    sources = {"paged_attention": paged_attention.SOURCE,
+               "flash_attention": flash_attention.SOURCE}
     t0 = time.monotonic()
-    with ThreadPoolExecutor(len(builders)) as ex:   # one nvcc per source
-        libs = dict(zip(builders, ex.map(lambda f: f(), builders.values())))
+    with ThreadPoolExecutor(len(sources)) as ex:    # one nvcc per source
+        libs = dict(zip(sources, ex.map(build.build, sources.values())))
     dt = time.monotonic() - t0
     print(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
           f"device {torch.cuda.get_device_name(0)}")
@@ -99,7 +120,7 @@ def phase_build():
 
 
 # ---------------------------------------------------------------------------
-# Phase 2: kernel vs plain version on the card
+# Phase 2: each kernel vs its plain version on the card
 # ---------------------------------------------------------------------------
 REF_CASES = [
     dict(seed=0, B=3, T=1, H=4, Hkv=2, hd=32, n_pages=32, ps=8, P=4,
@@ -215,16 +236,145 @@ def phase_compare():
     return main_err
 
 
+# (B, T, S, H, Hkv, hd, kwargs): tests/test_kernels.py and
+# tests/test_kernels_decode.py, then ragged T and S.
+FLASH_CASES = [
+    (1, 128, 128, 4, 4, 64, {}),
+    (2, 128, 256, 8, 2, 64, {}),
+    (1, 256, 256, 6, 3, 128, {}),
+    (1, 512, 512, 4, 4, 64, {"window": 128}),
+    (1, 1, 1024, 4, 4, 64, {"window": 256}),
+    (1, 512, 512, 4, 4, 64, {"window": 512}),
+    (1, 128, 128, 2, 2, 64, {"softcap": 50.0}),
+    (1, 128, 256, 4, 4, 64, {"causal": False}),
+    (2, 1, 512, 8, 2, 64, {}),
+    (1, 128, 128, 16, 1, 64, {}),
+    (1, 128, 128, 12, 4, 64, {}),
+    (1, 128, 128, 9, 3, 64, {}),
+    (2, 37, 101, 9, 3, 64, {}),
+    (1, 45, 77, 6, 2, 32, {"window": 20, "softcap": 30.0}),
+    (1, 3, 70, 4, 1, 16, {"causal": False}),
+]
+
+
+def dense_ring(torch, B: int, seed: int):
+    """bf16 K and V rings of the dense main path: [L, B, 1024, Hkv, hd]."""
+    d = DENSE
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (d["L"], B, d["size"], d["Hkv"], d["hd"])
+    return tuple(torch.randn(shape, generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+
+
+def phase_compare_flash():
+    """Flash kernel vs plain: reference and ragged cases in f32 (TF32
+    off) and bf16, then the dense main path's shapes in bf16 over ring
+    slices read in place.  Returns the main-path bf16 max error."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    worst = {}
+    g = torch.Generator(device="cuda").manual_seed(21)
+    for B, T, S, H, Hkv, hd, kw in FLASH_CASES:
+        q = torch.randn((B, T, H, hd), generator=g, device="cuda")
+        k = torch.randn((B, S, Hkv, hd), generator=g, device="cuda")
+        v = torch.randn((B, S, Hkv, hd), generator=g, device="cuda")
+        for dt_name, tol in TOLS.items():
+            dt = getattr(torch, dt_name)
+            args = (q.to(dt), k.to(dt), v.to(dt))
+            out = fa.flash_attention(*args, **kw)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_ref(*args, **kw)
+            err = (out.float() - want.float()).abs().max().item()
+            check(err <= tol, f"flash case {(B, T, S, H, Hkv, hd, kw)} "
+                              f"{dt_name}: err {err}")
+            worst[dt_name] = max(worst.get(dt_name, 0.0), err)
+    d = DENSE
+    main_err = 0.0
+    rk1, rv1 = dense_ring(torch, 1, seed=22)
+    rk4, rv4 = dense_ring(torch, d["B"], seed=23)
+    shapes = [(rk1, rv1, T, T) for T in d["prefill"]]
+    shapes.append((rk4, rv4, 1, d["decode_S"]))
+    for rk, rv, T, S in shapes:
+        B = rk.shape[1]
+        q = torch.randn((B, T, d["H"], d["hd"]), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        for li in (0, d["L"] - 1):
+            k, v = rk[li][:, :S], rv[li][:, :S]
+            check(B == 1 or not k.is_contiguous(), "ring slice contiguous")
+            out = fa.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_ref(q, k, v)
+            err = (out.float() - want.float()).abs().max().item()
+            check(err <= TOLS["bfloat16"],
+                  f"flash main shape B={B} T={T} S={S}: err {err}")
+            main_err = max(main_err, err)
+    print(f"flash vs plain: {len(FLASH_CASES)} reference/ragged cases max "
+          f"err f32 {worst['float32']:.3g} (tol 1e-4), bf16 "
+          f"{worst['bfloat16']:.3g} (tol 3e-2); dense main-path shapes "
+          f"(B=1 T=S in {d['prefill']}, B=4 T=1 S={d['decode_S']}, bf16, "
+          f"ring slices) max err {main_err:.3g}")
+    return main_err
+
+
+def phase_compare_dense_decode():
+    """The dense decode read: the paged kernel over a [4, 1024] ring
+    viewed as identity-mapped 64-token pages with per-row lengths, held
+    against the paged plain version and, row by row, against flash's
+    plain version over the ring prefix (the same function)."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    from repro_torch.models.layers import ring_page_size
+    d = DENSE
+    B, size = d["B"], d["size"]
+    ps = ring_page_size(size)
+    P = size // ps
+    rk, rv = dense_ring(torch, B, seed=24)
+    block = torch.arange(B * P, dtype=torch.int32,
+                         device="cuda").view(B, P)
+    lens = torch.tensor([65, 300, 513, 1000], dtype=torch.int32,
+                        device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(25)
+    q = torch.randn((B, 1, d["H"], d["hd"]), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    worst = {}
+    for li in (0, d["L"] - 1):
+        kp = rk[li].view(B * P, ps, d["Hkv"], d["hd"])
+        vp = rv[li].view(B * P, ps, d["Hkv"], d["hd"])
+        for dt_name, tol in TOLS.items():
+            dt = getattr(torch, dt_name)
+            args = (q.to(dt), kp.to(dt), vp.to(dt))
+            out = pa.paged_attention(*args, block, lens)
+            torch.cuda.synchronize()
+            want = ref.paged_attention_ref(*args, block, lens)
+            err = (out.float() - want.float()).abs().max().item()
+            for b in range(B):
+                n = int(lens[b])
+                row = ref.flash_attention_ref(
+                    args[0][b:b + 1], rk[li][b:b + 1, :n].to(dt),
+                    rv[li][b:b + 1, :n].to(dt))
+                err = max(err, (out[b:b + 1].float()
+                                - row.float()).abs().max().item())
+            check(err <= tol, f"dense decode layer {li} {dt_name}: err "
+                              f"{err}")
+            worst[dt_name] = max(worst.get(dt_name, 0.0), err)
+    print(f"dense decode (paged kernel over identity pages, B=4, lens "
+          f"{lens.tolist()}, ps={ps}): max err f32 {worst['float32']:.3g}, "
+          f"bf16 {worst['bfloat16']:.3g} vs both plain versions")
+
+
 # ---------------------------------------------------------------------------
-# Phase 3: the main path at full width
+# Phases 3 and 4: the paged and dense main paths at full width
 # ---------------------------------------------------------------------------
-def phase_serve():
-    import numpy as np
+def full_width_model():
+    """``smollm-135m`` at full width on the card, random weights from
+    seed 0, with a count of model forwards."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import paged_attention as pa
     from repro_torch.models.model import build_model
-    from repro_torch.serve.engine import ServeEngine
     cfg = get_config("smollm-135m")
     model = build_model(cfg)                          # cuda by default
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -236,95 +386,213 @@ def phase_serve():
         return fwd(*a, **kw)
 
     model.forward = counted_forward
-    n_clients, per_client, max_tokens = 4, 4, 32
-    eng = ServeEngine(model, params, max_batch=8, max_len=1024,
-                      n_clients=n_clients, pool_pages=512, page_size=16,
-                      chunk_tokens=64, k_max=8)
-    kv_mb = 2 * eng.pool.store_k.numel() * eng.pool.store_k.element_size()
+    return model, params, forwards
+
+
+def main_workload(vocab: int):
+    """4 clients x 4 requests: even requests a random prompt of 40-480
+    tokens, odd ones a shared 240-token system prompt + 16 user tokens."""
+    import numpy as np
     rng = np.random.default_rng(1234)
-    system = rng.integers(0, cfg.vocab_size, 240)
+    system = rng.integers(0, vocab, 240)
     prompts = {}
-    for c in range(n_clients):
-        for r in range(per_client):
+    for c in range(4):
+        for r in range(4):
             if r % 2 == 0:
-                prompts[c, r] = rng.integers(0, cfg.vocab_size,
+                prompts[c, r] = rng.integers(0, vocab,
                                              int(rng.integers(40, 481)))
             else:
                 prompts[c, r] = np.concatenate(
-                    [system, rng.integers(0, cfg.vocab_size, 16)])
+                    [system, rng.integers(0, vocab, 16)])
+    return prompts
+
+
+def serve_run(eng, prompts, max_tokens: int, forwards, smi: str,
+              label: str):
+    """Serve ``prompts`` ({(client, r): tokens}) with one thread per
+    client session, every kernel counter set to 0 just before and read
+    just after.  Checks every stream; returns (launches {kernel: n},
+    model forwards, wall s, tok/s, TTFT p50 ms)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    vocab = eng.model.cfg.vocab_size
+    clients = sorted({c for c, _ in prompts})
     results, errors = {}, []
 
     def client(c: int) -> None:
         try:
             with eng.connect(c) as session:
+                rs = sorted(r for cc, r in prompts if cc == c)
                 hs = [session.submit_i(prompts[c, r], max_tokens=max_tokens)
-                      for r in range(per_client)]
-                for r, h in enumerate(hs):
+                      for r in rs]
+                for r, h in zip(rs, hs):
                     results[c, r] = (list(h.tokens(timeout_s=600)),
                                      h.response)
         except Exception as exc:        # noqa: BLE001 — reported below
             errors.append(repr(exc))
 
-    pa.launches = 0
+    fa.launches = pa.launches = 0
     forwards[0] = 0
     thread = eng.start()
     t0 = time.monotonic()
-    clients = [threading.Thread(target=client, args=(c,))
-               for c in range(n_clients)]
-    for t in clients:
+    threads = [threading.Thread(target=client, args=(c,)) for c in clients]
+    for t in threads:
         t.start()
-    for t in clients:
+    for t in threads:
         t.join(timeout=900)
     torch.cuda.synchronize()
     dt = time.monotonic() - t0
-    launches, n_fwd = pa.launches, forwards[0]
+    launches = {"flash_attention": fa.launches,
+                "paged_attention": pa.launches}
+    n_fwd = forwards[0]
     eng.stop()
     thread.join(timeout=30)
-    check(not any(t.is_alive() for t in clients), "a client hung")
-    check(not errors, f"client errors: {errors}")
-    check(eng.dead is None, f"engine died: {eng.dead}")
-    n_req = n_clients * per_client
+    check(not any(t.is_alive() for t in threads), f"{label}: a client hung")
+    check(not errors, f"{label}: client errors: {errors}")
+    check(eng.dead is None, f"{label}: engine died: {eng.dead}")
+    n_req = len(prompts)
     check(len(results) == n_req and eng.stats["served"] == n_req,
-          f"served {eng.stats['served']} of {n_req}")
+          f"{label}: served {eng.stats['served']} of {n_req}")
     ttft, n_tok = [], 0
     for (c, r), (stream, resp) in sorted(results.items()):
         out = list(map(int, resp.tokens_out))
-        check(len(out) == max_tokens, f"request {c}/{r}: {len(out)} tokens")
-        check(all(0 <= t < cfg.vocab_size for t in out),
-              f"request {c}/{r}: token out of range")
+        check(len(out) == max_tokens,
+              f"{label} request {c}/{r}: {len(out)} tokens")
+        check(all(0 <= t < vocab for t in out),
+              f"{label} request {c}/{r}: token out of range")
         check(sorted(p for p, _ in stream) == list(range(max_tokens)),
-              f"request {c}/{r}: stream not exactly-once")
+              f"{label} request {c}/{r}: stream not exactly-once")
         check([t for _, t in sorted(stream)] == out,
-              f"request {c}/{r}: stream disagrees with tokens_out")
+              f"{label} request {c}/{r}: stream disagrees with tokens_out")
         ttft.append(resp.first_token_t - resp.submit_t)
         n_tok += len(out)
-    check(n_fwd > 0 and launches == cfg.num_layers * n_fwd,
-          f"paged_attention launches {launches} != "
+    ttft_ms = 1e3 * statistics.median(ttft)
+    print(f"{label}: {n_req} requests served in {dt:.2f} s, "
+          f"{n_tok / dt:.1f} tok/s, TTFT p50 {ttft_ms:.0f} ms, forwards "
+          f"{n_fwd} ({1e3 * dt / max(n_fwd, 1):.1f} ms of wall time each), "
+          f"launches flash_attention {launches['flash_attention']} "
+          f"paged_attention {launches['paged_attention']} [{smi}]")
+    print(f"  {label} stats: {eng.stats}")
+    return launches, n_fwd, dt, n_tok / dt, ttft_ms
+
+
+def phase_serve(model, params, forwards, smi: str):
+    """The paged main path: ``slot_paged``, 16 requests, 32 tokens each;
+    the paged kernel launched 30 times per forward, flash never."""
+    from repro_torch.serve.engine import ServeEngine
+    cfg = model.cfg
+    eng = ServeEngine(model, params, max_batch=8, max_len=1024,
+                      n_clients=4, pool_pages=512, page_size=16,
+                      scheduler="slot_paged", chunk_tokens=64, k_max=8)
+    kv_mb = 2 * eng.pool.store_k.numel() * eng.pool.store_k.element_size()
+    print(f"paged main path: smollm-135m (30 layers, d=576, 9/3 heads, "
+          f"vocab 49152, bf16) slot_paged, pool {kv_mb / 1e6:.0f} MB of K/V")
+    launches, n_fwd, *_ = serve_run(eng, main_workload(cfg.vocab_size), 32,
+                                    forwards, smi, "slot_paged")
+    check(n_fwd > 0 and launches["paged_attention"]
+          == cfg.num_layers * n_fwd,
+          f"paged_attention launches {launches['paged_attention']} != "
           f"{cfg.num_layers} x {n_fwd} forwards")
+    check(launches["flash_attention"] == 0, "slot_paged launched flash")
     check(eng.stats["prefix_hits"] > 0, "the shared prefix never hit")
-    print(f"main path: smollm-135m (30 layers, d=576, 9/3 heads, vocab "
-          f"49152, bf16) slot_paged, pool {kv_mb / 1e6:.0f} MB of K/V; "
-          f"{n_req} requests served in {dt:.2f} s, {n_tok / dt:.1f} tok/s, "
-          f"TTFT p50 {1e3 * statistics.median(ttft):.0f} ms, prefix_hits "
-          f"{eng.stats['prefix_hits']}, prefill_tokens_saved "
-          f"{eng.stats['prefill_tokens_saved']}, host_syncs "
-          f"{eng.stats['host_syncs']}, decode_steps "
-          f"{eng.stats['decode_steps']}, forwards {n_fwd} "
-          f"({1e3 * dt / n_fwd:.1f} ms of wall time each), "
-          f"paged_attention launches {launches}")
-    return launches, model, params
+    print(f"  prefix_hits {eng.stats['prefix_hits']}, "
+          f"prefill_tokens_saved {eng.stats['prefill_tokens_saved']}")
+    return launches["paged_attention"]
+
+
+def phase_serve_dense(model, params, forwards, smi: str):
+    """The dense main path: ``slot_fused`` on the same 16 requests (flash
+    launches = 30 x prefills, paged = 30 x decode steps), then 4 requests
+    each under ``slot_chunked`` (paged only) and ``wave`` (flash only).
+    Returns the slot_fused run's launches."""
+    from repro_torch.serve.engine import ServeEngine
+    L = model.cfg.num_layers
+    prompts = main_workload(model.cfg.vocab_size)
+    few = {k: p for k, p in prompts.items() if k[0] < 2 and k[1] < 2}
+    kw = dict(max_batch=4, max_len=1024, page_size=16, pool_pages=256,
+              k_max=8)
+    fused_launches = None
+    for sched, work, extra in (("slot_fused", prompts, {}),
+                               ("slot_chunked", few, {"chunk_tokens": 64}),
+                               ("wave", few, {})):
+        eng = ServeEngine(model, params, n_clients=4, scheduler=sched,
+                          **kw, **extra)
+        launches, n_fwd, *_ = serve_run(eng, work, 32, forwards, smi, sched)
+        st = eng.stats
+        fl, pl = launches["flash_attention"], launches["paged_attention"]
+        if sched == "slot_fused":
+            check(fl == L * st["prefills"] and st["prefills"] == len(work),
+                  f"slot_fused: flash launches {fl} != {L} x "
+                  f"{st['prefills']} prefills")
+            check(pl > 0 and pl == L * st["decode_steps"]
+                  and n_fwd == st["prefills"] + st["decode_steps"],
+                  f"slot_fused: paged launches {pl} != {L} x "
+                  f"{st['decode_steps']} decode steps")
+            fused_launches = launches
+        elif sched == "slot_chunked":
+            check(fl == 0 and pl == L * n_fwd and pl > 0,
+                  f"slot_chunked: launches {launches}, forwards {n_fwd}")
+        else:
+            check(pl == 0 and fl == L * n_fwd
+                  and n_fwd == st["prefills"] + st["decode_steps"],
+                  f"wave: launches {launches}, forwards {n_fwd}")
+        del eng
+    return fused_launches
 
 
 # ---------------------------------------------------------------------------
-# Phase 3b: where one dispatch's time goes
+# Phases 3b and 4b: where one dispatch's time goes
 # ---------------------------------------------------------------------------
-def phase_split(model, params):
-    """Wall time of one K=8 decode block and of one T=64 prefill chunk
-    at the main path's shapes (B=8, lengths 65..512), against the device
-    time the profiler attributes to them: the device's busy and idle
-    shares, and the paged-attention kernel's part."""
+def profile_split(cases, smi: str):
+    """For each (name, model forwards, fn): wall time of one call after a
+    warm-up (mean of 3), against the device time the profiler attributes
+    to it — the device's busy and idle shares, each kernel's part, and the
+    top device ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    for name, steps, fn in cases:
+        with torch.no_grad():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 3 * 1e3
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        ev = prof.key_averages()
+        busy = sum(dev_us(e) for e in ev) / 1e3
+        if busy == 0:
+            print(f"time split, {name}: wall {wall:.2f} ms; device time "
+                  f"not measured (the profiler saw no device activity) "
+                  f"[{smi}]")
+            continue
+        kern = {k: sum(dev_us(e) for e in ev if k in e.key) / 1e3
+                for k in ("flash_attention", "paged_attention")}
+        top = sorted(ev, key=dev_us, reverse=True)[:5]
+        print(f"time split, {name}: wall {wall:.2f} ms "
+              f"({wall / steps:.2f} ms per forward), device busy "
+              f"{busy:.3f} ms (idle share {1 - busy / wall:.3f}), "
+              f"flash_attention {kern['flash_attention']:.3f} ms, "
+              f"paged_attention {kern['paged_attention']:.3f} ms; top "
+              f"device ops: "
+              + "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.3f} ms"
+                          for e in top) + f" [{smi}]")
+
+
+def phase_split(model, params, smi: str):
+    """The paged path: one K=8 decode block and one T=64 prefill chunk at
+    its shapes (B=8, lengths 65..512)."""
+    import torch
     m, vocab = MAIN, model.cfg.vocab_size
     B, P, C = m["B"], m["P"], m["chunk"]
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -347,47 +615,45 @@ def phase_split(model, params):
     start = (torch.randint(0, 7, (B,), generator=g, device="cuda")
              * C).to(torch.int32)
     nval = torch.full((B,), C, **i32)
-    cases = (
-        ("decode block K=8", 8, lambda: model.decode_loop(
+    profile_split((
+        ("slot_paged decode block K=8", 8, lambda: model.decode_loop(
             params, caches, cur, pos, rem, eos, k=8, max_len=1024)),
-        ("prefill chunk T=64", 1, lambda: model.prefill_chunk_into(
-            params, caches, chunk, start, nval)))
+        ("slot_paged prefill chunk T=64", 1, lambda: model.prefill_chunk_into(
+            params, caches, chunk, start, nval))), smi)
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
 
-    for name, steps, fn in cases:
-        with torch.no_grad():
-            fn()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(3):
-                fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / 3 * 1e3
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-        ev = prof.key_averages()
-        busy = sum(dev_us(e) for e in ev) / 1e3
-        attn = sum(dev_us(e) for e in ev if "paged_attention" in e.key) / 1e3
-        top = sorted(ev, key=dev_us, reverse=True)[:5]
-        if busy == 0:
-            print(f"time split, {name}: wall {wall:.2f} ms; device time "
-                  "not measured (the profiler saw no device activity)")
-            continue
-        print(f"time split, {name}: wall {wall:.2f} ms "
-              f"({wall / steps:.2f} ms per forward), device busy "
-              f"{busy:.3f} ms (idle share {1 - busy / wall:.3f}), "
-              f"paged_attention {attn:.3f} ms; top device ops: "
-              + "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.3f} ms"
-                          for e in top))
+def phase_split_dense(model, params, smi: str):
+    """The dense path (slot_fused): one B=1 monolithic prefill of 256 and
+    of 512 tokens (flash), and one K=8 decode block at B=4 over a dense
+    [4, 1024] ring with lengths 65..512 (paged kernel over identity
+    pages)."""
+    import torch
+    d, vocab = DENSE, model.cfg.vocab_size
+    B = d["B"]
+    g = torch.Generator(device="cuda").manual_seed(4)
+    rk, rv = dense_ring(torch, B, seed=5)
+    caches = {"k": rk, "v": rv}
+    i32 = dict(dtype=torch.int32, device="cuda")
+    pos = torch.randint(65, 513, (B,), generator=g, device="cuda").to(
+        torch.int32)
+    cur = torch.randint(0, vocab, (B,), generator=g, device="cuda").to(
+        torch.int32)
+    rem, eos = torch.full((B,), 1000, **i32), torch.full((B,), -1, **i32)
+    prompts = {T: torch.randint(0, vocab, (1, T), generator=g,
+                                device="cuda").to(torch.int32)
+               for T in (256, 512)}
+    profile_split((
+        ("slot_fused prefill B=1 T=256", 1, lambda: model.prefill(
+            params, prompts[256], d["size"])),
+        ("slot_fused prefill B=1 T=512", 1, lambda: model.prefill(
+            params, prompts[512], d["size"])),
+        ("slot_fused decode block K=8 B=4", 8, lambda: model.decode_loop(
+            params, caches, cur, pos, rem, eos, k=8, max_len=d["size"]))),
+        smi)
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: CPU/CUDA parity at float32
+# Phase 5: CPU/CUDA parity at float32
 # ---------------------------------------------------------------------------
 def phase_parity():
     import numpy as np
@@ -406,31 +672,37 @@ def phase_parity():
         return tree.to(dev)
 
     lengths = [12, 2, 7, 2, 1, 9, 24, 3]
-    seqs = {}
-    for dev in ("cpu", "cuda"):
-        model = build_model(cfg, device=dev)
-        eng = ServeEngine(model, to(params, dev), max_batch=2, max_len=64,
-                          n_clients=1, pool_pages=64, page_size=4,
-                          chunk_tokens=4, device=dev)
-        for i, n in enumerate(lengths):
-            check(eng.submit(0, (np.arange(5) + 3 * i) % cfg.vocab_size,
-                             max_tokens=n) is not None, "intake full")
-        while eng.stats["served"] + eng.stats["rejected"] < len(lengths):
-            eng.step()
-        check(eng.stats["rejected"] == 0, f"{dev}: requests rejected")
-        got = {}
-        for _ in lengths:
-            r = eng.get_response(0, timeout_s=30)
-            check(bool(r), "parity response timed out")
-            got[r.req_id] = list(map(int, r.tokens_out))
-        seqs[dev] = [got[k] for k in sorted(got)]
-    check(seqs["cpu"] == seqs["cuda"], "CPU and CUDA greedy tokens differ")
-    print(f"cpu/cuda parity: {sum(map(len, seqs['cuda']))} greedy tokens "
-          f"identical (SMOKE, float32)")
+    for sched in ("slot_paged", "slot_fused", "wave"):
+        seqs = {}
+        for dev in ("cpu", "cuda"):
+            model = build_model(cfg, device=dev)
+            eng = ServeEngine(model, to(params, dev), max_batch=2,
+                              max_len=64, n_clients=1, pool_pages=64,
+                              page_size=4, chunk_tokens=4, scheduler=sched,
+                              device=dev)
+            for i, n in enumerate(lengths):
+                check(eng.submit(0, (np.arange(5 + i % 3) + 3 * i)
+                                 % cfg.vocab_size, max_tokens=n)
+                      is not None, "intake full")
+            while (eng.stats["served"] + eng.stats["rejected"]
+                   < len(lengths)):
+                eng.step()
+            check(eng.stats["rejected"] == 0,
+                  f"{sched} {dev}: requests rejected")
+            got = {}
+            for _ in lengths:
+                r = eng.get_response(0, timeout_s=30)
+                check(bool(r), f"{sched}: parity response timed out")
+                got[r.req_id] = list(map(int, r.tokens_out))
+            seqs[dev] = [got[k] for k in sorted(got)]
+        check(seqs["cpu"] == seqs["cuda"],
+              f"{sched}: CPU and CUDA greedy tokens differ")
+        print(f"cpu/cuda parity, {sched}: {sum(map(len, seqs['cuda']))} "
+              f"greedy tokens identical (SMOKE, float32)")
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: kernel timing at the main path's shapes
+# Phase 6: kernel timing at the main paths' shapes
 # ---------------------------------------------------------------------------
 def work(q, block, lens, hkv: int, itemsize: int):
     """(bytes, flops) the function needs on these inputs: q, out, the
@@ -447,7 +719,7 @@ def work(q, block, lens, hkv: int, itemsize: int):
     return nbytes, 4 * hd * H * visible
 
 
-def phase_timing(launches: int, max_err: float):
+def phase_timing_paged(launches: int, max_err: float, smi: str):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attention as pa
@@ -496,7 +768,8 @@ def phase_timing(launches: int, max_err: float):
               f"{bound:.5f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}"
               f": {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), plain "
               f"{t_plain:.4f} ms; yardstick (not used by the port): gather "
-              f"{t_gather:.4f} ms + SDPA on gathered K/V {t_sdpa:.4f} ms")
+              f"{t_gather:.4f} ms + SDPA on gathered K/V {t_sdpa:.4f} ms "
+              f"[{smi}]")
         rows.append((T, t_kern, t_plain, bound,
                      "bytes" if t_bytes >= t_ops else "operations"))
     T, t_kern, t_plain, bound, by = rows[0]          # decode: the hot shape
@@ -506,6 +779,67 @@ def phase_timing(launches: int, max_err: float):
             "launches": launches, "max_abs_err": max_err, "ms": t_kern,
             "plain_ms": t_plain, "bound_ms": bound, "bound_by": by,
             "library_ms": None}
+
+
+def flash_work(B: int, T: int, S: int, H: int, Hkv: int, hd: int,
+               itemsize: int):
+    """(bytes, flops) causal flash needs on these inputs: q, k, v read
+    once and out written once; two hd-long dot products per (query head,
+    visible key), a query t seeing keys 0 .. t + S - T."""
+    nbytes = (2 * B * T * H * hd + 2 * B * S * Hkv * hd) * itemsize
+    visible = B * sum(min(S, t + S - T + 1) for t in range(T))
+    return nbytes, 4 * hd * H * visible
+
+
+def phase_timing_flash(launches: int, max_err: float, smi: str):
+    """Flash at the dense main path's shapes: B=1 causal prefills (T=S)
+    and the wave's B=4 one-token decode at S=513, bf16, over ring slices
+    (the 30 layers' slices are cycled, as the served model reads them).
+    The yardstick is one ``scaled_dot_product_attention`` call on the
+    same inputs (GQA, causal at T == S); the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    d = DENSE
+    g = torch.Generator(device="cuda").manual_seed(200)
+    rows = {}
+    shapes = [(1, T, T) for T in d["prefill"]] + [(d["B"], 1, d["decode_S"])]
+    for B, T, S in shapes:
+        rk, rv = dense_ring(torch, B, seed=201 + T)
+        views = [(rk[li][:, :S], rv[li][:, :S]) for li in range(d["L"])]
+        q = torch.randn((B, T, d["H"], d["hd"]), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        tviews = [(k.transpose(1, 2), v.transpose(1, 2)) for k, v in views]
+        qt = q.transpose(1, 2)
+        kern = lambda i: fa.flash_attention(q, *views[i % d["L"]])  # noqa
+        plain = lambda i: ref.flash_attention_ref(  # noqa: E731
+            q, *views[i % d["L"]])
+        sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+            qt, *tviews[i % d["L"]], is_causal=T > 1, enable_gqa=True)
+        before = fa.launches
+        t_kern = timed(kern)
+        t_plain = timed(plain, inner=10)
+        t_sdpa = timed(sdpa, inner=10)
+        fa.launches = before                # timing launches are not counted
+        nbytes, flops = flash_work(B, T, S, d["H"], d["Hkv"], d["hd"], 2)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        bound = max(t_bytes, t_ops)
+        print(f"flash_attention B={B} T={T} S={S} (H=9, Hkv=3, hd=64, "
+              f"causal, bf16, ring slice): kernel {t_kern:.4f} ms, bound "
+              f"{bound:.5f} ms ({by}: {nbytes / 1e6:.3f} MB, "
+              f"{flops / 1e9:.4f} GFLOP), plain {t_plain:.4f} ms, library "
+              f"(SDPA, not used by the port) {t_sdpa:.4f} ms [{smi}]")
+        rows[T] = (t_kern, t_plain, bound, by, t_sdpa)
+    t_kern, t_plain, bound, by, t_sdpa = rows[256]   # the commonest bucket
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:137",
+            "launches": launches, "max_abs_err": max_err, "ms": t_kern,
+            "plain_ms": t_plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": t_sdpa}
 
 
 def main() -> int:
@@ -521,17 +855,25 @@ def main() -> int:
         print(f"chip smoke: no port sources under {SRC}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    t0 = time.monotonic()
     smi = nvidia_smi_line()
     print(f"nvidia-smi: {smi}")
     phase_build()
-    max_err = phase_compare()
-    launches, model, params = phase_serve()
-    phase_split(model, params)
+    paged_err = phase_compare()
+    flash_err = phase_compare_flash()
+    phase_compare_dense_decode()
+    model, params, forwards = full_width_model()
+    paged_launches = phase_serve(model, params, forwards, smi)
+    phase_split(model, params, smi)
+    fused = phase_serve_dense(model, params, forwards, smi)
+    phase_split_dense(model, params, smi)
     del model, params
     phase_parity()
-    kernel = phase_timing(launches, max_err)
+    kernels = [phase_timing_paged(paged_launches, paged_err, smi),
+               phase_timing_flash(fused["flash_attention"], flash_err, smi)]
+    print(f"chip smoke: {time.monotonic() - t0:.1f} s")
     print(f"nvidia-smi: {smi}")
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

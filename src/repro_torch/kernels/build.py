@@ -1,0 +1,73 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel is one ``csrc/<name>.cu`` with a plain C entry point.  At
+first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared
+library under ``<repo>/build/kernels`` (listed in ``.gitignore``), named
+by the source's content hash, and loaded through ``ctypes``.  Nothing is
+built when a module is imported, so the CPU tests can import every
+kernel module without a toolkit.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Callable, Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+# <repo>/build/kernels: listed in .gitignore, built at first use.
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+_libs: Dict[Path, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "from source and need the CUDA toolkit")
+
+
+def build(source: Path) -> Path:
+    """Compile ``source`` into ``BUILD_DIR`` (once per source content)
+    and return the shared library's path.  The compiler's register and
+    shared-memory report (``-Xptxas -v``) is kept beside it as ``.log``."""
+    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
+    out = BUILD_DIR / f"lib{source.stem}_{tag}.so"
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+           "-Xptxas", "-v", "-o", str(tmp), str(source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source.name} "
+                           f"({proc.returncode}):\n{proc.stdout}\n"
+                           f"{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def load(source: Path, declare: Callable[[ctypes.CDLL], None]
+         ) -> ctypes.CDLL:
+    """The loaded library of ``source``, built on first call; ``declare``
+    sets its functions' ``argtypes``/``restype`` once."""
+    with _lock:
+        lib = _libs.get(source)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(source)))
+            declare(lib)
+            _libs[source] = lib
+        return lib

@@ -15,79 +15,29 @@ version (``ref.paged_attention_ref``); a CUDA ``q`` launches the kernel on
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
-from typing import Optional
 
 import torch
 
+from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ref
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
-# <repo>/build/kernels: listed in .gitignore, built at first use.
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCE = kbuild.CSRC / "paged_attention.cu"
 
 # Kernel launches made by :func:`paged_attention` (CUDA tensors only).
 # Callers reset it to 0 and read it to show a run went through the kernel.
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the paged-attention kernel is "
-                       "built from source and needs the CUDA toolkit")
-
-
-def build() -> Path:
-    """Compile the kernel into ``BUILD_DIR`` (once per source content)
-    and return the shared library's path.  The compiler's register and
-    shared-memory report (``-Xptxas -v``) is kept beside it as ``.log``."""
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    out = BUILD_DIR / f"libpaged_attention_{tag}.so"
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.paged_attention_max_rows.argtypes = [ctypes.c_int,
-                                                     ctypes.c_int]
-            lib.paged_attention_max_rows.restype = ctypes.c_int
-            ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
-                                  ctypes.c_longlong, ctypes.c_float)
-            lib.paged_attention_launch.argtypes = (
-                [ptr] * 6 + [i32] * 8 + [i64] * 13 + [f32, f32, ptr])
-            lib.paged_attention_launch.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.paged_attention_max_rows.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.paged_attention_max_rows.restype = ctypes.c_int
+    ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_float)
+    lib.paged_attention_launch.argtypes = (
+        [ptr] * 6 + [i32] * 8 + [i64] * 13 + [f32, f32, ptr])
+    lib.paged_attention_launch.restype = ctypes.c_int
 
 
 def _check(q, k_pages, v_pages, block, lens) -> None:
@@ -147,7 +97,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     _check(q, k_pages, v_pages, block, lens)
     global launches
-    lib = _load()
+    lib = kbuild.load(SOURCE, _declare)
     B, T, H, hd = q.shape
     ps, Hkv = k_pages.shape[1], k_pages.shape[2]
     g = H // Hkv

@@ -11,6 +11,37 @@ from __future__ import annotations
 import torch
 
 
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0,
+                        softcap: float = 0.0) -> torch.Tensor:
+    """Reference GQA attention.
+
+    q: [B, T, H, hd]; k/v: [B, S, Hkv, hd] with H % Hkv == 0 (any
+    strides).  causal assumes q positions are S-T..S-1 (suffix of the kv
+    sequence).  window: sliding-window size (0 = unlimited).  Returns
+    [B, T, H, hd] in q.dtype.
+    """
+    B, T, H, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    qg = q.reshape(B, T, Hkv, g, hd)
+    scores = torch.einsum("btkgh,bskh->bkgts", qg.float(),
+                          k.float()) * (hd ** -0.5)
+    if softcap:
+        scores = torch.tanh(scores / softcap) * softcap
+    q_pos = torch.arange(T, device=q.device) + (S - T)
+    kv_pos = torch.arange(S, device=q.device)
+    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kv_pos[None, :] <= q_pos[:, None]
+    if window:
+        mask &= kv_pos[None, :] > q_pos[:, None] - window
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgts,bskh->btkgh", probs, v.float())
+    return out.reshape(B, T, H, hd).to(q.dtype)
+
+
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, block: torch.Tensor,
                         lens: torch.Tensor, softcap: float = 0.0

@@ -2,14 +2,17 @@
 
 All layers are plain functions over explicit parameter dicts of tensors,
 with the JAX package's layouts (``wq [d, nh, hd]``, ``wo [nh, hd, d]``,
-...) so converted weights drop in unchanged.  Attention has two modes
-here: no cache, and the paged branch, whose read goes through
-``ops.paged_attention`` — the Hopper kernel on CUDA, its plain version
-on the CPU.  The dense ring-cache branch of the JAX package waits for a
-later slice.
+...) so converted weights drop in unchanged.  Attention has three modes
+here: no cache; the paged branch; and the dense ring, a private
+``[B, size, Hkv, hd]`` cache per layer.  Every cached read goes through a
+kernel (``ops`` — the Hopper kernel on CUDA, its plain version on the
+CPU): ``ops.flash_attention`` over the written ring prefix for a scalar
+``cache_pos`` (prefill, lockstep wave decode), ``ops.paged_attention``
+over the ring viewed as identity-mapped pages for a ``[B]`` one.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -64,19 +67,41 @@ def is_paged(cache) -> bool:
     return isinstance(cache, dict) and "pages_k" in cache
 
 
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  window: int = 0, device=None) -> Dict[str, torch.Tensor]:
+    """Ring-buffer KV cache for one layer: ``k``/``v`` of ``[batch, size,
+    Hkv, hd]`` zeros in the compute dtype, ``size = min(window,
+    max_len)`` or ``max_len``."""
+    size = min(window, max_len) if window else max_len
+    kv = (batch, size, cfg.num_kv_heads, cfg.head_dim_)
+    return {n: torch.zeros(kv, dtype=cfg.compute_dtype, device=device)
+            for n in ("k", "v")}
+
+
+def ring_page_size(size: int) -> int:
+    """Page size of the identity-page view of a ``size``-slot ring: the
+    largest power of two up to 64 that divides it, so the view is exact."""
+    return math.gcd(size, 64)
+
+
 def attention(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor,
               cache: Optional[Dict[str, Any]] = None,
-              cache_pos: Optional[torch.Tensor] = None,
+              cache_pos=None,
               write_mask: Optional[torch.Tensor] = None,
               ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """GQA self-attention.
 
     x: [B, T, D]; positions: [B, T] absolute positions of x tokens.
-    cache/cache_pos: a paged cache (:func:`is_paged`, with ``layer`` set)
-        and the [B] write position of each row; None for no cache.
-    write_mask: [B, T] bool, per-token cache-write validity: masked
-        tokens are not written to any page another row can read.
+    cache/cache_pos: None for no cache; a paged cache (:func:`is_paged`,
+        with ``layer`` set) and the [B] write position of each row; or a
+        dense ring ``{"k", "v"}`` of one layer with either a Python int
+        (the whole batch in lockstep: prefill, wave decode) or a [B]
+        tensor (per-row slots), plus the ring's constant identity block
+        table ``block`` [B, size / ring_page_size(size)] for the latter.
+    write_mask: [B, T] bool, per-token cache-write validity (needs a [B]
+        ``cache_pos``): masked tokens write nothing another row can read
+        (paged) or keep the ring's old value (dense).
 
     Returns (out [B,T,D], the cache (updated in place) or None).
     """
@@ -90,41 +115,101 @@ def attention(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
-    if cache is not None:
-        if not is_paged(cache):
-            raise NotImplementedError(
-                "dense ring KV caches are not ported yet (ROADMAP: dense-"
-                "ring attention branch); use a paged cache")
-        if cfg.sliding_window:
-            raise NotImplementedError("a sliding window defeats the linear "
-                                      "position->page mapping")
-        kp, vp = cache["pages_k"], cache["pages_v"]
-        li, blockt = cache["layer"], cache["block"]
-        ps = kp.shape[1]
-        sink = kp.shape[0] - 1
-        cp = cache_pos
-        if cp is None or cp.dim() != 1:
-            raise ValueError("paged cache requires a [B] vector cache_pos "
-                             "(per-row block tables)")
-        cp = cp.long()
-        idx = cp[:, None] + torch.arange(T, device=x.device)     # [B, T]
-        col = torch.clamp(idx // ps, max=blockt.shape[1] - 1)    # mode="clip"
-        page = torch.gather(blockt, 1, col).long()
-        off = idx % ps
-        if write_mask is not None:
-            page = torch.where(write_mask, page, torch.full_like(page, sink))
-        # In place, through the layer's strided view of the shared pool.
-        kp[:, :, li].index_put_((page, off), k.to(kp.dtype))
-        vp[:, :, li].index_put_((page, off), v.to(vp.dtype))
-        # Query t sits at lens-T+t, so lens = cache_pos + T (not the
-        # written count): each valid query t attends k_pos <= cp+t.
-        lens = (cp + T).to(torch.int32)
-        out = ops.paged_attention(q, kp[:, :, li], vp[:, :, li], blockt,
-                                  lens, softcap=cfg.attn_logit_softcap)
-    else:
+    if cache is None:
         out = _attend_causal(cfg, q, k, v, positions)
+    elif is_paged(cache):
+        out = _paged(cfg, q, k, v, cache, cache_pos, write_mask)
+    else:
+        out = _dense_ring(cfg, q, k, v, cache, cache_pos, write_mask)
     out = torch.einsum("bthk,hkd->btd", out, p["wo"])
     return out, cache
+
+
+def _paged(cfg: ModelConfig, q, k, v, cache, cache_pos, write_mask):
+    """Paged branch: scatter the T new tokens to (page, offset) in place,
+    then attend through the block table."""
+    if cfg.sliding_window:
+        raise NotImplementedError("a sliding window defeats the linear "
+                                  "position->page mapping")
+    T = q.shape[1]
+    kp, vp = cache["pages_k"], cache["pages_v"]
+    li, blockt = cache["layer"], cache["block"]
+    ps = kp.shape[1]
+    sink = kp.shape[0] - 1
+    cp = cache_pos
+    if not torch.is_tensor(cp) or cp.dim() != 1:
+        raise ValueError("paged cache requires a [B] vector cache_pos "
+                         "(per-row block tables)")
+    cp = cp.long()
+    idx = cp[:, None] + torch.arange(T, device=q.device)         # [B, T]
+    col = torch.clamp(idx // ps, max=blockt.shape[1] - 1)        # mode="clip"
+    page = torch.gather(blockt, 1, col).long()
+    off = idx % ps
+    if write_mask is not None:
+        page = torch.where(write_mask, page, torch.full_like(page, sink))
+    # In place, through the layer's strided view of the shared pool.
+    kp[:, :, li].index_put_((page, off), k.to(kp.dtype))
+    vp[:, :, li].index_put_((page, off), v.to(vp.dtype))
+    # Query t sits at lens-T+t, so lens = cache_pos + T (not the written
+    # count): each valid query t attends k_pos <= cp+t.
+    lens = (cp + T).to(torch.int32)
+    return ops.paged_attention(q, kp[:, :, li], vp[:, :, li], blockt, lens,
+                               softcap=cfg.attn_logit_softcap)
+
+
+def _dense_ring(cfg: ModelConfig, q, k, v, cache, cache_pos, write_mask):
+    """Dense ring branch: write the T new tokens into ring slot
+    ``(cp + t) % size`` in place, then attend over the written ring.
+
+    A Python-int ``cache_pos`` writes the same slots for every row and
+    reads ``ring[:, :cp + T]`` through the flash kernel (queries at its
+    suffix: the flash contract with ``q_offset = cp``).  A [B] tensor
+    writes each row at its own slots (masked tokens keep the old value
+    through a gather + where over the T touched slots) and reads the ring
+    as identity-mapped pages through the paged kernel with ``lens = cp +
+    T``.  Dead decode rows write junk into their own private row, as in
+    the JAX package; no caller reads their outputs."""
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            "the sliding-window ring (wrap-around reads) is not ported yet "
+            "(ROADMAP: gemma_local_global)")
+    B, T = q.shape[:2]
+    ck, cv = cache["k"], cache["v"]
+    size = ck.shape[1]
+    k_new, v_new = k.to(ck.dtype), v.to(cv.dtype)
+    if not torch.is_tensor(cache_pos):
+        cp = int(cache_pos)
+        if write_mask is not None:
+            raise ValueError("write_mask requires a [B] vector cache_pos "
+                             "(per-row chunked admission)")
+        if cp + T > size:
+            raise NotImplementedError(
+                f"lockstep write past the ring ({cp} + {T} > {size}): "
+                "wrap-around reads are not ported yet")
+        ck[:, cp:cp + T] = k_new
+        cv[:, cp:cp + T] = v_new
+        return ops.flash_attention(q, ck[:, :cp + T], cv[:, :cp + T],
+                                   causal=True,
+                                   softcap=cfg.attn_logit_softcap)
+    if cache_pos.dim() != 1:
+        raise ValueError("a dense ring needs a Python int or a [B] "
+                         "cache_pos")
+    cp = cache_pos.long()
+    slots = (cp[:, None] + torch.arange(T, device=q.device)) % size
+    b_idx = torch.arange(B, device=q.device)[:, None]
+    if write_mask is not None:
+        wm = write_mask[:, :, None, None]
+        k_new = torch.where(wm, k_new, ck[b_idx, slots])
+        v_new = torch.where(wm, v_new, cv[b_idx, slots])
+    ck.index_put_((b_idx, slots), k_new)
+    cv.index_put_((b_idx, slots), v_new)
+    ps = ring_page_size(size)
+    Hkv, hd = ck.shape[2], ck.shape[3]
+    lens = (cp + T).to(torch.int32)
+    return ops.paged_attention(q, ck.view(B * size // ps, ps, Hkv, hd),
+                               cv.view(B * size // ps, ps, Hkv, hd),
+                               cache["block"], lens,
+                               softcap=cfg.attn_logit_softcap)
 
 
 def _attend_causal(cfg: ModelConfig, q, k, v, positions):

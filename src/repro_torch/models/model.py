@@ -4,7 +4,9 @@
 JAX package's serving surface over plain parameter dicts of tensors:
 
   init(generator) -> params
+  init_cache(batch, max_len) -> dense ring cache {"k", "v"}
   forward(params, tokens, caches=, cache_pos=, start_pos=, write_mask=)
+  prefill(params, tokens, max_len) -> (next_tok [B], fresh dense cache)
   decode_step(params, cache, tokens, pos) -> (next_tok, cache)
   decode_loop(params, cache, cur, pos, rem, eos, k=, max_len=)
       -> (token block [B, k], cache)        [fused packet-mode decode]
@@ -13,9 +15,12 @@ JAX package's serving surface over plain parameter dicts of tensors:
   chunked_block(...same..., cur, pos, rem, eos, k=, max_len=)
       -> (next_tok, block, cache)  [one dispatch: chunk + K decode steps]
 
-Caches are paged (``layers.is_paged``): the pool's page arrays are
-updated in place, so the returned cache is the one passed in.  The layer
-stack is a Python loop (the JAX package's ``lax.scan``).  Entry points
+Caches are paged (``layers.is_paged``: the pool's page arrays) or dense
+rings (``init_cache``: ``[L, B, size, Hkv, hd]`` per K and V).  Both are
+updated in place, so the returned cache is the one passed in.  A scalar
+position (prefill, lockstep wave decode) is a Python int; per-row
+positions are a [B] tensor.  The layer stack is a Python loop (the JAX
+package's ``lax.scan``).  Entry points
 run on CUDA unless ``device="cpu"`` is passed; without a card they raise.
 """
 from __future__ import annotations
@@ -28,7 +33,8 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (attention, embed, is_paged, mlp,
+from repro_torch.models.layers import (attention, embed, init_kv_cache,
+                                       is_paged, mlp, ring_page_size,
                                        rms_norm, unembed_matrix)
 from repro_torch.models.losses import full_logits
 
@@ -66,6 +72,9 @@ def attn_block(p: Params, cfg: ModelConfig, x, positions, cache=None,
 class Model:
     cfg: ModelConfig
     device: torch.device
+    # Identity block tables of dense rings, one per (batch, pages per row).
+    _rings: Dict[tuple, torch.Tensor] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
     def _structure(self) -> str:
         cfg = self.cfg
@@ -128,14 +137,42 @@ class Model:
         }
 
     # -- forward -------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
+        """Dense ring cache of the whole stack: ``{"k", "v"}`` zeros of
+        ``[L, batch, size, Hkv, hd]`` in the compute dtype."""
+        one = init_kv_cache(self.cfg, batch, max_len,
+                            window=self.cfg.sliding_window,
+                            device=self.device)
+        L = self.cfg.num_layers
+        return {n: a.new_zeros((L,) + tuple(a.shape)) for n, a in one.items()}
+
+    def _ring_block(self, batch: int, size: int) -> torch.Tensor:
+        """The constant identity block table ``arange(B * P).view(B, P)``
+        of a ``[B, size]`` ring viewed as ``size / P``-token pages, built
+        once per shape."""
+        P = size // ring_page_size(size)
+        blk = self._rings.get((batch, P))
+        if blk is None:
+            blk = torch.arange(batch * P, dtype=torch.int32,
+                               device=self.device).view(batch, P)
+            self._rings[batch, P] = blk
+        return blk
+
     def _run_stack(self, params: Params, x, positions, caches, cache_pos,
                    write_mask=None):
-        if caches is not None and not is_paged(caches):
-            raise NotImplementedError(
-                "dense ring KV caches are not ported yet; use a paged cache")
         layers = params["layers"]
+        paged = caches is not None and is_paged(caches)
+        block = None
+        if caches is not None and not paged and torch.is_tensor(cache_pos):
+            block = self._ring_block(*caches["k"].shape[1:3])
         for li in range(self.cfg.num_layers):
-            c = None if caches is None else {**caches, "layer": li}
+            if caches is None:
+                c = None
+            elif paged:
+                c = {**caches, "layer": li}
+            else:
+                c = {"k": caches["k"][li], "v": caches["v"][li],
+                     "block": block}
             x, _ = attn_block(_layer(layers, li), self.cfg, x, positions,
                               cache=c, cache_pos=cache_pos,
                               write_mask=write_mask)
@@ -165,13 +202,25 @@ class Model:
 
     # -- serving -------------------------------------------------------------
     def decode_step(self, params: Params, caches, tokens: torch.Tensor,
-                    pos: torch.Tensor, write_mask=None):
-        """tokens: [B, 1]; pos: [B] absolute position of each row (the
-        paged backend needs per-row positions).  ``write_mask`` [B, 1]
-        gates the cache write per row.  Greedy."""
+                    pos, write_mask=None):
+        """tokens: [B, 1]; pos: absolute position — a Python int (lockstep
+        wave decode over a dense ring) or a [B] tensor (per-row; the paged
+        backend needs it).  ``write_mask`` [B, 1] gates the cache write per
+        row (paged; dense rows keep their junk in their own rows).
+        Greedy."""
+        start = pos[:, None] if torch.is_tensor(pos) else pos
         hidden, caches = self.forward(
-            params, tokens, caches=caches, cache_pos=pos,
-            start_pos=pos[:, None], write_mask=write_mask)
+            params, tokens, caches=caches, cache_pos=pos, start_pos=start,
+            write_mask=write_mask)
+        return self._greedy(params, hidden[:, -1:]), caches
+
+    def prefill(self, params: Params, tokens: torch.Tensor, max_len: int):
+        """Process whole prompts [B, T] into a fresh dense ring cache of
+        ``max_len`` positions; returns (greedy next token [B], cache).
+        Attention is the flash kernel's causal prefill on CUDA."""
+        caches = self.init_cache(tokens.shape[0], max_len)
+        hidden, caches = self.forward(params, tokens, caches=caches,
+                                      cache_pos=0, start_pos=0)
         return self._greedy(params, hidden[:, -1:]), caches
 
     def decode_loop(self, params: Params, caches, cur, pos, rem, eos, *,

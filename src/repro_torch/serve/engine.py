@@ -1,5 +1,6 @@
-"""Serving engine (``scheduler="slot_paged"``): lock-free request intake,
-iteration-level batching, the page pool as the device-resident KV store.
+"""Serving engine: lock-free request intake, iteration-level batching,
+and the JAX package's five schedulers over a dense ring cache or the page
+pool.
 
 MCAPI topology, lock-free end to end (paper Figures 1-4 without the red
 lock):
@@ -18,21 +19,34 @@ lock):
                   RECEIVED->FREE); finished sequences release their slot
                   and pages at block granularity and waiting requests
                   swap in without stopping decode.
-  * residency   — the pool's ``k``/``v`` tensors are THE KV store; each
-                  slot holds only an int32 block-table row and a length.
-                  Decode attends straight through the block table (the
-                  Hopper paged-attention kernel on CUDA), new K/V is
-                  written in place at (page, offset), and admission/
-                  retire reduce to editing int32 rows and refcounted
-                  pages — ``kv_copy_bytes`` stays 0 without CoW.
-  * dispatch    — each tick makes ONE ``Model.chunked_block`` call: one
-                  prompt chunk per admitting slot plus a K-step greedy
-                  decode block for every decoding slot, and ONE device->
-                  host fetch of the chunk's next tokens and the [B, K]
-                  token block together (``stats["host_syncs"]``).
-  * sharing     — chained chunk hashes of the bucketed prompt key a
-                  prefix cache of resident page runs: a hit adopts the
-                  pages (refcount increments) and skips those chunks.
+  * schedulers  — ``slot_fused`` (default): a B=1 monolithic prefill per
+                  admission (the Hopper flash-attention kernel on CUDA)
+                  copied into the slot's row of a dense [max_batch,
+                  max_len] ring cache, then fused K-step decode blocks
+                  (the paged-attention kernel reading the ring as
+                  identity-mapped pages); ``slot``: the same with one
+                  decode step and one host sync per tick;
+                  ``slot_chunked``: prompt chunks written in place into
+                  the ring, riding the decode dispatch; ``slot_paged``:
+                  the chunked discipline over the page pool; ``wave``:
+                  batch-level waves (one B-row prefill, then lockstep
+                  decode at a shared position, also on the flash kernel).
+  * residency   — under ``slot_paged`` the pool's ``k``/``v`` tensors are
+                  THE KV store; each slot holds only an int32 block-table
+                  row and a length, new K/V is written in place at (page,
+                  offset), and admission/retire reduce to editing int32
+                  rows and refcounted pages — ``kv_copy_bytes`` stays 0
+                  without CoW.  The dense schedulers use the pool for
+                  admission accounting only.
+  * dispatch    — the chunked schedulers make ONE ``Model.chunked_block``
+                  call per tick: one prompt chunk per admitting slot plus
+                  a K-step greedy decode block for every decoding slot,
+                  and ONE device->host fetch of both together
+                  (``stats["host_syncs"]``).
+  * sharing     — (``slot_paged``) chained chunk hashes of the bucketed
+                  prompt key a prefix cache of resident page runs: a hit
+                  adopts the pages (refcount increments) and skips those
+                  chunks.
   * streaming   — ``engine.connect(client_id)`` returns the client's
                   :class:`Session`; ``session.submit_i(...)`` returns a
                   :class:`RequestHandle` whose ``tokens()`` yields
@@ -42,9 +56,8 @@ lock):
                   and frees its KV pages mid-decode.  The legacy
                   ``submit``/``get_response`` calls wrap session + handle.
 
-The other schedulers, overload control, fault plans, leases and the tick
-watchdog, and snapshot/restore of the JAX package's engine wait for
-later slices.
+Overload control, fault plans, leases and the tick watchdog, and
+snapshot/restore of the JAX package's engine wait for later slices.
 """
 from __future__ import annotations
 
@@ -64,6 +77,8 @@ from repro_torch.core.host_queue import MpscQueue, SpscQueue
 from repro_torch.models.model import prefix_chunk_hashes, resolve_device
 from repro_torch.serve.kv_cache import OK as POOL_OK
 from repro_torch.serve.kv_cache import PagedKVPool, PrefixCache
+
+SCHEDULERS = ("slot_paged", "slot_chunked", "slot_fused", "slot", "wave")
 
 
 @dataclasses.dataclass
@@ -373,7 +388,7 @@ class Session:
             h._final = req
             h.status = req.status = FailedStatus("session closed")
             return h
-        padded = eng._bucket(len(req.prompt))
+        padded = eng._footprint(len(req.prompt))
         if padded + max_tokens > eng.max_len:
             req.fsm.transition(states.REQUEST_VALID,
                                states.REQUEST_CANCELLED)
@@ -487,8 +502,9 @@ class DecodeSlot:
     fsm: states.StateCell = dataclasses.field(
         default_factory=lambda: states.buffer_cell())
     request: Optional[Request] = None
-    pos: int = 0                        # tokens written to this row's pages
+    pos: int = 0                        # tokens written to this row's cache
     generated: int = 0
+    next_tok: int = 0                   # harvested, not yet delivered
     outs: Optional[np.ndarray] = None
     prompt: Optional[np.ndarray] = None  # bucketed prompt being prefilled
     prefill_pos: int = 0                # prompt tokens streamed so far
@@ -504,35 +520,48 @@ class DecodeSlot:
     created_prefixes: List[int] = dataclasses.field(default_factory=list)
 
 
+def _write_slot_caches(full: Dict[str, torch.Tensor],
+                       one: Dict[str, torch.Tensor], slot: int) -> None:
+    """Copy a B=1 prefilled dense cache into row ``slot`` of the batch
+    cache, in place: the batch axis is axis 1 of the layer-stacked
+    ``[L, B, size, Hkv, hd]`` rings."""
+    for name, f in full.items():
+        f[:, slot].copy_(one[name][:, 0])
+
+
 class ServeEngine:
     def __init__(self, model, params, *, max_batch: int = 4,
                  max_len: int = 128, n_clients: int = 2,
                  pool_pages: int = 64, page_size: int = 16,
                  intake_depth: int = 32, stream_depth: int = 256,
-                 scheduler: str = "slot_paged", k_max: int = 8,
+                 scheduler: str = "slot_fused", k_max: int = 8,
                  k_free: int = 2, chunk_tokens: int = 16,
                  prefix_cache: bool = True, device=None):
-        if scheduler != "slot_paged":
-            raise ValueError(
-                f"scheduler {scheduler!r} is not ported yet; the port "
-                "serves scheduler='slot_paged' only")
+        if scheduler not in SCHEDULERS:
+            raise ValueError(f"unknown scheduler {scheduler!r}")
         if k_max < 1 or k_free < 1:
             raise ValueError(f"need k_max >= 1 and k_free >= 1, "
                              f"got {k_max}/{k_free}")
         if not 1 <= chunk_tokens <= max_len:
             raise ValueError(f"need 1 <= chunk_tokens <= max_len, "
                              f"got {chunk_tokens}/{max_len}")
-        if not model.pageable:
+        if scheduler == "slot_chunked" and not model.chunkable:
+            raise ValueError(
+                f"{model.cfg.name}: slot_chunked needs position-indexed "
+                "caches (recurrent mamba/rwkv state cannot be chunk-"
+                "prefilled in place); use scheduler='slot_fused'")
+        if scheduler == "slot_paged" and not model.pageable:
             raise ValueError(
                 f"{model.cfg.name}: slot_paged needs one uniform position-"
                 "indexed KV shape per layer (no sliding window, no "
-                "recurrent/cross state)")
+                "recurrent/cross state); use scheduler='slot_chunked'")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model on {model.device}, engine on "
                              f"{self.device}")
         self.model, self.params = model, params
         self.max_batch, self.max_len = max_batch, max_len
+        self.scheduler = scheduler
         self.chunk_tokens = chunk_tokens
         # k_max=1 is the legitimate scalar-equivalent fused setting;
         # clamp the under-capacity cap instead of rejecting it.
@@ -553,13 +582,18 @@ class ServeEngine:
         self._id = itertools.count()
         self._stop = threading.Event()
         self.slots = [DecodeSlot(i) for i in range(max_batch)]
-        # Per-slot block-table width; slots are int32 rows, no dense cache.
+        self._caches = None             # dense [L, max_batch, ...] ring cache
+        # Paged residency (slot_paged): per-slot block-table width.  The
+        # dense batch cache is never allocated; slots are int32 rows.
         self._max_pages = self.pool.pages_needed(max_len)
         self._cur = np.zeros((max_batch,), np.int32)
         self._pos = np.zeros((max_batch,), np.int32)
         # Prefix sharing: chained chunk hashes of the bucketed prompt
-        # stream -> resident page runs.
-        self.prefix_cache = PrefixCache(self.pool) if prefix_cache else None
+        # stream -> resident page runs.  Only the paged scheduler can
+        # share (dense rows are per-slot by construction).
+        self.prefix_cache = (PrefixCache(self.pool)
+                             if scheduler == "slot_paged" and prefix_cache
+                             else None)
         # Burst dedup: requests whose whole shareable prefix is being
         # prefilled by a bound slot RIGHT NOW wait here instead of
         # prefilling the same chunks cold (batcher-thread only).
@@ -568,12 +602,19 @@ class ServeEngine:
         self._pending_bind: Dict[int, Tuple[List[int], int]] = {}
         self.stats = {"served": 0, "rejected": 0, "cancelled": 0,
                       "batches": 0, "decode_steps": 0, "admitted": 0,
-                      "slot_busy_steps": 0,
+                      "prefills": 0, "slot_busy_steps": 0,
                       "dropped_responses": 0, "dropped_stream_events": 0,
                       "host_syncs": 0, "ring_ops": 0, "fused_blocks": 0,
-                      # Admission-plane counters: dispatches that carried
-                      # prefill work and prompt chunks materialized.
+                      # Admission-plane counters, honest for every
+                      # scheduler: dispatches that carried prefill work,
+                      # prompt chunks materialized (a monolithic prefill
+                      # is one whole-prompt chunk), dispatches that only
+                      # copy a B=1 side cache into the batch cache, and
+                      # decode-step opportunities active slots lost while
+                      # a serial prefill ran (both 0 when chunked).
                       "prefill_dispatches": 0, "prefill_chunks": 0,
+                      "cache_copy_dispatches": 0,
+                      "admission_stall_steps": 0,
                       # Prefix sharing: admissions that adopted cached
                       # pages and the prompt positions never dispatched.
                       "prefix_hits": 0, "prefill_tokens_saved": 0,
@@ -729,13 +770,32 @@ class ServeEngine:
         prompt[padded - len(req.prompt):] = req.prompt      # left-pad
         return prompt
 
+    def _footprint(self, prompt_len: int) -> int:
+        """Cache positions a prompt occupies before generation starts,
+        for the session layer's fail-fast oversize check: the bucketed
+        length for the slot schedulers (they write at bucketed
+        positions), the raw length for the wave scheduler (it pads only
+        to the batch max)."""
+        if self.scheduler == "wave":
+            return prompt_len
+        return self._bucket(prompt_len)
+
+    def _dense_caches(self) -> Dict[str, torch.Tensor]:
+        """The persistent dense batch cache, allocated at first use."""
+        if self._caches is None:
+            self._caches = self.model.init_cache(self.max_batch,
+                                                 self.max_len)
+        return self._caches
+
     def dense_cache_bytes(self) -> int:
-        """Footprint a dense [max_batch, max_len] per-layer K/V cache
-        WOULD occupy (computed from shapes; nothing is allocated): the
+        """Footprint the dense [max_batch, max_len] batch cache occupies
+        or WOULD occupy (computed from shapes; nothing is allocated): the
         baseline ``kv_resident_bytes`` is compared against."""
         cfg = self.model.cfg
         itemsize = torch.empty((), dtype=cfg.compute_dtype).element_size()
-        return (2 * cfg.num_layers * self.max_batch * self.max_len
+        W = cfg.sliding_window
+        size = min(W, self.max_len) if W else self.max_len
+        return (2 * cfg.num_layers * self.max_batch * size
                 * max(cfg.num_kv_heads, 1) * (cfg.head_dim_ or 1) * itemsize)
 
     def _block_table(self) -> np.ndarray:
@@ -760,7 +820,8 @@ class ServeEngine:
         here; the reservation grows chunk by chunk.  A cached prefix hit
         skips those chunks entirely: admission adopts the cached pages
         (refcount increments + an int32 block-table row) and prefill
-        resumes at the hit extent."""
+        resumes at the hit extent.  The monolithic-prefill schedulers
+        claim the whole prompt + generation reservation up front."""
         while True:
             req, keys = self._next_candidate()
             if req is None:
@@ -771,11 +832,14 @@ class ServeEngine:
                 usable = self._usable_keys(padded, keys)
                 if usable:
                     entry = self.prefix_cache.lookup(usable[::-1])
+            if self.scheduler in ("slot_chunked", "slot_paged"):
+                need = min(self.chunk_tokens, padded)
+            else:
+                need = padded + req.max_tokens
             if entry is not None:
                 self.pool.adopt_shared(req.req_id, entry.pages,
                                        entry.n_tokens, slot=slot.index)
-            elif self.pool.try_admit(req.req_id,
-                                     min(self.chunk_tokens, padded),
+            elif self.pool.try_admit(req.req_id, need,
                                      slot=slot.index) != POOL_OK:
                 self._reject(req)
                 continue
@@ -988,11 +1052,13 @@ class ServeEngine:
                 or pos + 1 >= self.max_len)
 
     def _sweep_in(self) -> bool:
-        """Tick head: (0) abort client-cancelled slots — their pages
-        return before admission; then (1) drain the intake fan-in into
-        ALL free slots (binding them RESERVED) before any device work.
-        Their first chunks ride the next dispatch.  Returns True iff
-        anything moved."""
+        """Tick head shared by all slot schedulers: (0) abort
+        client-cancelled slots — their pages return before admission;
+        then (1) drain the intake fan-in into ALL free slots (binding
+        them RESERVED) before any device work; then (2) for the
+        monolithic-prefill schedulers, prefill the newly bound slots.
+        Under the chunked schedulers their first chunks ride the next
+        dispatch instead.  Returns True iff anything moved."""
         worked = False
         for slot in self.slots:
             req = slot.request
@@ -1000,7 +1066,7 @@ class ServeEngine:
                 self._abort_slot(slot)
                 worked = True
         was_idle = not any(s.request is not None for s in self.slots)
-        newly = False
+        newly: List[DecodeSlot] = []
         for slot in self.slots:
             if slot.request is not None:
                 continue
@@ -1008,18 +1074,170 @@ class ServeEngine:
             if req is None:
                 break
             self._bind_slot(slot, req)
-            newly = worked = True
+            newly.append(slot)
+            worked = True
         if newly and was_idle:
             self.stats["batches"] += 1      # new busy period begins
+        if self.scheduler not in ("slot_chunked", "slot_paged"):
+            for slot in newly:
+                self._prefill_slot(slot)
         return worked
 
+    def _prefill_slot(self, slot: DecodeSlot) -> None:
+        """Monolithic admission tail (``slot``/``slot_fused``): one B=1
+        prefill dispatch (flash attention over the prompt), one dedicated
+        host sync for the first token, and one copy of the B=1 cache into
+        the batch-cache row — the serializing intermediary the chunked
+        scheduler deletes.  Every active slot loses one decode-step
+        opportunity while this runs (``admission_stall_steps``)."""
+        self.stats["admission_stall_steps"] += sum(
+            1 for s in self.slots
+            if s is not slot and s.request is not None and s.generated > 0)
+        prompt = torch.from_numpy(slot.prompt[None]).to(self.device)
+        with torch.no_grad():
+            tok, one = self.model.prefill(self.params, prompt, self.max_len)
+        self.stats["prefills"] += 1
+        self.stats["prefill_dispatches"] += 1
+        self.stats["prefill_chunks"] += 1   # one whole-prompt chunk
+        self.stats["host_syncs"] += 1       # the int(...) fetch below
+        _write_slot_caches(self._dense_caches(), one, slot.index)
+        self.stats["cache_copy_dispatches"] += 1
+        # Honest copy accounting: the B=1 side cache is KV traffic this
+        # scheduler pays to establish residency.
+        self.pool.kv_copy_bytes += sum(t.numel() * t.element_size()
+                                       for t in one.values())
+        # ... -> ALLOCATED (KV materialized in this slot's cache rows).
+        slot.fsm.transition(states.BUFFER_RESERVED, states.BUFFER_ALLOCATED)
+        padded = len(slot.prompt)
+        slot.next_tok = int(tok[0])
+        slot.pos = padded
+        slot.prefill_pos = padded
+        self._pos[slot.index] = padded
+        self._cur[slot.index] = slot.next_tok
+
     def tick(self) -> Tuple[int, bool]:
-        """One engine iteration (micro-batch): every slot whose prompt is
-        still streaming contributes its next fixed-shape chunk, every
-        decoding slot its next K steps, and BOTH ride ONE model dispatch
-        and ONE host fetch.  Returns (requests retired, did work)."""
+        """One engine iteration (micro-batch): abort cancelled slots,
+        swap in, harvest + retire, then one *fused block* of K decode
+        steps (``slot_fused``) or a single decode step (``slot``, the
+        K=1 baseline); ``slot_chunked``/``slot_paged`` additionally
+        stream one prompt chunk per admitting slot inside the same
+        dispatch.  Returns (requests retired, did work)."""
         if self.dead is not None:
             return 0, False
+        if self.scheduler in ("slot_chunked", "slot_paged"):
+            return self._tick_chunked()
+        if self.scheduler == "slot_fused":
+            return self._tick_fused()
+        return self._tick_scalar()
+
+    def _choose_k(self, active: List[DecodeSlot]) -> int:
+        """Block length for this tick: never past the smallest remaining
+        budget over active slots (a block ends exactly when the first
+        budget-bounded sequence finishes), and at most ``k_free`` while a
+        slot is FREE, so an arrival waits at most ``k_free`` steps."""
+        k = min(self.k_max,
+                min(s.request.max_tokens - s.generated for s in active))
+        if len(active) < self.max_batch:
+            k = min(k, self.k_free)
+        return max(1, k)
+
+    def _tick_fused(self) -> Tuple[int, bool]:
+        """One packet-mode iteration: the exact-TTFT harvest of prefill
+        tokens stays per-request, then ONE fused device call runs K decode
+        steps for the whole slot pool and ONE device->host sync harvests
+        the [B, K] token block."""
+        served = 0
+        worked = self._sweep_in()
+        # Harvest each fresh admission's prefill token NOW, at K=1 — TTFT
+        # stays exact; sequences done after one token retire here.
+        for slot in self.slots:
+            req = slot.request
+            if req is None or slot.generated > 0:
+                continue
+            tok = int(slot.next_tok)
+            slot.outs[0] = tok
+            slot.generated = 1
+            now = time.monotonic()
+            req.first_token_t = now
+            req.token_ts.append(now)
+            self._stream_tokens(req, 0, [tok])
+            worked = True
+            if self._finished(req, tok, slot.generated, slot.pos):
+                self._retire(slot)
+                served += 1
+        active = [s for s in self.slots if s.request is not None]
+        if not active:
+            return served, worked
+        k = self._choose_k(active)
+        B = self.max_batch
+        rem_v = np.zeros((B,), np.int32)
+        eos_v = np.full((B,), -1, np.int32)
+        for s in active:
+            rem_v[s.index] = s.request.max_tokens - s.generated
+            eos_v[s.index] = s.request.eos_id
+        zeros = np.zeros((B,), np.int32)
+        t0 = time.monotonic()
+        _, blk = self._dispatch(None, zeros, zeros, self._pos.copy(), rem_v,
+                                eos_v, k)
+        self.stats["host_syncs"] += 1   # the ONE sync for the whole block
+        t1 = time.monotonic()
+        served += self._harvest_block(active, blk, k, t0, t1)
+        return served, True
+
+    def _tick_scalar(self) -> Tuple[int, bool]:
+        """The unfused baseline (``scheduler="slot"``): one decode step
+        and one host sync per tick."""
+        served = 0
+        worked = self._sweep_in()
+        # Harvest the token each active slot produced (prefill or the
+        # previous decode step); stream it; retire finished sequences.
+        for slot in self.slots:
+            req = slot.request
+            if req is None:
+                continue
+            slot.outs[slot.generated] = slot.next_tok
+            slot.generated += 1
+            now = time.monotonic()
+            if slot.generated == 1:
+                req.first_token_t = now     # TTFT measurement point
+            req.token_ts.append(now)
+            self._stream_tokens(req, slot.generated - 1,
+                                [int(slot.next_tok)])
+            worked = True
+            if self._finished(req, int(slot.next_tok), slot.generated,
+                              slot.pos):
+                self._retire(slot)
+                served += 1
+        # One decode step over the fixed-shape batch; idle rows are
+        # masked by their own per-row position.
+        active = [s for s in self.slots if s.request is not None]
+        if active:
+            dev = torch.from_numpy(np.stack([self._cur, self._pos],
+                                            axis=1)).to(self.device)
+            with torch.no_grad():
+                nxt, _ = self.model.decode_step(
+                    self.params, self._dense_caches(), dev[:, :1],
+                    dev[:, 1])
+            cur = nxt.cpu().numpy()
+            self.stats["host_syncs"] += 1   # one sync per decode step
+            for s in active:
+                s.next_tok = int(cur[s.index])
+                s.pos += 1
+                self._pos[s.index] = s.pos
+                self._cur[s.index] = s.next_tok
+                self.pool.note_tokens(s.request.req_id, s.pos)
+            self.stats["decode_steps"] += 1
+            self.stats["slot_busy_steps"] += len(active)
+            worked = True
+        return served, worked
+
+    def _tick_chunked(self) -> Tuple[int, bool]:
+        """One chunked-admission iteration: every slot whose prompt is
+        still streaming contributes its next fixed-shape chunk, every
+        decoding slot its next K steps, and BOTH ride ONE model dispatch
+        and ONE host fetch.  ``slot_paged`` shares this tick verbatim;
+        only the cache operand differs (the page pool + block table
+        instead of the dense ring)."""
         served = 0
         worked = self._sweep_in()
         B, C = self.max_batch, self.chunk_tokens
@@ -1111,6 +1329,7 @@ class ServeEngine:
                                      nval_v, pos_v, rem_v, eos_v, k)
         self.stats["host_syncs"] += 1   # ONE fetch covers chunk AND block
         if chunks:
+            self.stats["prefills"] += 1
             self.stats["prefill_dispatches"] += 1
         t1 = time.monotonic()
         # Harvest chunks.  A final chunk delivers the prefill's first
@@ -1155,11 +1374,15 @@ class ServeEngine:
                   pos_v, rem_v, eos_v, k: int):
         """ONE model call for this tick, its host inputs packed into one
         int32 upload and its outputs (the chunk's next tokens and the
-        [B, k] block) fetched back in ONE ``.cpu()``.  Returns numpy
-        (tok_pf [B] or None, block [B, k] int64 or None)."""
+        [B, k] block) fetched back in ONE ``.cpu()``.  The cache operand
+        is the page pool + this dispatch's block table (``slot_paged``)
+        or the dense batch cache.  Returns numpy (tok_pf [B] or None,
+        block [B, k] int64 or None)."""
         B = self.max_batch
         C = 0 if chunk is None else chunk.shape[1]
-        bt = self._block_table()
+        paged = self.scheduler == "slot_paged"
+        bt = (self._block_table() if paged
+              else np.zeros((B, 0), np.int32))
         host = np.concatenate(
             [bt, np.stack([self._cur, pos_v, rem_v, eos_v, start_v,
                            nval_v], axis=1)]
@@ -1168,8 +1391,9 @@ class ServeEngine:
         P = bt.shape[1]
         block = dev[:, :P]
         cur, pos, rem, eos, start, nval = (dev[:, P + i] for i in range(6))
-        caches = {"pages_k": self.pool.store_k, "pages_v": self.pool.store_v,
-                  "block": block}
+        caches = ({"pages_k": self.pool.store_k,
+                   "pages_v": self.pool.store_v, "block": block}
+                  if paged else self._dense_caches())
         m = self.model
         with torch.no_grad():
             if chunk is not None and k:
@@ -1232,10 +1456,96 @@ class ServeEngine:
         return (self.stats["slot_busy_steps"] / (steps * self.max_batch)
                 if steps else 0.0)
 
+    # ===========================================================================
+    # Wave scheduler (baseline): batch-level waves, kept for A/B benchmarks.
+    # ===========================================================================
+    def _take_batch(self, timeout_s: float = 0.05) -> List[Request]:
+        """Greedy batcher: first request blocks briefly, rest drained
+        free."""
+        batch: List[Request] = []
+        deadline = time.monotonic() + timeout_s
+        backoff = transport.Backoff()
+        while len(batch) < self.max_batch:
+            status, req = self.intake.try_recv()
+            if status == nbb.OK:
+                backoff.reset()
+                # admission control: KV pages for prompt + generation
+                need = len(req.prompt) + req.max_tokens
+                if self.pool.try_admit(req.req_id, need) != POOL_OK:
+                    self._reject(req)
+                    continue
+                if not req.fsm.cas(states.REQUEST_VALID,
+                                   states.REQUEST_RECEIVED):
+                    self.pool.free(req.req_id)   # cancelled while queued
+                    self._finish_cancelled(req)
+                    continue
+                batch.append(req)
+            elif batch or time.monotonic() > deadline:
+                break
+            else:
+                backoff.wait(status)
+        return batch
+
+    def _run_batch(self, batch: List[Request]) -> None:
+        """One wave: a B-row prefill of the left-padded prompts, then
+        lockstep decode at the shared position ``plen + step`` (the flash
+        kernel over the ring prefix on CUDA), one host sync per step,
+        until every row is done."""
+        B = len(batch)
+        plen = max(len(r.prompt) for r in batch)
+        toks = np.zeros((B, plen), np.int32)
+        for i, r in enumerate(batch):
+            toks[i, plen - len(r.prompt):] = r.prompt   # left-pad
+        with torch.no_grad():
+            cur, caches = self.model.prefill(
+                self.params, torch.from_numpy(toks).to(self.device),
+                self.max_len)
+        self.stats["prefills"] += 1
+        self.stats["prefill_dispatches"] += 1
+        self.stats["prefill_chunks"] += B   # one whole-prompt chunk each
+
+        max_new = max(r.max_tokens for r in batch)
+        outs = np.full((B, max_new), -1, np.int64)
+        done = np.zeros((B,), bool)
+        for step in range(max_new):
+            outs[~done, step] = cur.cpu().numpy()[~done]
+            self.stats["host_syncs"] += 1
+            for i, r in enumerate(batch):
+                if not done[i] and (outs[i, step] == r.eos_id
+                                    or step + 1 >= r.max_tokens):
+                    done[i] = True
+            if done.all() or plen + step + 1 >= self.max_len:
+                break
+            with torch.no_grad():
+                cur, caches = self.model.decode_step(
+                    self.params, caches, cur[:, None], plen + step)
+            self.stats["decode_steps"] += 1
+
+        for i, r in enumerate(batch):
+            r.tokens_out = outs[i][outs[i] >= 0].astype(np.int32)
+            r.done_t = time.monotonic()
+            # No streaming in the wave baseline: the first token reaches
+            # the client with the whole response.
+            r.first_token_t = r.done_t
+            if r.fsm.cas(states.REQUEST_RECEIVED, states.REQUEST_COMPLETED):
+                self.stats["served"] += 1
+            else:
+                self.stats["cancelled"] += 1
+            self.pool.free(r.req_id)
+            self._respond(r)
+        self.stats["batches"] += 1
+
     # -- engine loop --------------------------------------------------------------
     def step(self) -> int:
-        """Tick until the slot pool and intake are both idle; returns
-        requests served."""
+        """Drain everything currently runnable; returns requests served.
+        Wave scheduler: one batch.  Slot schedulers: tick until the slot
+        pool and intake are both idle."""
+        if self.scheduler == "wave":
+            batch = self._take_batch()
+            if not batch:
+                return 0
+            self._run_batch(batch)
+            return len(batch)
         total = 0
         while True:
             served, worked = self.tick()
@@ -1251,7 +1561,10 @@ class ServeEngine:
         backoff = transport.Backoff()
         while not self._stop.is_set():
             try:
-                _, worked = self.tick()
+                if self.scheduler == "wave":
+                    worked = self.step() > 0
+                else:
+                    _, worked = self.tick()
             except Exception as exc:    # noqa: BLE001 — death boundary
                 self._die(f"engine loop crashed: {exc!r}")
                 raise

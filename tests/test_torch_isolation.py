@@ -102,12 +102,25 @@ def test_entry_points_refuse_without_a_card(monkeypatch):
         launcher.main(["--smoke"])
 
 
-def test_engine_refuses_unported_schedulers():
+def test_engine_constructs_every_scheduler():
+    """All five schedulers of the JAX engine construct on the CPU (the
+    default is ``slot_fused``, as there); ``slot_paged`` still refuses a
+    model it cannot page (a sliding-window ring)."""
+    import dataclasses
+
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model import build_model
-    from repro_torch.serve.engine import ServeEngine
-    model = build_model(get_smoke_config("smollm-135m"), device="cpu")
+    from repro_torch.serve.engine import SCHEDULERS, ServeEngine
+    cfg = get_smoke_config("smollm-135m")
+    model = build_model(cfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
-    for sched in ("slot_chunked", "slot_fused", "slot", "wave"):
-        with pytest.raises(ValueError, match="not ported"):
-            ServeEngine(model, params, scheduler=sched, device="cpu")
+    assert ServeEngine(model, params, device="cpu").scheduler == "slot_fused"
+    for sched in SCHEDULERS:
+        eng = ServeEngine(model, params, scheduler=sched, device="cpu")
+        assert eng.scheduler == sched
+    with pytest.raises(ValueError, match="unknown scheduler"):
+        ServeEngine(model, params, scheduler="lockstep", device="cpu")
+    windowed = build_model(dataclasses.replace(cfg, sliding_window=16),
+                           device="cpu")
+    with pytest.raises(ValueError, match="slot_paged needs"):
+        ServeEngine(windowed, params, scheduler="slot_paged", device="cpu")

@@ -1,9 +1,11 @@
-"""The Hopper paged-attention kernel against its plain PyTorch version,
-on the card (``pytest -m cuda``): the reference test shapes in float32
-(1e-4: the summation order differs) and bfloat16 (3e-2), poison pages,
-zero-length rows, a strided per-layer pool view, a chunk that reaches
-past the block table and one split along T.  Imports no JAX, so it runs
-where only the port is installed; skipped without a card."""
+"""The Hopper paged- and flash-attention kernels against their plain
+PyTorch versions, on the card (``pytest -m cuda``).  Paged: the reference
+test shapes in float32 (1e-4: the summation order differs) and bfloat16
+(3e-2), poison pages, zero-length rows, a strided per-layer pool view, a
+chunk that reaches past the block table and one split along T.  Flash:
+the cases of the JAX package's flash tests, ragged T and S, a strided
+ring slice, and rows that see no key.  Imports no JAX, so it runs where
+only the port is installed; skipped without a card."""
 import numpy as np
 import pytest
 
@@ -131,3 +133,80 @@ def test_kernel_padded_chunk_and_split_on_card(cuda_device):
                             ps=16, P=8, lens=[100, 60]),
                      cuda_device, torch.bfloat16, 3e-2)
     assert pa_mod.launches - before > 1
+
+
+# ---------------------------------------------------------------------------
+# Flash attention: the cases of tests/test_kernels.py and
+# tests/test_kernels_decode.py, ragged T and S, and a strided ring slice.
+# ---------------------------------------------------------------------------
+from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
+
+FLASH_CASES = {
+    # name: (B, T, S, H, Hkv, hd, kwargs)
+    "mha_128": (1, 128, 128, 4, 4, 64, {}),
+    "gqa_suffix": (2, 128, 256, 8, 2, 64, {}),
+    "hd128": (1, 256, 256, 6, 3, 128, {}),
+    "window_128": (1, 512, 512, 4, 4, 64, dict(window=128)),
+    "window_512": (1, 512, 512, 4, 4, 64, dict(window=512)),
+    "softcap_50": (1, 128, 128, 2, 2, 64, dict(softcap=50.0)),
+    "noncausal": (1, 128, 256, 4, 4, 64, dict(causal=False)),
+    "decode_512": (2, 1, 512, 8, 2, 64, {}),
+    "decode_window_256": (1, 1, 1024, 4, 4, 64, dict(window=256)),
+    "gqa_16_1": (1, 128, 128, 16, 1, 64, {}),
+    "gqa_12_4": (1, 128, 128, 12, 4, 64, {}),
+    "gqa_9_3": (1, 128, 128, 9, 3, 64, {}),
+    "ragged_37_101": (2, 37, 101, 9, 3, 64, {}),
+    "ragged_window": (1, 45, 77, 6, 2, 32, dict(window=20, softcap=30.0)),
+    "ragged_noncausal": (1, 3, 70, 4, 1, 16, dict(causal=False)),
+}
+
+
+def _flash_inputs(seed, B, T, S, H, Hkv, hd):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, T, H, hd)).astype(np.float32),
+            rng.normal(size=(B, S, Hkv, hd)).astype(np.float32),
+            rng.normal(size=(B, S, Hkv, hd)).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4),
+                                        ("bfloat16", 3e-2)])
+def test_flash_matches_plain_on_card(cuda_device, name, dtype, atol):
+    B, T, S, H, Hkv, hd, kw = FLASH_CASES[name]
+    q, k, v = (t.to(getattr(torch, dtype)) for t in _torch(
+        *_flash_inputs(len(name), B, T, S, H, Hkv, hd), device=cuda_device))
+    before = fa_mod.launches
+    out = fa_mod.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_mod.launches == before + 1
+    want = tref.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                               rtol=atol)
+
+
+@pytest.mark.cuda
+def test_flash_strided_ring_slice_on_card(cuda_device):
+    """The dense path's read: a prefix ``ring[li][:, :S]`` of a stacked
+    [L, B, size, Hkv, hd] cache, strided over the batch, read in place."""
+    rng = np.random.default_rng(11)
+    ring = rng.normal(size=(2, 3, 96, 3, 64)).astype(np.float32)
+    q = rng.normal(size=(3, 1, 9, 64)).astype(np.float32)
+    tr, tq = _torch(ring, q, device=cuda_device)
+    k, v = tr[1][:, :53], tr[0][:, :53]
+    assert not k.is_contiguous()
+    out = fa_mod.flash_attention(tq, k, v)
+    want = tref.flash_attention_ref(tq, k, v)
+    torch.testing.assert_close(out, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_rows_without_keys_are_zero_on_card(cuda_device):
+    """Causal with S < T: the first T - S queries see no key and return
+    exact zeros (the TPU kernel's l == 0 -> 1 step); the rest match."""
+    q, k, v = _torch(*_flash_inputs(12, 1, 10, 6, 4, 2, 16),
+                     device=cuda_device)
+    out = fa_mod.flash_attention(q, k, v)
+    assert torch.count_nonzero(out[:, :4]) == 0
+    want = tref.flash_attention_ref(q[:, 4:], k, v)
+    torch.testing.assert_close(out[:, 4:], want, atol=1e-4, rtol=1e-4)

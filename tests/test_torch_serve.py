@@ -55,7 +55,8 @@ def _serve(engine, prompts, max_tokens, drain_after_first=False):
 def _both(pair, prompts, max_tokens, drain_after_first=False, **kw):
     _, jm, jp, tm, tp = pair
     je = JaxEngine(jm, jp, n_clients=1, scheduler="slot_paged", **kw)
-    te = ServeEngine(tm, tp, n_clients=1, device="cpu", **kw)
+    te = ServeEngine(tm, tp, n_clients=1, scheduler="slot_paged",
+                     device="cpu", **kw)
     js = _serve(je, prompts, max_tokens, drain_after_first)
     ts = _serve(te, prompts, max_tokens, drain_after_first)
     return (je, js), (te, ts)
@@ -124,8 +125,8 @@ def test_streaming_exactly_once(pair):
     kw = dict(max_batch=2, max_len=64, pool_pages=64, chunk_tokens=4)
     want = _serve(JaxEngine(jm, jp, n_clients=1, scheduler="slot_paged",
                             **kw), prompts, budgets)
-    eng = ServeEngine(tm, tp, n_clients=1, device="cpu", stream_depth=4,
-                      **kw)
+    eng = ServeEngine(tm, tp, n_clients=1, scheduler="slot_paged",
+                      device="cpu", stream_depth=4, **kw)
     thread = eng.start()
     try:
         with eng.connect(0) as session:
@@ -144,8 +145,9 @@ def test_streaming_exactly_once(pair):
 def test_cancel_mid_stream_returns_pool_to_baseline(pair):
     _, _, _, tm, tp = pair
     eng = ServeEngine(tm, tp, max_batch=2, max_len=64, n_clients=1,
-                      pool_pages=32, page_size=4, chunk_tokens=4, k_max=2,
-                      prefix_cache=False, device="cpu")
+                      scheduler="slot_paged", pool_pages=32, page_size=4,
+                      chunk_tokens=4, k_max=2, prefix_cache=False,
+                      device="cpu")
     baseline = eng.pool.free_pages()
     session = eng.connect(0)
     h = session.submit_i(np.arange(10) % 256, max_tokens=40)
