@@ -14,7 +14,15 @@ each of which fails the run hard:
    main path's (B=1 causal prefills of 64/256/512 tokens over a ring
    slice, a T=1 decode at S=513 over a strided B=4 ring slice); and the
    dense decode read — the paged kernel over a [4, 1024] ring viewed as
-   identity pages — against both plain versions;
+   identity pages — against both plain versions; (2c) the NBB matmul at
+   the reference test shapes in f32 and bf16, one kernel K tile, an odd
+   count of them, ragged edges and the kernel benchmark's 512 x 1024 x
+   512 bf16, then one call through ``ops.nbb_matmul`` at that shape as
+   its entry point's run; (2d) ``flash_attention_trainable``'s output
+   (the flash kernel) against the plain version, with its gradients
+   compared as a check of the wrapper's plumbing (its backward recomputes
+   through the plain version), at the reference test's f32 case and
+   smollm's bf16 training shape;
 3. the paged main path at full width: ``smollm-135m`` (random weights
    from a seed) served by the ``slot_paged`` engine to 4 client sessions
    x 4 requests, every stream complete and exactly-once, the paged kernel
@@ -28,20 +36,32 @@ each of which fails the run hard:
    devices, identical greedy tokens under ``slot_paged``, ``slot_fused``
    and ``wave``;
 6. kernel timing at the main paths' shapes (CUDA events), beside each
-   kernel's bound, its plain version and, for flash, the one PyTorch call
-   that computes the same function (``scaled_dot_product_attention``, a
-   yardstick the port never calls).
+   kernel's bound, its plain version and the one PyTorch call that
+   computes the same function where there is one
+   (``scaled_dot_product_attention`` forward, and forward + backward for
+   the trainable flash; ``torch.matmul`` for the NBB matmul: yardsticks
+   the port never calls);
+7. training at full width: ``smollm-135m`` through
+   ``repro_torch.launch.train`` (batch 4 x 1024 tokens, remat "nothing",
+   20 steps, 2 producer threads, async checkpoints every 10), flash
+   launched exactly 60 times a step (30 layers, forward and remat
+   recompute), the loss falling; a resume from its checkpoint for 5 more
+   steps; where one step's time goes; CPU/CUDA parity of 3 SMOKE steps'
+   losses at float32.
 
-Every kernel counter is set to 0 just before a served run and read just
-after it; launches made to compare or time a kernel are not counted.
-Prints one JSON line of kernel results, then the device line
-``{"ok": true, "device": {...}}`` last.  Exits non-zero, printing no
-result, without a card or outside a checkout of the repository.
+Phase 7 runs before the timing of phase 6, which reports its launch
+count.  Every kernel counter is set to 0 just before a served or trained
+run (or the NBB matmul's entry-point call) and read just after it;
+launches made to compare or time a kernel are not counted.  Prints one
+JSON line of kernel results, then the device line ``{"ok": true,
+"device": {...}}`` last.  Exits non-zero, printing no result, without a
+card or outside a checkout of the repository.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -62,6 +82,13 @@ MAIN = dict(n_pages=512, ps=16, L=30, Hkv=3, hd=64, B=8, H=9, P=64,
 # prefills of bucketed prompts, B=4 decode.
 DENSE = dict(L=30, B=4, size=1024, Hkv=3, hd=64, H=9, prefill=(64, 256, 512),
              decode_S=513)
+
+
+def _to_device(tree, dev):
+    """A nested dict of tensors, moved to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -102,9 +129,11 @@ def timed(fn, reps: int = 5, inner: int = 50) -> float:
 # ---------------------------------------------------------------------------
 def phase_build():
     import torch
-    from repro_torch.kernels import build, flash_attention, paged_attention
+    from repro_torch.kernels import (build, flash_attention, nbb_matmul,
+                                     paged_attention)
     sources = {"paged_attention": paged_attention.SOURCE,
-               "flash_attention": flash_attention.SOURCE}
+               "flash_attention": flash_attention.SOURCE,
+               "nbb_matmul": nbb_matmul.SOURCE}
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(sources)) as ex:    # one nvcc per source
         libs = dict(zip(sources, ex.map(build.build, sources.values())))
@@ -366,6 +395,147 @@ def phase_compare_dense_decode():
           f"bf16 {worst['bfloat16']:.3g} vs both plain versions")
 
 
+# (M, K, N, blocks, dtypes, (atol, rtol)): tests/test_kernels.py's shapes
+# and tolerances, then the kernel's own K tiles (32 keys of K each): one
+# tile, 13 of them (odd: the last slot's phase parity differs from the
+# first's), ragged M/N/K edges, and bench_kernels.py's shape.
+NBB_F32 = (5e-4, 1e-3)
+NBB_EXACT = (2e-5, 2e-5)
+NBB_BF16 = (3e-2, 3e-2)
+NBB_CASES = [
+    (256, 512, 256, (128, 128, 128), ("float32", "bfloat16"), None),
+    (128, 128, 128, (128, 128, 128), ("float32", "bfloat16"), None),
+    (512, 1024, 256, (256, 256, 256), ("float32", "bfloat16"), None),
+    (128, 384, 128, (128, 128, 128), ("float32",), NBB_EXACT),
+    (128, 32, 128, (256, 256, 512), ("float32", "bfloat16"), NBB_EXACT),
+    (128, 416, 128, (256, 256, 512), ("float32", "bfloat16"), NBB_EXACT),
+    (100, 40, 72, (256, 256, 512), ("float32", "bfloat16"), NBB_EXACT),
+    (512, 1024, 512, (256, 256, 512), ("bfloat16",), None),
+]
+NBB_BENCH = (512, 1024, 512)      # bench_kernels.py:95-98, bf16
+
+
+def phase_compare_nbb():
+    """2c: the NBB matmul kernel vs ``ref.matmul_ref`` (TF32 off), then
+    its entry point's run: one ``ops.nbb_matmul`` call at the benchmark's
+    shape and blocks with the counter set to 0 just before.  Returns
+    (max abs err over every case, entry-point launches)."""
+    import torch
+    from repro_torch.kernels import nbb_matmul as nbb
+    from repro_torch.kernels import ops, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check(nbb.TILE[2] == 32, f"kernel K step {nbb.TILE[2]}, cases assume 32")
+    g = torch.Generator(device="cuda").manual_seed(31)
+
+    def err_within(out, want, atol, rtol):
+        """(max abs err, every element within atol + rtol * |want|)."""
+        diff = (out.float() - want.float()).abs()
+        return diff.max().item(), bool(
+            (diff <= atol + rtol * want.float().abs()).all())
+
+    worst = {}
+    for M, K, N, (bm, bn, bk), dtypes, tol in NBB_CASES:
+        a = torch.randn((M, K), generator=g, device="cuda")
+        b = torch.randn((K, N), generator=g, device="cuda")
+        for dt_name in dtypes:
+            dt = getattr(torch, dt_name)
+            atol, rtol = tol if tol and dt_name == "float32" else (
+                NBB_F32 if dt_name == "float32" else NBB_BF16)
+            before = nbb.launches
+            out = nbb.nbb_matmul(a.to(dt), b.to(dt), bm=bm, bn=bn, bk=bk)
+            torch.cuda.synchronize()
+            check(nbb.launches == before + 1, "nbb_matmul did not launch")
+            err, ok = err_within(out, ref.matmul_ref(a.to(dt), b.to(dt)),
+                                 atol, rtol)
+            check(ok, f"nbb case {(M, K, N)} {dt_name}: max err {err} "
+                      f"(atol {atol}, rtol {rtol})")
+            worst[dt_name] = max(worst.get(dt_name, 0.0), err)
+    try:
+        nbb.nbb_matmul(a, b.t())
+        check(False, "a transposed operand was not refused")
+    except ValueError:
+        pass
+    M, K, N = NBB_BENCH
+    a = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+    b = torch.randn((K, N), generator=g, device="cuda").to(torch.bfloat16)
+    nbb.launches = 0
+    out = ops.nbb_matmul(a, b, bm=256, bn=256, bk=512)
+    torch.cuda.synchronize()
+    launches = nbb.launches
+    check(launches == 1, f"ops.nbb_matmul launched {launches} times")
+    err, ok = err_within(out, ref.matmul_ref(a, b), *NBB_BF16)
+    check(ok, f"ops.nbb_matmul at {NBB_BENCH}: err {err}")
+    print(f"nbb_matmul vs plain: {sum(len(c[4]) for c in NBB_CASES)} cases "
+          f"(test shapes; K of 1 and 13 kernel tiles of 32; ragged 100 x "
+          f"40 x 72; {M} x {K} x {N} bf16) max err f32 "
+          f"{worst['float32']:.3g} (atol 2e-5 or 5e-4 as the reference), "
+          f"bf16 {worst['bfloat16']:.3g} (3e-2); entry point "
+          f"ops.nbb_matmul {M} x {K} x {N} bf16: {launches} launch, err "
+          f"{err:.3g}")
+    return max(worst.values()), launches
+
+
+# B, T, H, Hkv, hd, dtype, (atol, rtol): tests/test_kernels.py:86-104 at
+# its 1e-4, then smollm's training shape (batch 4 x 1024 tokens, 9 / 3
+# heads) in bf16.  There a typical |out| is 0.05-0.07 (each row averages
+# hundreds of random values) while early rows reach |v| ~ 4, so the bound
+# is 5e-3 plus 1e-2 (2.5 bf16 steps) of |want|: leaving out one 64-key
+# tile moves a late row by ~0.02, well past it.
+TRAIN_ATTN = dict(B=4, T=1024, H=9, Hkv=3, hd=64)
+TRAINABLE_CASES = [
+    (1, 128, 2, 2, 64, "float32", (1e-4, 0.0)),
+    (4, 1024, 9, 3, 64, "bfloat16", (5e-3, 1e-2)),
+]
+
+
+def phase_compare_trainable():
+    """2d: ``flash_attention_trainable`` against autograd through the
+    plain version.  The output is the kernel's (the flash kernel)
+    and is what this phase tests.  The gradients of q, k and v come from
+    the wrapper's backward, which recomputes through the plain version
+    itself, so they match by construction: comparing them checks the
+    wrapper's plumbing (the saved inputs, the cotangent, the argument
+    order), not a kernel.  Returns the output's max abs err at the
+    training shape."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(41)
+    main_err = 0.0
+    for B, T, H, Hkv, hd, dt_name, (atol, rtol) in TRAINABLE_CASES:
+        dt = getattr(torch, dt_name)
+        q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dt)
+                   for shape in ((B, T, H, hd), (B, T, Hkv, hd),
+                                 (B, T, Hkv, hd)))
+        gout = torch.randn((B, T, H, hd), generator=g, device="cuda").to(dt)
+        errs = []
+        outs = []
+        for fn in (ops.flash_attention_trainable, ref.flash_attention_ref):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            before = fa.launches
+            out = fn(*leaves)
+            grads = torch.autograd.grad(out, leaves, gout)
+            torch.cuda.synchronize()
+            if fn is ops.flash_attention_trainable:
+                check(fa.launches == before + 1,
+                      "the trainable forward did not launch the kernel")
+            outs.append((out.detach(),) + tuple(grads))
+        for name, a, b in zip(("out", "dq", "dk", "dv"), *outs):
+            diff = (a.float() - b.float()).abs()
+            err = diff.max().item()
+            check(bool((diff <= atol + rtol * b.float().abs()).all()),
+                  f"trainable {(B, T, H, Hkv, hd)} {dt_name} {name}: max "
+                  f"err {err} (atol {atol}, rtol {rtol})")
+            errs.append(f"{name} {err:.3g}")
+            if name == "out" and dt_name == "bfloat16":
+                main_err = err
+        print(f"flash_attention_trainable vs autograd through plain, B={B} "
+              f"T={T} H={H} Hkv={Hkv} hd={hd} {dt_name} (atol {atol}, rtol "
+              f"{rtol}): kernel " + errs[0] + "; wrapper plumbing (backward "
+              "recomputes through plain) " + ", ".join(errs[1:]))
+    return main_err
+
+
 # ---------------------------------------------------------------------------
 # Phases 3 and 4: the paged and dense main paths at full width
 # ---------------------------------------------------------------------------
@@ -547,8 +717,8 @@ def phase_serve_dense(model, params, forwards, smi: str):
 def profile_split(cases, smi: str):
     """For each (name, model forwards, fn): wall time of one call after a
     warm-up (mean of 3), against the device time the profiler attributes
-    to it — the device's busy and idle shares, each kernel's part, and the
-    top device ops."""
+    to it — the device's busy and idle shares (device-side rows only:
+    ``kernel_rows``), each kernel's part, and the top device ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -569,19 +739,21 @@ def profile_split(cases, smi: str):
                                      ProfilerActivity.CUDA]) as prof:
                 fn()
                 torch.cuda.synchronize()
-        ev = prof.key_averages()
-        busy = sum(dev_us(e) for e in ev) / 1e3
+        rows = kernel_rows(prof)
+        busy = sum(dev_us(e) for e in rows) / 1e3
+        every_row = sum(dev_us(e) for e in prof.key_averages()) / 1e3
         if busy == 0:
             print(f"time split, {name}: wall {wall:.2f} ms; device time "
                   f"not measured (the profiler saw no device activity) "
                   f"[{smi}]")
             continue
-        kern = {k: sum(dev_us(e) for e in ev if k in e.key) / 1e3
+        kern = {k: sum(dev_us(e) for e in rows if k in e.key) / 1e3
                 for k in ("flash_attention", "paged_attention")}
-        top = sorted(ev, key=dev_us, reverse=True)[:5]
+        top = sorted(rows, key=dev_us, reverse=True)[:5]
         print(f"time split, {name}: wall {wall:.2f} ms "
               f"({wall / steps:.2f} ms per forward), device busy "
-              f"{busy:.3f} ms (idle share {1 - busy / wall:.3f}), "
+              f"{busy:.3f} ms (idle share {1 - busy / wall:.3f}; every "
+              f"profiler row summed: {every_row:.3f} ms), "
               f"flash_attention {kern['flash_attention']:.3f} ms, "
               f"paged_attention {kern['paged_attention']:.3f} ms; top "
               f"device ops: "
@@ -666,17 +838,12 @@ def phase_parity():
     cpu_model = build_model(cfg, device="cpu")
     params = cpu_model.init(torch.Generator().manual_seed(7))
 
-    def to(tree, dev):
-        if isinstance(tree, dict):
-            return {k: to(v, dev) for k, v in tree.items()}
-        return tree.to(dev)
-
     lengths = [12, 2, 7, 2, 1, 9, 24, 3]
     for sched in ("slot_paged", "slot_fused", "wave"):
         seqs = {}
         for dev in ("cpu", "cuda"):
             model = build_model(cfg, device=dev)
-            eng = ServeEngine(model, to(params, dev), max_batch=2,
+            eng = ServeEngine(model, _to_device(params, dev), max_batch=2,
                               max_len=64, n_clients=1, pool_pages=64,
                               page_size=4, chunk_tokens=4, scheduler=sched,
                               device=dev)
@@ -841,6 +1008,284 @@ def phase_timing_flash(launches: int, max_err: float, smi: str):
             "plain_ms": t_plain, "bound_ms": bound, "bound_by": by,
             "library_ms": t_sdpa}
 
+NBB_TIMING = ((512, 1024, 512), (4096, 4096, 4096))
+
+
+def phase_timing_nbb(launches: int, max_err: float, smi: str):
+    """The NBB matmul in bf16 at the benchmark's shape and at 4096^3,
+    beside its bound (FLOPs at the bf16 tensor-core peak, or a, b and c
+    moved once), its plain version and one ``torch.matmul`` (cuBLAS, a
+    yardstick the port never calls)."""
+    import torch
+    from repro_torch.kernels import nbb_matmul as nbb
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(300)
+    rows = {}
+    for M, K, N in NBB_TIMING:
+        a = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+        b = torch.randn((K, N), generator=g, device="cuda").to(torch.bfloat16)
+        inner = 50 if M * N * K < 1e9 else 5
+        before = nbb.launches
+        t_kern = timed(lambda i: nbb.nbb_matmul(a, b), inner=inner)
+        t_plain = timed(lambda i: ref.matmul_ref(a, b), inner=inner)
+        t_lib = timed(lambda i: torch.matmul(a, b), inner=inner)
+        nbb.launches = before               # timing launches are not counted
+        flops = 2 * M * N * K
+        nbytes = (M * K + K * N + M * N) * 2
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        bound = max(t_bytes, t_ops)
+        print(f"nbb_matmul {M} x {K} x {N} bf16: kernel {t_kern:.4f} ms "
+              f"({flops / t_kern / 1e9:.1f} TFLOP/s), bound {bound:.5f} ms "
+              f"({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP), "
+              f"plain {t_plain:.4f} ms, library (torch.matmul, not used by "
+              f"the port) {t_lib:.4f} ms [{smi}]")
+        rows[M] = (t_kern, t_plain, bound, by, t_lib)
+    t_kern, t_plain, bound, by, t_lib = rows[NBB_BENCH[0]]
+    return {"name": "nbb_matmul", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/nbb_matmul.cu",
+            "replaces": "src/repro/kernels/nbb_matmul.py:96",
+            "launches": launches, "max_abs_err": max_err, "ms": t_kern,
+            "plain_ms": t_plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": t_lib}
+
+
+def phase_timing_trainable(launches: int, max_err: float, smi: str):
+    """``flash_attention_trainable`` forward + backward at the training
+    shape (B=4, T=S=1024, H=9, Hkv=3, hd=64, causal, bf16), beside its
+    bound (a flash backward's five products and the forward's two, or
+    q, k, v, dout read and out, dq, dk, dv written once), autograd through
+    the plain version, and ``scaled_dot_product_attention`` forward +
+    backward (a yardstick the port never calls)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    B, T, H, Hkv, hd = (TRAIN_ATTN[k] for k in ("B", "T", "H", "Hkv", "hd"))
+    g = torch.Generator(device="cuda").manual_seed(400)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(
+        torch.bfloat16).requires_grad_(True) for shape in (
+        (B, T, H, hd), (B, T, Hkv, hd), (B, T, Hkv, hd)))
+    gout = torch.randn((B, T, H, hd), generator=g, device="cuda").to(
+        torch.bfloat16)
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True)
+                  for x in (q, k, v))
+
+    def fwd_bwd(fn, leaves, cot):
+        return lambda i: torch.autograd.grad(fn(*leaves), leaves, cot)
+
+    before = fa.launches
+    t_kern = timed(fwd_bwd(ops.flash_attention_trainable, (q, k, v), gout),
+                   inner=10)
+    t_plain = timed(fwd_bwd(ref.flash_attention_ref, (q, k, v), gout),
+                    inner=10)
+    t_sdpa = timed(fwd_bwd(lambda a, b, c: F.scaled_dot_product_attention(
+        a, b, c, is_causal=True, enable_gqa=True), (qt, kt, vt),
+        gout.transpose(1, 2)), inner=10)
+    fa.launches = before                    # timing launches are not counted
+    _, fwd_flops = flash_work(B, T, T, H, Hkv, hd, 2)
+    flops = fwd_flops * 14 // 4             # + dS, dP, dQ, dK, dV products
+    nbytes = 2 * (2 * B * T * H * hd + 2 * B * T * Hkv * hd) * 2
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    bound = max(t_bytes, t_ops)
+    print(f"flash_attention_trainable forward + backward B={B} T=S={T} "
+          f"(H={H}, Hkv={Hkv}, hd={hd}, causal, bf16): kernel forward + "
+          f"plain backward {t_kern:.4f} ms, bound {bound:.5f} ms ({by}: "
+          f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP), plain "
+          f"{t_plain:.4f} ms, library (SDPA forward + backward, not used by "
+          f"the port) {t_sdpa:.4f} ms [{smi}]")
+    return {"name": "flash_attention_trainable", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention.py",
+            "replaces": "src/repro/kernels/flash_attention.py:164",
+            "launches": launches, "max_abs_err": max_err, "ms": t_kern,
+            "plain_ms": t_plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": t_sdpa}
+
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: training at full width
+# ---------------------------------------------------------------------------
+TRAIN = dict(steps=20, resume_steps=5, ckpt_every=10)
+
+
+def kernel_rows(prof):
+    """The profiler's device-side rows (kernels, copies, memsets): each
+    device op once.  The host-side rows carry the same device time again
+    under the op that launched it, so summing every row counts it twice;
+    user ranges are left out too."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.key not in ("flash_attention_trainable.backward",
+                              "adamw.update")]
+
+
+def phase_train(smi: str):
+    """Full-width ``smollm-135m`` through the training launcher, then a
+    resume from its checkpoint.  Returns the 20-step run's flash
+    launches."""
+    import shutil
+
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as launcher
+    from repro_torch.train import checkpoint as ckpt_lib
+    ckpt_dir = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    B, T = TRAIN_ATTN["B"], TRAIN_ATTN["T"]
+    args = ["--arch", "smollm-135m", "--batch", str(B), "--seq", str(T),
+            "--remat", "nothing", "--ckpt-every", str(TRAIN["ckpt_every"]),
+            "--ckpt-dir", str(ckpt_dir), "--lr", "1e-3",
+            "--warmup-steps", "2", "--log-every", "1"]
+    print(f"training: smollm-135m (30 layers, d=576, 9/3 heads, vocab "
+          f"49152, bf16, random weights from seed 0), batch {B} x {T}, "
+          f"remat nothing, {TRAIN['steps']} steps, async checkpoint every "
+          f"{TRAIN['ckpt_every']}")
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    t0 = time.monotonic()
+    tr = launcher.main(args + ["--steps", str(TRAIN["steps"])])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = fa.launches
+    L = tr.model.cfg.num_layers
+    hist = tr.history
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == TRAIN["steps"] and all(map(math.isfinite, losses)),
+          f"training losses: {losses}")
+    check(launches == 2 * L * TRAIN["steps"],
+          f"flash launches {launches} != 2 x {L} x {TRAIN['steps']} steps")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    saved = tr.ckpt.saved_steps
+    check(ckpt_lib.latest_step(ckpt_dir) == TRAIN["steps"]
+          and TRAIN["steps"] in saved, f"checkpoints saved: {saved}")
+    dts = sorted(h["dt_s"] for h in hist[1:])
+    step_s = statistics.median(dts)
+    print(f"training: {TRAIN['steps']} steps in {wall:.1f} s; step (median "
+          f"of steps 2-{TRAIN['steps']}) {1e3 * step_s:.1f} ms "
+          f"({1e3 * dts[0]:.1f}-{1e3 * dts[-1]:.1f}), {B * T / step_s:.0f} "
+          f"tokens/s; step 1 {1e3 * hist[0]['dt_s']:.0f} ms; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; checkpoints saved at steps "
+          f"{sorted(set(saved))}; "
+          f"flash launches {launches} (= 2 x {L} layers x {TRAIN['steps']} "
+          f"steps); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
+    del tr
+    fa.launches = 0
+    tr2 = launcher.main(args + ["--steps", str(TRAIN["resume_steps"]),
+                                "--resume"])
+    torch.cuda.synchronize()
+    total = TRAIN["steps"] + TRAIN["resume_steps"]
+    losses2 = [h["loss"] for h in tr2.history]
+    check(tr2.step == total and all(map(math.isfinite, losses2))
+          and ckpt_lib.latest_step(ckpt_dir) == total,
+          f"resume: step {tr2.step}, losses {losses2}")
+    check(fa.launches == 2 * L * TRAIN["resume_steps"],
+          f"resume: flash launches {fa.launches}")
+    print(f"resume from step {TRAIN['steps']}: {TRAIN['resume_steps']} more "
+          f"steps to {tr2.step}, loss {losses2[0]:.4f} -> {losses2[-1]:.4f}, "
+          f"flash launches {fa.launches}")
+    phase_train_split(tr2.model, tr2.opt, tr2.params, tr2.opt_state, smi)
+    del tr2
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return launches
+
+
+def phase_train_split(model, opt, params, opt_state, smi: str):
+    """Where one training step's device time goes: the flash forward
+    kernel, the plain backward of attention (its recompute through the
+    reference), cuBLAS matrix products, the optimizer, and the device's
+    idle share of the step's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.train.train_step import make_train_step
+    step = make_train_step(model, opt)
+    B, T = TRAIN_ATTN["B"], TRAIN_ATTN["T"]
+    batch = {k: torch.as_tensor(v).to(model.device) for k, v in synth_batch(
+        0, 0, 999, B, T, model.cfg.vocab_size).items()}
+
+    def run():
+        out = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        return out
+
+    run()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        run()
+    wall = (time.perf_counter() - t0) / 3 * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    rows = kernel_rows(prof)
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    if busy == 0:
+        print(f"training step split: wall {wall:.1f} ms; device time not "
+              f"measured (the profiler saw no device activity) [{smi}]")
+        return
+    ranges = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+              if e.key in ("flash_attention_trainable.backward",
+                           "adamw.update")}
+
+    def part(*needles):
+        return sum(e.self_device_time_total for e in rows
+                   if any(n in e.key for n in needles)) / 1e3
+
+    flash = part("flash_attention_kern")
+    mm = part("gemm", "nvjet", "xmma", "cutlass")
+    top = sorted(rows, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:6]
+    print(f"training step split (batch {B} x {T}, remat nothing): wall "
+          f"{wall:.1f} ms, device busy {busy:.1f} ms (idle share "
+          f"{1 - busy / wall:.3f}); flash forward kernel {flash:.1f} ms "
+          f"(60 launches); attention backward by recompute through the "
+          f"plain version {ranges.get('flash_attention_trainable.backward', 0):.1f}"
+          f" ms; cuBLAS matrix products {mm:.1f} ms; optimizer "
+          f"{ranges.get('adamw.update', 0):.1f} ms; top device ops: "
+          + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms"
+                      for e in top) + f" [{smi}]")
+
+
+def phase_train_parity():
+    """CPU/CUDA parity of training: the SMOKE config at float32, the same
+    weights and batches on both devices, 3 steps' losses within 1e-4
+    relative."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import AdamW, OptConfig
+    from repro_torch.train.train_step import make_train_step
+    cfg = dataclasses.replace(get_smoke_config("smollm-135m"),
+                              dtype="float32")
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(9))
+    opt = AdamW(OptConfig(lr=1e-3, warmup_steps=2, total_steps=10))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, device=dev)
+        step = make_train_step(model, opt)
+        p = _to_device(params, dev)
+        state = opt.init(p)
+        losses[dev] = []
+        for s in range(3):
+            batch = {k: torch.as_tensor(v).to(dev) for k, v in synth_batch(
+                0, 0, s, 2, 64, cfg.vocab_size).items()}
+            p, state, metrics = step(p, state, batch)
+            losses[dev].append(float(metrics["loss"]))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    check(rel <= 1e-4, f"train parity: cpu {losses['cpu']} cuda "
+                       f"{losses['cuda']}")
+    print(f"cpu/cuda training parity (SMOKE, float32, 3 steps): losses "
+          f"{[round(x, 6) for x in losses['cuda']]}, max relative diff "
+          f"{rel:.3g} (tol 1e-4)")
+
 
 def main() -> int:
     try:
@@ -862,6 +1307,8 @@ def main() -> int:
     paged_err = phase_compare()
     flash_err = phase_compare_flash()
     phase_compare_dense_decode()
+    nbb_err, nbb_launches = phase_compare_nbb()
+    trainable_err = phase_compare_trainable()
     model, params, forwards = full_width_model()
     paged_launches = phase_serve(model, params, forwards, smi)
     phase_split(model, params, smi)
@@ -869,8 +1316,12 @@ def main() -> int:
     phase_split_dense(model, params, smi)
     del model, params
     phase_parity()
+    train_launches = phase_train(smi)
+    phase_train_parity()
     kernels = [phase_timing_paged(paged_launches, paged_err, smi),
-               phase_timing_flash(fused["flash_attention"], flash_err, smi)]
+               phase_timing_flash(fused["flash_attention"], flash_err, smi),
+               phase_timing_trainable(train_launches, trainable_err, smi),
+               phase_timing_nbb(nbb_launches, nbb_err, smi)]
     print(f"chip smoke: {time.monotonic() - t0:.1f} s")
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -10,12 +10,16 @@ builds nothing.
 Dispatch is by where the tensors lie: a CPU ``q`` runs the plain PyTorch
 version (``ref.flash_attention_ref``); a CUDA ``q`` launches the kernel on
 ``torch.cuda.current_stream()`` or raises.  There is no fallback.
+
+:func:`flash_attention_trainable` is the same forward with a gradient
+(the JAX package's ``custom_vjp`` at ``flash_attention.py:164``).
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ref
@@ -120,3 +124,48 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"(cudaError {err})")
     launches += 1
     return out
+
+
+class _FlashTrainable(torch.autograd.Function):
+    """Forward on :func:`flash_attention`; backward by recompute through
+    ``ref.flash_attention_ref`` (``_fa_fwd``/``_fa_bwd``,
+    ``flash_attention.py:175-189``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (causal, window, softcap)
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, window, softcap = ctx.opts
+        with record_function("flash_attention_trainable.backward"), \
+                torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_(True)
+                       for t in ctx.saved_tensors)
+            out = ref.flash_attention_ref(q, k, v, causal=causal,
+                                          window=window, softcap=softcap)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, causal: bool = True,
+                              window: int = 0,
+                              softcap: float = 0.0) -> torch.Tensor:
+    """:func:`flash_attention` with a gradient.
+
+    The forward is the Hopper kernel on CUDA (its plain version on the
+    CPU).  The backward recomputes attention from (q, k, v) through the
+    plain ``ref.flash_attention_ref`` and differentiates it with autograd,
+    as the JAX package's VJP does in jnp: the JAX package has no backward
+    kernel, so neither does the port yet.  That backward materialises the
+    f32 scores ``[B, Hkv, g, T, S]`` of one call at a time (about 151 MB
+    at smollm's B=4, T=S=1024).  A recomputing checkpoint
+    (``torch.utils.checkpoint``) re-runs the forward, and so the kernel,
+    once more in the backward.  ``block_q``/``block_k``/``interpret`` of
+    the JAX signature have no meaning here.
+    """
+    return _FlashTrainable.apply(q, k, v, causal, window, softcap)

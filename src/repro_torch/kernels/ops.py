@@ -8,7 +8,10 @@ auto-detection (``src/repro/kernels/ops.py:18-21``).
 from __future__ import annotations
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_trainable)
+from repro_torch.kernels.nbb_matmul import nbb_matmul
 from repro_torch.kernels.paged_attention import paged_attention
 
-__all__ = ["flash_attention", "paged_attention", "ref"]
+__all__ = ["flash_attention", "flash_attention_trainable", "nbb_matmul",
+           "paged_attention", "ref"]

@@ -2,13 +2,18 @@
 
 Each function here is the semantic ground truth its hand-written Hopper
 kernel is held against (on the card), and the version a wrapper runs for
-a tensor that lies on the CPU.  Written for clarity, not speed.  The
-other oracles of the JAX package's ``kernels/ref.py`` arrive with their
-kernels.
+a tensor that lies on the CPU.  Written for clarity, not speed.
+``swiglu_ref`` and ``rmsnorm_matmul_ref`` of the JAX package's
+``kernels/ref.py`` oracle no kernel, and are not carried.
 """
 from __future__ import annotations
 
 import torch
+
+
+def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[M, K] @ [K, N] -> [M, N] with f32 accumulation, in a.dtype."""
+    return torch.matmul(a.float(), b.float()).to(a.dtype)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -3,12 +3,14 @@
 All layers are plain functions over explicit parameter dicts of tensors,
 with the JAX package's layouts (``wq [d, nh, hd]``, ``wo [nh, hd, d]``,
 ...) so converted weights drop in unchanged.  Attention has three modes
-here: no cache; the paged branch; and the dense ring, a private
-``[B, size, Hkv, hd]`` cache per layer.  Every cached read goes through a
-kernel (``ops`` — the Hopper kernel on CUDA, its plain version on the
-CPU): ``ops.flash_attention`` over the written ring prefix for a scalar
-``cache_pos`` (prefill, lockstep wave decode), ``ops.paged_attention``
-over the ring viewed as identity-mapped pages for a ``[B]`` one.
+here: no cache (training); the paged branch; and the dense ring, a
+private ``[B, size, Hkv, hd]`` cache per layer.  Every read goes through
+a kernel (``ops`` — the Hopper kernel on CUDA, its plain version on the
+CPU): ``ops.flash_attention_trainable`` over the tokens themselves
+without a cache, ``ops.flash_attention`` over the written ring prefix for
+a scalar ``cache_pos`` (prefill, lockstep wave decode),
+``ops.paged_attention`` over the ring viewed as identity-mapped pages for
+a ``[B]`` one.
 """
 from __future__ import annotations
 
@@ -116,7 +118,14 @@ def attention(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     k = rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        out = _attend_causal(cfg, q, k, v, positions)
+        # The training path.  Exact only because a cache-less forward's
+        # positions are ``start_pos + arange(T)`` on every row
+        # (``Model.forward``): the T queries are then the suffix of the T
+        # keys, the flash contract, and relative positions mask as the
+        # absolute ones would.
+        out = ops.flash_attention_trainable(
+            q, k, v, causal=True, window=cfg.sliding_window,
+            softcap=cfg.attn_logit_softcap)
     elif is_paged(cache):
         out = _paged(cfg, q, k, v, cache, cache_pos, write_mask)
     else:
@@ -210,28 +219,6 @@ def _dense_ring(cfg: ModelConfig, q, k, v, cache, cache_pos, write_mask):
                                cv.view(B * size // ps, ps, Hkv, hd),
                                cache["block"], lens,
                                softcap=cfg.attn_logit_softcap)
-
-
-def _attend_causal(cfg: ModelConfig, q, k, v, positions):
-    """Cache-less causal GQA attention over the T tokens themselves."""
-    B, T, nh, hd = q.shape
-    nkv = k.shape[2]
-    group = nh // nkv
-    qg = q.reshape(B, T, nkv, group, hd)
-    scores = torch.einsum("btkgh,bskh->bkgts", qg.float(),
-                          k.float()) * (hd ** -0.5)
-    softcap = cfg.attn_logit_softcap
-    if softcap:
-        scores = torch.tanh(scores / softcap) * softcap
-    mask = positions[:, None, :] <= positions[:, :, None]        # [B, T, S]
-    window = cfg.sliding_window
-    if window:
-        mask &= positions[:, None, :] > positions[:, :, None] - window
-    scores = torch.where(mask[:, None, None], scores,
-                         torch.full_like(scores, -1e30))
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bkgts,bskh->btkgh", probs, v)
-    return out.reshape(B, T, nh, hd)
 
 
 # ---------------------------------------------------------------------------

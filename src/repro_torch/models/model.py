@@ -1,9 +1,11 @@
 """Model assembly for the uniform-attention family (``smollm-135m``).
 
-``build_model(cfg, device=None)`` returns a :class:`Model` exposing the
-JAX package's serving surface over plain parameter dicts of tensors:
+``build_model(cfg, remat_policy="nothing", device=None)`` returns a
+:class:`Model` exposing the JAX package's training and serving surface
+over plain parameter dicts of tensors:
 
   init(generator) -> params
+  loss(params, batch) -> (total, {"xent", "aux"})       [training]
   init_cache(batch, max_len) -> dense ring cache {"k", "v"}
   forward(params, tokens, caches=, cache_pos=, start_pos=, write_mask=)
   prefill(params, tokens, max_len) -> (next_tok [B], fresh dense cache)
@@ -20,23 +22,27 @@ rings (``init_cache``: ``[L, B, size, Hkv, hd]`` per K and V).  Both are
 updated in place, so the returned cache is the one passed in.  A scalar
 position (prefill, lockstep wave decode) is a Python int; per-row
 positions are a [B] tensor.  The layer stack is a Python loop (the JAX
-package's ``lax.scan``).  Entry points
+package's ``lax.scan``); without a cache and with gradients on, each
+layer runs under the remat policy.  Entry points
 run on CUDA unless ``device="cpu"`` is passed; without a card they raise.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 from typing import Any, Dict, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (attention, embed, init_kv_cache,
                                        is_paged, mlp, ring_page_size,
                                        rms_norm, unembed_matrix)
-from repro_torch.models.losses import full_logits
+from repro_torch.models.losses import chunked_softmax_xent, full_logits
 
 Params = Dict[str, Any]
 
@@ -68,10 +74,31 @@ def attn_block(p: Params, cfg: ModelConfig, x, positions, cache=None,
     return x, cache
 
 
+REMAT_POLICIES = ("nothing", "dots", "none")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of matrix products without
+    batch dimensions (the JAX package's
+    ``dots_with_no_batch_dims_saveable``), recompute the rest.
+    ``torch.einsum`` lowers the projections and the MLP to a ``bmm`` of
+    batch 1; attention's products carry batch dimensions."""
+    aten = torch.ops.aten
+    keep = op in (aten.mm.default, aten.addmm.default) or (
+        op is aten.bmm.default and args[0].shape[0] == 1)
+    return (CheckpointPolicy.MUST_SAVE if keep
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
     device: torch.device
+    # What a training forward keeps for the backward (``model.py:304-311``
+    # of the JAX package): "nothing" recomputes each layer in the backward
+    # (``torch.utils.checkpoint``), "dots" keeps only the matrix products'
+    # outputs (selective checkpointing), "none" keeps everything.
+    remat_policy: str = "nothing"
     # Identity block tables of dense rings, one per (batch, pages per row).
     _rings: Dict[tuple, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
@@ -158,17 +185,34 @@ class Model:
             self._rings[batch, P] = blk
         return blk
 
+    def _remat_block(self, lp: Params, x, positions):
+        """One cache-less layer under the remat policy."""
+        def block(lp, x, positions):
+            return attn_block(lp, self.cfg, x, positions)[0]
+
+        pol = self.remat_policy
+        if pol == "none" or not torch.is_grad_enabled():
+            return block(lp, x, positions)
+        if pol == "dots":
+            ctx = functools.partial(create_selective_checkpoint_contexts,
+                                    _dots_policy)
+            return checkpoint(block, lp, x, positions, use_reentrant=False,
+                              context_fn=ctx)
+        return checkpoint(block, lp, x, positions, use_reentrant=False)
+
     def _run_stack(self, params: Params, x, positions, caches, cache_pos,
                    write_mask=None):
         layers = params["layers"]
-        paged = caches is not None and is_paged(caches)
+        if caches is None:
+            for li in range(self.cfg.num_layers):
+                x = self._remat_block(_layer(layers, li), x, positions)
+            return x, None
+        paged = is_paged(caches)
         block = None
-        if caches is not None and not paged and torch.is_tensor(cache_pos):
+        if not paged and torch.is_tensor(cache_pos):
             block = self._ring_block(*caches["k"].shape[1:3])
         for li in range(self.cfg.num_layers):
-            if caches is None:
-                c = None
-            elif paged:
+            if paged:
                 c = {**caches, "layer": li}
             else:
                 c = {"k": caches["k"][li], "v": caches["v"][li],
@@ -192,6 +236,28 @@ class Model:
         x, caches = self._run_stack(params, x, positions, caches, cache_pos,
                                     write_mask=write_mask)
         return rms_norm(params["final_norm"], x, cfg.norm_eps), caches
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]):
+        """batch {"tokens": [B, T]} -> (total, {"xent", "aux"}).
+
+        As ``model.py:556-576`` of the JAX package: the forward runs on
+        all T tokens with the labels rolled left and the last position
+        weighted 0, and the cross-entropy is chunked over the tied (or
+        separate) unembedding in the compute dtype.  The uniform family
+        has no auxiliary loss.
+        """
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        hidden, _ = self.forward(params, tokens)
+        w_out = unembed_matrix(params["embed"], cfg).to(cfg.compute_dtype)
+        labels = torch.roll(tokens, -1, 1)
+        weights = torch.ones(tokens.shape, dtype=torch.float32,
+                             device=tokens.device)
+        weights[:, -1] = 0.0
+        xent = chunked_softmax_xent(hidden, w_out, labels, weights=weights,
+                                    layout=cfg.xent_layout)
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        return xent, {"xent": xent, "aux": aux}
 
     def _greedy(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
         """hidden [B, 1, D] -> greedy next token [B] int32."""
@@ -319,10 +385,13 @@ def prefix_chunk_hashes(tokens, chunk_tokens: int):
     return out
 
 
-def build_model(cfg: ModelConfig,
+def build_model(cfg: ModelConfig, remat_policy: str = "nothing",
                 device: Union[str, torch.device, None] = None) -> Model:
     """The port's model for ``cfg`` on ``device`` (CUDA by default)."""
-    model = Model(cfg, resolve_device(device))
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {remat_policy!r} not in "
+                         f"{REMAT_POLICIES}")
+    model = Model(cfg, resolve_device(device), remat_policy=remat_policy)
     fam = model._structure()
     if fam != "uniform_attn":
         raise NotImplementedError(

@@ -1,11 +1,14 @@
-"""The Hopper paged- and flash-attention kernels against their plain
-PyTorch versions, on the card (``pytest -m cuda``).  Paged: the reference
-test shapes in float32 (1e-4: the summation order differs) and bfloat16
-(3e-2), poison pages, zero-length rows, a strided per-layer pool view, a
-chunk that reaches past the block table and one split along T.  Flash:
-the cases of the JAX package's flash tests, ragged T and S, a strided
-ring slice, and rows that see no key.  Imports no JAX, so it runs where
-only the port is installed; skipped without a card."""
+"""The Hopper paged-attention, flash-attention and NBB matmul kernels
+against their plain PyTorch versions, on the card (``pytest -m cuda``).
+Paged: the reference test shapes in float32 (1e-4: the summation order
+differs) and bfloat16 (3e-2), poison pages, zero-length rows, a strided
+per-layer pool view, a chunk that reaches past the block table and one
+split along T.  Flash: the cases of the JAX package's flash tests,
+ragged T and S, a strided ring slice, rows that see no key, and
+``flash_attention_trainable``'s gradients (1e-4).  NBB matmul: the
+reference test shapes and tolerances, one and 13 kernel K tiles, ragged
+edges, refused operands.  Imports no JAX, so it runs where only the port
+is installed; skipped without a card."""
 import numpy as np
 import pytest
 
@@ -210,3 +213,77 @@ def test_flash_rows_without_keys_are_zero_on_card(cuda_device):
     assert torch.count_nonzero(out[:, :4]) == 0
     want = tref.flash_attention_ref(q[:, 4:], k, v)
     torch.testing.assert_close(out[:, 4:], want, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# NBB matmul: tests/test_kernels.py's shapes and tolerances, then the
+# kernel's own K tiles (32 of K each): one tile, an odd count (13), and
+# ragged M/N/K edges.
+# ---------------------------------------------------------------------------
+from repro_torch.kernels import nbb_matmul as nbb_mod  # noqa: E402
+
+NBB_CASES = {
+    # name: (M, K, N, blocks, float32 (atol, rtol))
+    "k_pipeline_4": (256, 512, 256, (128, 128, 128), (5e-4, 1e-3)),
+    "single_k_step": (128, 128, 128, (128, 128, 128), (5e-4, 1e-3)),
+    "bm256": (512, 1024, 256, (256, 256, 256), (5e-4, 1e-3)),
+    "odd_k_depth": (128, 384, 128, (128, 128, 128), (2e-5, 2e-5)),
+    "one_kernel_tile": (128, 32, 128, (256, 256, 512), (2e-5, 2e-5)),
+    "odd_kernel_tiles": (128, 416, 128, (256, 256, 512), (2e-5, 2e-5)),
+    "ragged": (100, 40, 72, (256, 256, 512), (2e-5, 2e-5)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(NBB_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_nbb_matmul_matches_plain_on_card(cuda_device, name, dtype):
+    M, K, N, (bm, bn, bk), f32_tol = NBB_CASES[name]
+    atol, rtol = f32_tol if dtype == "float32" else (3e-2, 3e-2)
+    rng = np.random.default_rng(len(name))
+    a, b = (t.to(getattr(torch, dtype)) for t in _torch(
+        rng.normal(size=(M, K)).astype(np.float32),
+        rng.normal(size=(K, N)).astype(np.float32), device=cuda_device))
+    before = nbb_mod.launches
+    out = nbb_mod.nbb_matmul(a, b, bm=bm, bn=bn, bk=bk)
+    torch.cuda.synchronize()
+    assert nbb_mod.launches == before + 1
+    want = tref.matmul_ref(a, b)
+    torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_nbb_matmul_refuses_what_the_copy_engine_cannot_take(cuda_device):
+    a = torch.zeros((64, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        nbb_mod.nbb_matmul(a, a.t())
+    with pytest.raises(ValueError, match="16-byte"):
+        nbb_mod.nbb_matmul(torch.zeros((64, 6), device=cuda_device),
+                           torch.zeros((6, 64), device=cuda_device))
+
+
+# ---------------------------------------------------------------------------
+# flash_attention_trainable: kernel forward, backward by recompute through
+# the plain version, against autograd through the plain version.
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,Hkv,hd,kw", [
+    (1, 128, 2, 2, 64, {}),                          # test_kernels.py:86
+    (2, 96, 9, 3, 64, dict(window=40, softcap=30.0)),
+])
+def test_flash_trainable_grads_on_card(cuda_device, B, T, H, Hkv, hd, kw):
+    q, k, v = _torch(*_flash_inputs(13, B, T, T, H, Hkv, hd),
+                     device=cuda_device)
+    gout = torch.randn((B, T, H, hd), device=cuda_device)
+    results, launched = [], []
+    for fn in (fa_mod.flash_attention_trainable, tref.flash_attention_ref):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = fa_mod.launches
+        out = fn(*leaves, **kw)
+        grads = torch.autograd.grad(out, leaves, gout)
+        launched.append(fa_mod.launches - before)
+        results.append((out.detach(),) + tuple(grads))
+    assert launched == [1, 0]     # one forward launch; the backward is plain
+    for a, b in zip(*results):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
