@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C entry point.  At
-first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library under ``<repo>/build/kernels`` (listed in ``.gitignore``), named
-by the source's content hash, and loaded through ``ctypes``.  Nothing is
+Each kernel is one ``csrc/<name>.cu`` with a plain C entry point, which
+may include the headers (``csrc/*.cuh``) beside it.  At first use it is
+compiled with ``nvcc`` for ``sm_90a`` into a shared library under
+``<repo>/build/kernels`` (listed in ``.gitignore``), named by the hash of
+the source and the headers, and loaded through ``ctypes``.  Nothing is
 built when a module is imported, so the CPU tests can import every
 kernel module without a toolkit.
 """
@@ -37,11 +38,22 @@ def nvcc() -> str:
                        "from source and need the CUDA toolkit")
 
 
+def content_tag(source: Path) -> str:
+    """Hash of ``source`` and of every header (``*.cuh``) in its
+    directory, which it may include: a header change rebuilds."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return h.hexdigest()[:12]
+
+
 def build(source: Path) -> Path:
-    """Compile ``source`` into ``BUILD_DIR`` (once per source content)
-    and return the shared library's path.  The compiler's register and
-    shared-memory report (``-Xptxas -v``) is kept beside it as ``.log``."""
-    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
+    """Compile ``source`` into ``BUILD_DIR`` (once per content of the
+    source and of the headers beside it) and return the shared library's
+    path.  The compiler's register and shared-memory report (``-Xptxas
+    -v``) is kept beside it as ``.log``."""
+    tag = content_tag(source)
     out = BUILD_DIR / f"lib{source.stem}_{tag}.so"
     if out.exists():
         return out

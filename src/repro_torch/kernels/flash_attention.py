@@ -1,18 +1,25 @@
-"""Flash attention on Hopper: build, load and wrap the CUDA C++ kernel.
+"""Flash attention on Hopper: build, load and wrap the CUDA C++ kernels.
 
-The kernel (``csrc/flash_attention.cu``) replaces the JAX package's Pallas
-TPU kernel ``flash_attention`` (``src/repro/kernels/flash_attention.py:
-103``, ``pl.pallas_call`` at ``:137``).  It is compiled with ``nvcc`` for
-``sm_90a`` the first time a CUDA tensor reaches :func:`flash_attention`
-(``kernels/build.py``) and loaded through ``ctypes``; importing this module
-builds nothing.
+The forward (``csrc/flash_attention.cu``) replaces the JAX package's
+Pallas TPU kernel ``flash_attention`` (``src/repro/kernels/
+flash_attention.py:103``, ``pl.pallas_call`` at ``:137``); the backward
+(``csrc/flash_attention_bwd.cu``) computes the VJP that the JAX
+package's ``_fa_bwd`` (``:182-189``) takes through its jnp reference.
+Each is compiled with ``nvcc`` for ``sm_90a`` the first time a CUDA
+tensor reaches it (``kernels/build.py``) and loaded through ``ctypes``;
+importing this module builds nothing.
 
-Dispatch is by where the tensors lie: a CPU ``q`` runs the plain PyTorch
-version (``ref.flash_attention_ref``); a CUDA ``q`` launches the kernel on
-``torch.cuda.current_stream()`` or raises.  There is no fallback.
+Dispatch is by where the tensors lie: a CPU ``q`` runs the plain
+PyTorch versions (``ref.flash_attention_ref``, ``ref.
+flash_attention_fwd_ref``, ``ref.flash_attention_bwd_ref``); a CUDA
+``q`` launches a kernel on ``torch.cuda.current_stream()`` or raises.
+There is no fallback.  On the card, bf16 with head_dim 16/32/64/128 and
+16-byte aligned rows takes the tensor-core instance of each kernel
+(:func:`tensor_core_route`); float32 and other bf16 inputs take the
+CUDA-core instance (f32 FMA, no TF32).
 
-:func:`flash_attention_trainable` is the same forward with a gradient
-(the JAX package's ``custom_vjp`` at ``flash_attention.py:164``).
+:func:`flash_attention_trainable` is the forward with a gradient (the
+JAX package's ``custom_vjp`` at ``flash_attention.py:164``).
 """
 from __future__ import annotations
 
@@ -25,14 +32,22 @@ from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ref
 
 SOURCE = kbuild.CSRC / "flash_attention.cu"
+BWD_SOURCE = kbuild.CSRC / "flash_attention_bwd.cu"
 
-# Kernel launches made by :func:`flash_attention` (CUDA tensors only).
-# Callers reset it to 0 and read it to show a run went through the kernel.
+# Kernel launches made by the forward (:func:`flash_attention` and the
+# trainable forward) and by the backward (:func:`flash_attention_bwd`: one
+# per call, which runs its passes in turn), CUDA tensors only, and those of
+# either that took the CUDA-core instance.  Callers reset them to 0 and
+# read them to show a run went through the kernels, and through which.
 launches = 0
+bwd_launches = 0
+simt_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Query rows (g * block_q) a block aims for: enough rows to reuse each K/V
-# tile, few enough that a prefill spreads over many blocks.
+_TC_HEAD_DIMS = (16, 32, 64, 128)
+# Query rows (g * block_q) a block of the CUDA-core forward aims for:
+# enough rows to reuse each K/V tile, few enough that a prefill spreads
+# over many blocks.
 _TARGET_ROWS = 64
 
 
@@ -42,8 +57,30 @@ def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
     lib.flash_attention_launch.argtypes = (
-        [ptr] * 4 + [i32] * 8 + [i64] * 12 + [i32, i32, f32, f32, ptr])
+        [ptr] * 5 + [i32] * 9 + [i64] * 12 + [i32, i32, f32, f32, ptr])
     lib.flash_attention_launch.restype = ctypes.c_int
+
+
+def _declare_bwd(lib: ctypes.CDLL) -> None:
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_bwd_launch.argtypes = (
+        [ptr] * 11 + [i32] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+        + [i32, i32, f32, f32, ptr])
+    lib.flash_attention_bwd_launch.restype = ctypes.c_int
+
+
+def tensor_core_route(*tensors: torch.Tensor) -> bool:
+    """Whether the kernels take their tensor-core instance for these
+    operands: bf16, a head_dim of 16, 32, 64 or 128, and every row
+    16-byte aligned (the data pointer, and the batch, sequence and head
+    strides a multiple of 8 elements), as the 16-byte ``cp.async`` copies
+    need.  Otherwise the CUDA-core instance runs."""
+    first = tensors[0]
+    if first.dtype != torch.bfloat16 or first.shape[-1] not in _TC_HEAD_DIMS:
+        return False
+    return all(t.data_ptr() % 16 == 0
+               and all(st % 8 == 0 for st in t.stride()[:-1])
+               for t in tensors)
 
 
 def block_q_for(T: int, g: int, max_rows: int) -> int:
@@ -96,24 +133,55 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        window=window, softcap=softcap)
+    return _forward(q, k, v, causal, window, softcap, None)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0):
+    """:func:`flash_attention` and each row's natural log-sum-exp of its
+    masked, scaled (and capped) scores: (out, lse [B, H, T] float32), the
+    residuals :func:`flash_attention_bwd` reads.  A row with no visible
+    key gets lse -1e30."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_fwd_ref(q, k, v, causal=causal,
+                                           window=window, softcap=softcap)
+    B, T, H, _ = q.shape
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    return _forward(q, k, v, causal, window, softcap, lse), lse
+
+
+def _cuda(q: torch.Tensor, what: str) -> None:
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+        raise ValueError(f"{what}: unsupported device {q.device}")
+
+
+def _forward(q, k, v, causal: bool, window: int, softcap: float,
+             lse: torch.Tensor | None) -> torch.Tensor:
+    """Launch the forward kernel; ``lse`` ([B, H, T] f32) receives each
+    row's log-sum-exp when given."""
+    global launches, simt_launches
+    _cuda(q, "flash_attention")
     _check(q, k, v, window)
-    global launches
     lib = kbuild.load(SOURCE, _declare)
     B, T, H, hd = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
-    max_rows = lib.flash_attention_max_rows(hd)
-    if max_rows < g:
-        raise ValueError(f"flash_attention: head_dim {hd} with {g} query "
-                         "heads per kv head does not fit shared memory")
-    bq = block_q_for(T, g, max_rows)
+    route = tensor_core_route(q, k, v)
+    bq = 0
+    if not route:
+        max_rows = lib.flash_attention_max_rows(hd)
+        if max_rows < g:
+            raise ValueError(f"flash_attention: head_dim {hd} with {g} "
+                             "query heads per kv head does not fit shared "
+                             "memory")
+        bq = block_q_for(T, g, max_rows)
     out = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], B, T, S, H, Hkv, hd, bq,
+        None if lse is None else lse.data_ptr(),
+        _DTYPES[q.dtype], int(route), B, T, S, H, Hkv, hd, bq,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
@@ -123,31 +191,97 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention: kernel launch failed "
                            f"(cudaError {err})")
     launches += 1
+    simt_launches += 0 if route else 1
     return out
 
 
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, softcap: float = 0.0):
+    """The gradient of :func:`flash_attention`: (dq, dk, dv) from the
+    forward's inputs, its output ``out``, its log-sum-exp ``lse`` [B, H,
+    T] f32 and the cotangent ``dout`` [B, T, H, hd].  On the card, a dQ
+    pass, then a dK/dV pass (and, on the tensor-core route with several
+    query heads per kv head, a fixed-order sum of the heads' shares): no
+    atomics, so repeated calls are bit-identical, and nothing of size
+    [T, S] is written.  dq, dk and dv are contiguous, in the dtypes of q,
+    k, v.  One call counts one backward launch."""
+    global bwd_launches, simt_launches
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                           causal=causal, window=window,
+                                           softcap=softcap)
+    _cuda(q, "flash_attention_bwd")
+    _check(q, k, v, window)
+    B, T, H, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} "
+                             f"{tuple(t.shape)} {t.dtype} does not match q")
+    if (lse.shape != (B, H, T) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError("flash_attention_bwd: lse must be a contiguous "
+                         "[B, H, T] float32 tensor beside q")
+    # The cotangent may come broadcast (a sum's gradient); the kernels
+    # read rows with a unit head_dim stride.
+    if out.stride(3) != 1:
+        out = out.contiguous()
+    if dout.stride(3) != 1:
+        dout = dout.contiguous()
+    lib = kbuild.load(BWD_SOURCE, _declare_bwd)
+    dq = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, S, Hkv, hd), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, S, Hkv, hd), dtype=v.dtype, device=q.device)
+    dsum = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    ops = (q, k, v, out, dout, dq, dk, dv)
+    strides = (ctypes.c_longlong * 24)(*[st for t in ops
+                                         for st in t.stride()[:3]])
+    route = tensor_core_route(q, k, v, out, dout)
+    # The tensor-core dK/dV pass runs a block per query head; with several
+    # query heads per kv head their f32 shares go to this scratch (2 x B x
+    # S x H x hd f32: 151 MB at B=4, S=1024, H=9, hd=64) and a third
+    # launch sums them in a fixed order.
+    partial = (torch.empty((2, B, S, H, hd), dtype=torch.float32,
+                           device=q.device) if route and H > Hkv else None)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(),
+        None if partial is None else partial.data_ptr(), _DTYPES[q.dtype],
+        int(route), B, T, S, H, Hkv, hd, strides, int(causal), int(window),
+        float(softcap), float(hd ** -0.5), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd: kernel launch failed "
+                           f"(cudaError {err})")
+    bwd_launches += 1
+    simt_launches += 0 if route else 1
+    return dq, dk, dv
+
+
 class _FlashTrainable(torch.autograd.Function):
-    """Forward on :func:`flash_attention`; backward by recompute through
-    ``ref.flash_attention_ref`` (``_fa_fwd``/``_fa_bwd``,
-    ``flash_attention.py:175-189``)."""
+    """Forward on the flash kernel, keeping its log-sum-exp; backward on
+    the flash backward kernel (``_fa_fwd``/``_fa_bwd``,
+    ``flash_attention.py:175-189``).  On the CPU both are the plain
+    versions."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
-        ctx.save_for_backward(q, k, v)
+        out, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                       window=window, softcap=softcap)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.opts = (causal, window, softcap)
-        return flash_attention(q, k, v, causal=causal, window=window,
-                               softcap=softcap)
+        return out
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, dout):
         causal, window, softcap = ctx.opts
-        with record_function("flash_attention_trainable.backward"), \
-                torch.enable_grad():
-            q, k, v = (t.detach().requires_grad_(True)
-                       for t in ctx.saved_tensors)
-            out = ref.flash_attention_ref(q, k, v, causal=causal,
-                                          window=window, softcap=softcap)
-            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        with record_function("flash_attention_trainable.backward"):
+            dq, dk, dv = flash_attention_bwd(
+                *ctx.saved_tensors, dout, causal=causal, window=window,
+                softcap=softcap)
         return dq, dk, dv, None, None, None
 
 
@@ -157,14 +291,12 @@ def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor,
                               softcap: float = 0.0) -> torch.Tensor:
     """:func:`flash_attention` with a gradient.
 
-    The forward is the Hopper kernel on CUDA (its plain version on the
-    CPU).  The backward recomputes attention from (q, k, v) through the
-    plain ``ref.flash_attention_ref`` and differentiates it with autograd,
-    as the JAX package's VJP does in jnp: the JAX package has no backward
-    kernel, so neither does the port yet.  That backward materialises the
-    f32 scores ``[B, Hkv, g, T, S]`` of one call at a time (about 151 MB
-    at smollm's B=4, T=S=1024).  A recomputing checkpoint
-    (``torch.utils.checkpoint``) re-runs the forward, and so the kernel,
+    On CUDA the forward is the flash kernel, which also writes each row's
+    log-sum-exp, and the backward is the flash backward kernel
+    (:func:`flash_attention_bwd`), which recomputes the probabilities from
+    (q, k, lse) tile by tile: no [T, S] tensor reaches device memory.  On
+    the CPU both are the plain versions.  A recomputing checkpoint
+    (``torch.utils.checkpoint``) re-runs the forward, and so its kernel,
     once more in the backward.  ``block_q``/``block_k``/``interpret`` of
     the JAX signature have no meaning here.
     """

@@ -9,9 +9,11 @@ from __future__ import annotations
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_fwd,
                                                  flash_attention_trainable)
 from repro_torch.kernels.nbb_matmul import nbb_matmul
 from repro_torch.kernels.paged_attention import paged_attention
 
-__all__ = ["flash_attention", "flash_attention_trainable", "nbb_matmul",
-           "paged_attention", "ref"]
+__all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_fwd",
+           "flash_attention_trainable", "nbb_matmul", "paged_attention", "ref"]

@@ -16,20 +16,13 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float()).to(a.dtype)
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, window: int = 0,
-                        softcap: float = 0.0) -> torch.Tensor:
-    """Reference GQA attention.
-
-    q: [B, T, H, hd]; k/v: [B, S, Hkv, hd] with H % Hkv == 0 (any
-    strides).  causal assumes q positions are S-T..S-1 (suffix of the kv
-    sequence).  window: sliding-window size (0 = unlimited).  Returns
-    [B, T, H, hd] in q.dtype.
-    """
+def _flash_scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                  window: int, softcap: float):
+    """(f32 scores [B, Hkv, g, T, S] scaled, capped and masked to -1e30,
+    the capped scores before masking, the [T, S] mask)."""
     B, T, H, hd = q.shape
     S, Hkv = k.shape[1], k.shape[2]
-    g = H // Hkv
-    qg = q.reshape(B, T, Hkv, g, hd)
+    qg = q.reshape(B, T, Hkv, H // Hkv, hd)
     scores = torch.einsum("btkgh,bskh->bkgts", qg.float(),
                           k.float()) * (hd ** -0.5)
     if softcap:
@@ -41,10 +34,76 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask &= kv_pos[None, :] <= q_pos[:, None]
     if window:
         mask &= kv_pos[None, :] > q_pos[:, None] - window
-    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    masked = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    return masked, scores, mask
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0,
+                        softcap: float = 0.0) -> torch.Tensor:
+    """Reference GQA attention.
+
+    q: [B, T, H, hd]; k/v: [B, S, Hkv, hd] with H % Hkv == 0 (any
+    strides).  causal assumes q positions are S-T..S-1 (suffix of the kv
+    sequence).  window: sliding-window size (0 = unlimited).  Returns
+    [B, T, H, hd] in q.dtype.
+    """
+    return _attend(_flash_scores(q, k, causal, window, softcap)[0], q, v)
+
+
+def _attend(scores: torch.Tensor, q: torch.Tensor,
+            v: torch.Tensor) -> torch.Tensor:
+    """softmax(scores) v, [B, Hkv, g, T, S] -> [B, T, H, hd] in q.dtype."""
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgts,bskh->btkgh", probs, v.float())
-    return out.reshape(B, T, H, hd).to(q.dtype)
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool = True,
+                            window: int = 0, softcap: float = 0.0):
+    """:func:`flash_attention_ref` and each row's natural log-sum-exp of
+    its masked scores: (out [B, T, H, hd] in q.dtype, lse [B, H, T] f32),
+    head h = kv head * g + group index, as the kernels lay it out."""
+    B, T, H, _ = q.shape
+    scores = _flash_scores(q, k, causal, window, softcap)[0]
+    return (_attend(scores, q, v),
+            torch.logsumexp(scores, dim=-1).reshape(B, H, T))
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor,
+                            causal: bool = True, window: int = 0,
+                            softcap: float = 0.0):
+    """The flash backward written out in tensors (no autograd), from the
+    forward's residuals: D = rowsum(dout * out); P = exp(S - lse), 0
+    where masked; dV = P^T dout; dP = dout v^T; dS = P (dP - D), times
+    1 - tanh^2 under a softcap; dQ = scale dS k; dK = scale dS^T q (summed
+    over the g query heads of each kv head).  All in f32; returns (dq,
+    dk, dv) in the dtypes of q, k, v.  A causal row with no visible key
+    (S < T) gets P = 0, so its gradients are 0, as for the kernel's zero
+    output there (autograd through :func:`flash_attention_ref` differs on
+    such rows: its output is the mean of v)."""
+    B, T, H, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    scale = hd ** -0.5
+    _, capped, mask = _flash_scores(q, k, causal, window, softcap)
+    p = torch.where(mask, torch.exp(capped - lse.float().reshape(
+        B, Hkv, g, T, 1)), torch.zeros_like(capped))
+    qg = q.reshape(B, T, Hkv, g, hd).float()
+    dog = dout.reshape(B, T, Hkv, g, hd).float()
+    d = (dog * out.reshape(B, T, Hkv, g, hd).float()).sum(-1)  # [B,T,Hkv,g]
+    dv = torch.einsum("bkgts,btkgh->bskh", p, dog)
+    dp = torch.einsum("btkgh,bskh->bkgts", dog, v.float())
+    ds = p * (dp - d.permute(0, 2, 3, 1)[..., None])
+    if softcap:
+        ds = ds * (1 - (capped / softcap) ** 2)
+    dq = torch.einsum("bkgts,bskh->btkgh", ds, k.float()) * scale
+    dk = torch.einsum("bkgts,btkgh->bskh", ds, qg) * scale
+    return (dq.reshape(B, T, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,

@@ -4,7 +4,10 @@ Paged: the reference test shapes in float32 (1e-4: the summation order
 differs) and bfloat16 (3e-2), poison pages, zero-length rows, a strided
 per-layer pool view, a chunk that reaches past the block table and one
 split along T.  Flash: the cases of the JAX package's flash tests,
-ragged T and S, a strided ring slice, rows that see no key, and
+ragged T and S, a strided ring slice, rows that see no key, the
+forward's log-sum-exp; the flash backward kernel against
+``ref.flash_attention_bwd_ref`` on every case with T <= S and at
+smollm's training shape, bit-identical from call to call; and
 ``flash_attention_trainable``'s gradients (1e-4).  NBB matmul: the
 reference test shapes and tolerances, one and 13 kernel K tiles, ragged
 edges, refused operands.  Imports no JAX, so it runs where only the port
@@ -188,6 +191,30 @@ def test_flash_matches_plain_on_card(cuda_device, name, dtype, atol):
                                rtol=atol)
 
 
+# Larger grids with masking at every edge: ragged T and S with a window
+# and a softcap, non-causal at head_dim 32, and the training shape, each
+# with the log-sum-exp the trainable forward keeps.
+FLASH_LARGE_CASES = {
+    "large_window_softcap": (8, 500, 520, 16, 4, 64,
+                             dict(window=90, softcap=30.0)),
+    "large_noncausal_hd32": (16, 200, 200, 12, 4, 32, dict(causal=False)),
+    "large_training": (4, 1024, 1024, 9, 3, 64, {}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FLASH_LARGE_CASES))
+def test_flash_large_grids_on_card(cuda_device, name):
+    B, T, S, H, Hkv, hd, kw = FLASH_LARGE_CASES[name]
+    q, k, v = (t.to(torch.bfloat16) for t in _torch(
+        *_flash_inputs(len(name), B, T, S, H, Hkv, hd), device=cuda_device))
+    out, lse = fa_mod.flash_attention_fwd(q, k, v, **kw)
+    want, want_lse = tref.flash_attention_fwd_ref(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), want.float(), atol=3e-2,
+                               rtol=3e-2)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.cuda
 def test_flash_strided_ring_slice_on_card(cuda_device):
     """The dense path's read: a prefix ``ring[li][:, :S]`` of a stacked
@@ -264,8 +291,133 @@ def test_nbb_matmul_refuses_what_the_copy_engine_cannot_take(cuda_device):
 
 
 # ---------------------------------------------------------------------------
-# flash_attention_trainable: kernel forward, backward by recompute through
-# the plain version, against autograd through the plain version.
+# The forward's log-sum-exp and the flash backward kernel.
+# ---------------------------------------------------------------------------
+BWD_CASES = sorted(n for n, c in FLASH_CASES.items() if c[1] <= c[2])
+
+
+def _bwd_inputs(name, B, T, S, H, Hkv, hd, dtype, device):
+    q, k, v = (t.to(dtype) for t in _torch(
+        *_flash_inputs(len(name) + 50, B, T, S, H, Hkv, hd), device=device))
+    rng = np.random.default_rng(len(name) + 51)
+    dout = _torch(rng.normal(size=(B, T, H, hd)).astype(np.float32),
+                  device=device)[0].to(dtype)
+    return q, k, v, dout
+
+
+# bf16 gradients, element by element: atol + rtol |want|, as chip_smoke.py
+# phase 2d holds them (the readings they were set from are in PERF.md).
+BF16_GRAD_TOL = (2e-2, 1e-2)
+
+
+def _bf16_grad_close(got, want):
+    """bf16 gradients: the kernel rounds P and dS to bf16 (8 significant
+    bits, 2^-9 relative) before its products and the results to bf16,
+    where the plain version keeps f32.  A gradient's size falls with the
+    count of keys its row sees (or rows that see its key), so each element
+    is held to its own |want| (rtol, 2.5 bf16 steps) above a floor for
+    entries near zero (atol, about one bf16 step of the first rows'
+    entries): a late row or key missing a 64 x 64 tile, which moves by
+    0.1-0.45 at the training shape, fails."""
+    atol, rtol = BF16_GRAD_TOL
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gqa_9_3", "ragged_window", "noncausal",
+                                  "decode_512"])
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4),
+                                        ("bfloat16", 3e-2)])
+def test_flash_lse_on_card(cuda_device, name, dtype, atol):
+    B, T, S, H, Hkv, hd, kw = FLASH_CASES[name]
+    q, k, v = (t.to(getattr(torch, dtype)) for t in _torch(
+        *_flash_inputs(len(name), B, T, S, H, Hkv, hd), device=cuda_device))
+    out, lse = fa_mod.flash_attention_fwd(q, k, v, **kw)
+    want_out, want_lse = tref.flash_attention_fwd_ref(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=atol,
+                               rtol=atol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", BWD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_matches_plain_on_card(cuda_device, name, dtype):
+    """The kernel and the plain backward on the same residuals (the plain
+    forward's out and lse), so only the backward is compared."""
+    B, T, S, H, Hkv, hd, kw = FLASH_CASES[name]
+    q, k, v, dout = _bwd_inputs(name, B, T, S, H, Hkv, hd,
+                                getattr(torch, dtype), cuda_device)
+    out, lse = tref.flash_attention_fwd_ref(q, k, v, **kw)
+    before = fa_mod.bwd_launches
+    got = fa_mod.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert fa_mod.bwd_launches == before + 1
+    want = tref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if dtype == "float32":
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+        else:
+            _bf16_grad_close(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_training_shape_on_card(cuda_device):
+    """smollm's training shape: B=4, T=S=1024, 9/3 heads, bf16."""
+    q, k, v, dout = _bwd_inputs("training", 4, 1024, 1024, 9, 3, 64,
+                                torch.bfloat16, cuda_device)
+    out, lse = fa_mod.flash_attention_fwd(q, k, v)
+    got = fa_mod.flash_attention_bwd(q, k, v, out, lse, dout)
+    want = tref.flash_attention_bwd_ref(q, k, v, out, lse, dout)
+    for a, b in zip(got, want):
+        _bf16_grad_close(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_is_deterministic_on_card(cuda_device, dtype):
+    """Two passes, no atomics: repeated calls are bit-identical."""
+    q, k, v, dout = _bwd_inputs("repeat", 2, 256, 256, 9, 3, 64,
+                                getattr(torch, dtype), cuda_device)
+    out, lse = fa_mod.flash_attention_fwd(q, k, v, window=100)
+    first = fa_mod.flash_attention_bwd(q, k, v, out, lse, dout, window=100)
+    for _ in range(3):
+        again = fa_mod.flash_attention_bwd(q, k, v, out, lse, dout,
+                                           window=100)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_route_on_card(cuda_device):
+    """bf16 at head_dim 64 takes the tensor-core instance; an unaligned
+    row stride or float32 takes the CUDA-core one, which alone counts in
+    ``simt_launches``, and both agree with the plain version."""
+    q, k, v = (t.to(torch.bfloat16) for t in _torch(
+        *_flash_inputs(5, 1, 64, 64, 4, 2, 64), device=cuda_device))
+    assert fa_mod.tensor_core_route(q, k, v)
+    assert not fa_mod.tensor_core_route(q.float(), k.float(), v.float())
+    wide = torch.zeros((1, 64, 2, 68), dtype=torch.bfloat16,
+                       device=cuda_device)
+    wide[..., :64] = k
+    k_odd = wide[..., :64]                      # row stride 68: not 16-byte
+    assert not fa_mod.tensor_core_route(q, k_odd, v)
+    before = fa_mod.simt_launches
+    fast = fa_mod.flash_attention(q, k, v)
+    assert fa_mod.simt_launches == before
+    out = fa_mod.flash_attention(q, k_odd, v)
+    assert fa_mod.simt_launches == before + 1
+    want = tref.flash_attention_ref(q, k, v)
+    for got in (fast, out):
+        torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
+                                   rtol=3e-2)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention_trainable: the forward and backward kernels, against
+# autograd through the plain version.
 # ---------------------------------------------------------------------------
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,H,Hkv,hd,kw", [
@@ -279,11 +431,13 @@ def test_flash_trainable_grads_on_card(cuda_device, B, T, H, Hkv, hd, kw):
     results, launched = [], []
     for fn in (fa_mod.flash_attention_trainable, tref.flash_attention_ref):
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        before = fa_mod.launches
+        before = (fa_mod.launches, fa_mod.bwd_launches)
         out = fn(*leaves, **kw)
         grads = torch.autograd.grad(out, leaves, gout)
-        launched.append(fa_mod.launches - before)
+        launched.append((fa_mod.launches - before[0],
+                         fa_mod.bwd_launches - before[1]))
         results.append((out.detach(),) + tuple(grads))
-    assert launched == [1, 0]     # one forward launch; the backward is plain
+    # One forward and one backward launch; the plain version launches none.
+    assert launched == [(1, 1), (0, 0)]
     for a, b in zip(*results):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

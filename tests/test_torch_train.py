@@ -119,13 +119,13 @@ def test_remat_reruns_the_attention_forward(monkeypatch, remat, per_layer):
     backward: the chip run counts 2 x layers launches per step under
     "nothing", and 1 x layers without remat."""
     calls = [0]
-    plain = fa_mod.flash_attention
+    plain = fa_mod.flash_attention_fwd        # the trainable forward's call
 
     def counted(*a, **kw):
         calls[0] += 1
         return plain(*a, **kw)
 
-    monkeypatch.setattr(fa_mod, "flash_attention", counted)
+    monkeypatch.setattr(fa_mod, "flash_attention_fwd", counted)
     cfg = dataclasses.replace(get_smoke_config("smollm-135m"),
                               dtype="float32")
     model = build_model(cfg, remat_policy=remat, device="cpu")
