@@ -8,20 +8,25 @@ each of which fails the run hard:
    versions, and the build of every kernel from ``src/repro_torch`` (one
    ``nvcc`` per source, all started together), with the count of
    tensor-core instructions (HMMA/HGMMA in ``cuobjdump -sass``) in each
-   flash kernel: every bf16 tensor-core kernel must have some, every
-   float32 (CUDA-core) one none;
+   kernel: every bf16 tensor-core kernel (flash, the paged chunk kernel)
+   must have some, every NBB ``wgmma`` instance HGMMA, every float32
+   (CUDA-core) one none;
 2. each kernel against its plain PyTorch version on the card: paged
    attention at the reference test shapes and the paged main path's (a
-   strided per-layer view of a [512, 16, 30, 3, 64] pool); flash
+   strided per-layer view of a [512, 16, 30, 3, 64] pool), then its
+   split-KV decode (with a lens=0 row and rows shorter than one split)
+   and tensor-core T=64 chunk (with softcap), each twice, bit-identical;
+   flash
    attention at the reference test shapes, ragged T and S, and the dense
    main path's (B=1 causal prefills of 64/256/512 tokens over a ring
    slice, a T=1 decode at S=513 over a strided B=4 ring slice); and the
    dense decode read — the paged kernel over a [4, 1024] ring viewed as
    identity pages — against both plain versions; (2c) the NBB matmul at
-   the reference test shapes in f32 and bf16, one kernel K tile, an odd
-   count of them, ragged edges and the kernel benchmark's 512 x 1024 x
-   512 bf16, then one call through ``ops.nbb_matmul`` at that shape as
-   its entry point's run; (2d) ``flash_attention_trainable`` (the flash
+   the reference test shapes in f32 and bf16, the f32 instance's one and
+   13 K tiles, each bf16 instance's ring at 1, S-1, S+1 and 2S+1 K steps,
+   ragged edges and the kernel benchmark's 512 x 1024 x 512 bf16, each
+   twice, bit-identical, then one call through ``ops.nbb_matmul`` at that
+   shape as its entry point's run; (2d) ``flash_attention_trainable`` (the flash
    forward and backward kernels): its output against the plain version
    and its gradients against ``ref.flash_attention_bwd_ref``, element by
    element, at the reference test's f32 case, a window + softcap GQA case
@@ -31,20 +36,24 @@ each of which fails the run hard:
 3. the paged main path at full width: ``smollm-135m`` (random weights
    from a seed) served by the ``slot_paged`` engine to 4 client sessions
    x 4 requests, every stream complete and exactly-once, the paged kernel
-   launched 30 times per model forward; then where one dispatch's time
+   launched 30 times per model forward and its split-KV combine 30 times
+   per one-token decode forward; then where one dispatch's time
    goes.  In every served and trained run, every flash launch takes the
    tensor-core instance (none the CUDA-core one);
 4. the dense main path at full width: the same 16 requests under
-   ``slot_fused`` (flash launches = 30 x prefills, paged launches = 30 x
-   decode steps), then 4 requests each under ``slot_chunked`` and
-   ``wave``; then where a prefill's and a decode block's time goes;
+   ``slot_fused`` (flash launches = 30 x prefills, paged launches and
+   combines = 30 x decode steps), then 4 requests each under
+   ``slot_chunked`` and ``wave``; then where a prefill's and a decode
+   block's time goes;
 5. CPU/CUDA parity: the SMOKE config at float32, same weights on both
    devices, identical greedy tokens under ``slot_paged``, ``slot_fused``
    and ``wave``;
 6. kernel timing at the main paths' shapes (CUDA events around windows
    enqueued behind a device-side spin, so they time the card's work and
-   not the host's launch rate), beside each kernel's bound, its plain
-   version and the one PyTorch call that computes the same function
+   not the host's launch rate; paged: slot_paged's T=1 decode and T=64
+   chunk, slot_fused's dense-ring decode), beside each kernel's bound,
+   its plain version and the one PyTorch call that computes the same
+   function
    where there is one (``scaled_dot_product_attention`` forward, backward,
    and forward + backward for the trainable flash; ``torch.matmul`` for
    the NBB matmul: yardsticks the port never calls);
@@ -179,8 +188,8 @@ def cuobjdump() -> str:
     raise RuntimeError("chip smoke failed: no cuobjdump to read the SASS")
 
 
-def tensor_core_counts(lib) -> dict:
-    """{kernel function: count of HMMA/HGMMA instructions} in ``lib``."""
+def tensor_core_counts(lib, opcodes=("HMMA", "HGMMA")) -> dict:
+    """{kernel function: count of ``opcodes`` instructions} in ``lib``."""
     out = subprocess.run([cuobjdump(), "-sass", str(lib)], capture_output=True,
                          text=True, timeout=300, check=True).stdout
     counts, fn = {}, None
@@ -188,7 +197,7 @@ def tensor_core_counts(lib) -> dict:
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             counts[fn] = 0
-        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+        elif fn is not None and any(op in line for op in opcodes):
             counts[fn] += 1
     return counts
 
@@ -215,18 +224,30 @@ def phase_build():
                 kernel = demangle(line.split("'")[1])
             elif "registers" in line or "spill" in line:
                 print(f"  {kernel}: {line.split(':', 1)[-1].strip()}")
-    # The flash kernels' tensor-core instructions: each bf16 tensor-core
-    # instance (flash_*_tc<hd>, mangled ``flash_*_tcI...``) must issue
-    # them, each CUDA-core instance (flash_*_simt<T>, float32 among them)
-    # none: no TF32.
-    for name in ("flash_attention", "flash_attention_bwd"):
+    # Tensor-core instructions in the SASS: each bf16 tensor-core instance
+    # must issue them (the flash kernels' flash_*_tc<hd>, the paged chunk
+    # kernel paged_chunk_tc<hd>; the NBB matmul's nbb_wgmma_kernel<...>
+    # HGMMA, wgmma), each float32 instance none (flash_*_simt<T>,
+    # paged_split<float, hd>, paged_simt<float>, nbb_simt_kernel): no TF32.
+    rules = {  # source: (tensor-core needle, least count, f32 needles, least)
+        "flash_attention": ("_tcI", 4, ("_simtI",), 2),
+        "flash_attention_bwd": ("_tcI", 4, ("_simtI",), 2),
+        "paged_attention": ("paged_chunk_tcI", 4,
+                            ("paged_splitIf", "paged_simtIf"), 5),
+        "nbb_matmul": ("nbb_wgmma_kernelI", 2, ("nbb_simt_kernel",), 1)}
+    for name, (tc_needle, n_tc, f32_needles, n_f32) in rules.items():
         counts = tensor_core_counts(libs[name])
-        tc = {f: n for f, n in counts.items() if "_tcI" in f}
-        simt = {f: n for f, n in counts.items() if "_simtI" in f}
-        check(len(tc) >= 4 and all(n > 0 for n in tc.values()),
+        tc = {f: n for f, n in counts.items() if tc_needle in f}
+        f32 = {f: n for f, n in counts.items()
+               if any(x in f for x in f32_needles)}
+        check(len(tc) >= n_tc and all(n > 0 for n in tc.values()),
               f"{name}: a tensor-core kernel without HMMA/HGMMA: {tc}")
-        check(len(simt) >= 2 and not any(simt.values()),
-              f"{name}: a CUDA-core kernel with HMMA/HGMMA: {simt}")
+        check(len(f32) >= n_f32 and not any(f32.values()),
+              f"{name}: a float32 kernel with HMMA/HGMMA: {f32}")
+        if name == "nbb_matmul":
+            hgmma = tensor_core_counts(libs[name], ("HGMMA",))
+            check(all(hgmma[f] > 0 for f in tc),
+                  f"nbb_matmul: a wgmma instance without HGMMA: {hgmma}")
         print(f"  {name} SASS tensor-core instructions (HMMA/HGMMA): "
               + ", ".join(sorted(f"{demangle(f)} {n}"
                                  for f, n in counts.items())))
@@ -349,12 +370,74 @@ def phase_compare():
                                   f"{dt_name}: err {err}")
                 if dt_name == "bfloat16":
                     main_err = max(main_err, err)
+    split_err = phase_compare_split()
     print(f"kernel vs plain: reference cases (and their poison-page "
           f"variants, bit-identical) max err f32 "
           f"{worst['float32']:.3g} (tol 1e-4), bf16 "
           f"{worst['bfloat16']:.3g} (tol 3e-2); main-path shapes bf16 "
           f"max err {main_err:.3g}")
-    return main_err
+    return max(main_err, split_err)
+
+
+# (label, B, T, lens, softcap): the split-KV decode at the paged main
+# path's table (B=8, ps=16, P=64: 16 splits of 64 keys) with a lens=0
+# row, rows shorter than one split and one that ends on a split's edge;
+# the T=64 tensor-core chunk with a row shorter than T, one past the
+# table, and softcap.
+SPLIT_CASES = [
+    ("split decode", 8, 1, [0, 5, 63, 64, 65, 300, 545, 1024], 0.0),
+    ("split decode softcap", 8, 1, [1, 17, 128, 129, 700, 64, 1000, 2],
+     30.0),
+    ("tensor-core chunk T=64", 4, 64, [64, 300, 40, 1100], 0.0),
+    ("tensor-core chunk T=64 softcap", 4, 64, [64, 300, 40, 1100], 30.0),
+]
+
+
+def phase_compare_split():
+    """The redesigned routes at the paged main path's shapes (a strided
+    layer view of the bf16 pool): each against the plain version (and the
+    split decode against the plain split-KV version, which merges the
+    splits as the kernel does), its route and launch counts, and two calls
+    bit-identical.  Returns the max bf16 error."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    m = MAIN
+    _, pk, pv, block, _ = main_path_inputs(torch, 1, seed=40)
+    kview, vview = pk[:, :, 3], pv[:, :, 3]
+    g = torch.Generator(device="cuda").manual_seed(41)
+    worst, lines = 0.0, []
+    for label, B, T, lens, cap in SPLIT_CASES:
+        q = torch.randn((B, T, m["H"], m["hd"]), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        blk = block[:B]
+        way = pa.route(q, kview, vview)
+        check(way == ("split" if T == 1 else "chunk_tc"),
+              f"{label}: route {way}")
+        before = (pa.launches, pa.combine_launches)
+        out = pa.paged_attention(q, kview, vview, blk, ln, softcap=cap)
+        again = pa.paged_attention(q, kview, vview, blk, ln, softcap=cap)
+        torch.cuda.synchronize()
+        combines = 2 if way == "split" else 0
+        check((pa.launches - before[0], pa.combine_launches - before[1])
+              == (2, combines), f"{label}: launches")
+        check(torch.equal(out, again), f"{label}: two calls differ")
+        want = ref.paged_attention_ref(q, kview, vview, blk, ln, softcap=cap)
+        err = (out.float() - want.float()).abs().max().item()
+        if way == "split":
+            split_keys = pa.split_plan(B, m["Hkv"], m["P"], m["ps"])[1]
+            want2 = ref.paged_attention_split_ref(q, kview, vview, blk, ln,
+                                                  split_keys, softcap=cap)
+            err = max(err, (out.float() - want2.float()).abs().max().item())
+        check(err <= TOLS["bfloat16"], f"{label}: err {err}")
+        check(torch.count_nonzero(out[ln <= 0]) == 0,
+              f"{label}: a lens=0 row is not zero")
+        worst = max(worst, err)
+        lines.append(f"{label} ({way}, B={B}, lens {lens}) {err:.3g}")
+    print("redesigned paged routes vs plain (bf16, tol 3e-2; two calls "
+          "bit-identical): " + "; ".join(lines))
+    return worst
 
 
 # (B, T, S, H, Hkv, hd, kwargs): tests/test_kernels.py and
@@ -488,9 +571,13 @@ def phase_compare_dense_decode():
 
 
 # (M, K, N, blocks, dtypes, (atol, rtol)): tests/test_kernels.py's shapes
-# and tolerances, then the kernel's own K tiles (32 keys of K each): one
-# tile, 13 of them (odd: the last slot's phase parity differs from the
-# first's), ragged M/N/K edges, and bench_kernels.py's shape.
+# and tolerances; the f32 instance's own K tiles (32 each): one tile and
+# 13 of them (odd: the last slot's phase parity differs from the
+# first's); each bf16 instance's ring (K steps of 64, S slots: 4 for the
+# 64 x 64 tile, 3 for the 128 x 128 one) at 1, S-1, S+1 and 2S+1 steps,
+# so every slot's parity is met in more than one round and the last round
+# is partial; ragged M/N/K edges (TMA's zero fill in bf16); and
+# bench_kernels.py's shape.
 NBB_F32 = (5e-4, 1e-3)
 NBB_EXACT = (2e-5, 2e-5)
 NBB_BF16 = (3e-2, 3e-2)
@@ -502,6 +589,15 @@ NBB_CASES = [
     (128, 32, 128, (256, 256, 512), ("float32", "bfloat16"), NBB_EXACT),
     (128, 416, 128, (256, 256, 512), ("float32", "bfloat16"), NBB_EXACT),
     (100, 40, 72, (256, 256, 512), ("float32", "bfloat16"), NBB_EXACT),
+    (128, 64, 128, (128, 128, 64), ("bfloat16",), None),
+    (128, 192, 128, (128, 128, 192), ("bfloat16",), None),
+    (128, 320, 128, (128, 128, 320), ("bfloat16",), None),
+    (128, 576, 128, (128, 128, 576), ("bfloat16",), None),
+    (1408, 64, 1536, (1408, 1536, 64), ("bfloat16",), None),
+    (1408, 128, 1536, (1408, 1536, 128), ("bfloat16",), None),
+    (1408, 256, 1536, (1408, 1536, 256), ("bfloat16",), None),
+    (1408, 448, 1536, (1408, 1536, 448), ("bfloat16",), None),
+    (1500, 200, 1544, (1500, 1544, 200), ("float32", "bfloat16"), None),
     (512, 1024, 512, (256, 256, 512), ("bfloat16",), None),
 ]
 NBB_BENCH = (512, 1024, 512)      # bench_kernels.py:95-98, bf16
@@ -516,7 +612,11 @@ def phase_compare_nbb():
     from repro_torch.kernels import nbb_matmul as nbb
     from repro_torch.kernels import ops, ref
     torch.backends.cuda.matmul.allow_tf32 = False
-    check(nbb.TILE[2] == 32, f"kernel K step {nbb.TILE[2]}, cases assume 32")
+    check(nbb.TILE == ((64, 64, 32), (64, 64, 64), (128, 128, 64))
+          and nbb.SLOTS == (2, 4, 3),
+          f"kernel tiles {nbb.TILE} / slots {nbb.SLOTS}: the cases assume "
+          "(64, 64, 32) x 2, (64, 64, 64) x 4 and (128, 128, 64) x 3")
+    used = set()
     g = torch.Generator(device="cuda").manual_seed(31)
 
     def err_within(out, want, atol, rtol):
@@ -535,13 +635,18 @@ def phase_compare_nbb():
                 NBB_F32 if dt_name == "float32" else NBB_BF16)
             before = nbb.launches
             out = nbb.nbb_matmul(a.to(dt), b.to(dt), bm=bm, bn=bn, bk=bk)
+            again = nbb.nbb_matmul(a.to(dt), b.to(dt), bm=bm, bn=bn, bk=bk)
             torch.cuda.synchronize()
-            check(nbb.launches == before + 1, "nbb_matmul did not launch")
+            check(nbb.launches == before + 2, "nbb_matmul did not launch")
+            check(torch.equal(out, again), f"nbb case {(M, K, N)} "
+                                           f"{dt_name}: two calls differ")
+            used.add(nbb.instance_for(dt, M, N))
             err, ok = err_within(out, ref.matmul_ref(a.to(dt), b.to(dt)),
                                  atol, rtol)
             check(ok, f"nbb case {(M, K, N)} {dt_name}: max err {err} "
                       f"(atol {atol}, rtol {rtol})")
             worst[dt_name] = max(worst.get(dt_name, 0.0), err)
+    check(used == {0, 1, 2}, f"cases ran instances {used}, not all three")
     try:
         nbb.nbb_matmul(a, b.t())
         check(False, "a transposed operand was not refused")
@@ -558,8 +663,10 @@ def phase_compare_nbb():
     err, ok = err_within(out, ref.matmul_ref(a, b), *NBB_BF16)
     check(ok, f"ops.nbb_matmul at {NBB_BENCH}: err {err}")
     print(f"nbb_matmul vs plain: {sum(len(c[4]) for c in NBB_CASES)} cases "
-          f"(test shapes; K of 1 and 13 kernel tiles of 32; ragged 100 x "
-          f"40 x 72; {M} x {K} x {N} bf16) max err f32 "
+          f"(test shapes; f32 K of 1 and 13 tiles of 32; bf16 rings of 4 "
+          f"and 3 slots at 1, S-1, S+1, 2S+1 K steps of 64; ragged 100 x "
+          f"40 x 72 and 1500 x 200 x 1544; {M} x {K} x {N} bf16; each "
+          f"twice, bit-identical) max err f32 "
           f"{worst['float32']:.3g} (atol 2e-5 or 5e-4 as the reference), "
           f"bf16 {worst['bfloat16']:.3g} (3e-2); entry point "
           f"ops.nbb_matmul {M} x {K} x {N} bf16: {launches} launch, err "
@@ -687,19 +794,21 @@ def phase_compare_trainable():
 # ---------------------------------------------------------------------------
 def full_width_model():
     """``smollm-135m`` at full width on the card, random weights from
-    seed 0, with a count of model forwards."""
+    seed 0, with a count of model forwards: [all, one-token decode
+    forwards]."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     cfg = get_config("smollm-135m")
     model = build_model(cfg)                          # cuda by default
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    forwards = [0]
+    forwards = [0, 0]
     fwd = model.forward
 
-    def counted_forward(*a, **kw):
+    def counted_forward(params, tokens, *a, **kw):
         forwards[0] += 1
-        return fwd(*a, **kw)
+        forwards[1] += tokens.shape[1] == 1
+        return fwd(params, tokens, *a, **kw)
 
     model.forward = counted_forward
     return model, params, forwards
@@ -727,9 +836,9 @@ def serve_run(eng, prompts, max_tokens: int, forwards, smi: str,
               label: str):
     """Serve ``prompts`` ({(client, r): tokens}) with one thread per
     client session, every kernel counter set to 0 just before and read
-    just after.  Checks every stream, and that every flash launch took
-    the tensor-core instance; returns (launches {kernel: n},
-    model forwards, wall s, tok/s, TTFT p50 ms)."""
+    just after.  Checks every stream, that every flash launch took the
+    tensor-core instance and no paged launch the CUDA-core route; returns
+    (launches {kernel: n}, model forwards, wall s, tok/s, TTFT p50 ms)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
@@ -749,8 +858,9 @@ def serve_run(eng, prompts, max_tokens: int, forwards, smi: str,
         except Exception as exc:        # noqa: BLE001 — reported below
             errors.append(repr(exc))
 
-    fa.launches = fa.simt_launches = pa.launches = 0
-    forwards[0] = 0
+    fa.launches = fa.simt_launches = 0
+    pa.launches = pa.combine_launches = pa.simt_launches = 0
+    forwards[0] = forwards[1] = 0
     thread = eng.start()
     t0 = time.monotonic()
     threads = [threading.Thread(target=client, args=(c,)) for c in clients]
@@ -761,8 +871,10 @@ def serve_run(eng, prompts, max_tokens: int, forwards, smi: str,
     torch.cuda.synchronize()
     dt = time.monotonic() - t0
     launches = {"flash_attention": fa.launches,
-                "paged_attention": pa.launches}
+                "paged_attention": pa.launches,
+                "paged_combine": pa.combine_launches}
     simt = fa.simt_launches
+    paged_simt = pa.simt_launches
     n_fwd = forwards[0]
     eng.stop()
     thread.join(timeout=30)
@@ -771,6 +883,8 @@ def serve_run(eng, prompts, max_tokens: int, forwards, smi: str,
     check(eng.dead is None, f"{label}: engine died: {eng.dead}")
     check(simt == 0, f"{label}: {simt} flash launches took the CUDA-core "
                      "instance, not the tensor-core one")
+    check(paged_simt == 0, f"{label}: {paged_simt} paged launches took the "
+                           "CUDA-core route, not split-KV or tensor-core")
     n_req = len(prompts)
     check(len(results) == n_req and eng.stats["served"] == n_req,
           f"{label}: served {eng.stats['served']} of {n_req}")
@@ -792,7 +906,8 @@ def serve_run(eng, prompts, max_tokens: int, forwards, smi: str,
           f"{n_tok / dt:.1f} tok/s, TTFT p50 {ttft_ms:.0f} ms, forwards "
           f"{n_fwd} ({1e3 * dt / max(n_fwd, 1):.1f} ms of wall time each), "
           f"launches flash_attention {launches['flash_attention']} "
-          f"paged_attention {launches['paged_attention']} [{smi}]")
+          f"paged_attention {launches['paged_attention']} (combine "
+          f"{launches['paged_combine']}) [{smi}]")
     print(f"  {label} stats: {eng.stats}")
     return launches, n_fwd, dt, n_tok / dt, ttft_ms
 
@@ -815,6 +930,12 @@ def phase_serve(model, params, forwards, smi: str):
           f"paged_attention launches {launches['paged_attention']} != "
           f"{cfg.num_layers} x {n_fwd} forwards")
     check(launches["flash_attention"] == 0, "slot_paged launched flash")
+    # Each decode forward's 30 passes take the split route and one
+    # combine each; the T=64 chunks none.
+    check(forwards[1] > 0 and launches["paged_combine"]
+          == cfg.num_layers * forwards[1],
+          f"paged combine launches {launches['paged_combine']} != "
+          f"{cfg.num_layers} x {forwards[1]} decode forwards")
     check(eng.stats["prefix_hits"] > 0, "the shared prefix never hit")
     print(f"  prefix_hits {eng.stats['prefix_hits']}, "
           f"prefill_tokens_saved {eng.stats['prefill_tokens_saved']}")
@@ -841,6 +962,15 @@ def phase_serve_dense(model, params, forwards, smi: str):
         launches, n_fwd, *_ = serve_run(eng, work, 32, forwards, smi, sched)
         st = eng.stats
         fl, pl = launches["flash_attention"], launches["paged_attention"]
+        # Every one-token decode forward ends its 30 paged (split-route)
+        # passes in a combine; chunks and flash prefills have none, nor
+        # the wave's flash decode.
+        want_combine = 0 if sched == "wave" else L * forwards[1]
+        check(launches["paged_combine"] == want_combine
+              and (pl == 0 or forwards[1] > 0),
+              f"{sched}: paged combine launches "
+              f"{launches['paged_combine']} != {want_combine} ({L} x "
+              f"{forwards[1]} decode forwards)")
         if sched == "slot_fused":
             check(fl == L * st["prefills"] and st["prefills"] == len(work),
                   f"slot_fused: flash launches {fl} != {L} x "
@@ -899,9 +1029,11 @@ def profile_split(cases, smi: str):
             continue
         check(not any("flash_" in e.key and "_simt" in e.key for e in rows),
               f"time split, {name}: a CUDA-core flash kernel ran")
+        check(not any("paged_simt" in e.key for e in rows),
+              f"time split, {name}: the CUDA-core paged kernel ran")
         kern = {k: sum(dev_us(e) for e in rows if needle in e.key) / 1e3
                 for k, needle in (("flash_attention", "flash_fwd_tc"),
-                                  ("paged_attention", "paged_attention"))}
+                                  ("paged_attention", "paged_"))}
         top = sorted(rows, key=dev_us, reverse=True)[:5]
         print(f"time split, {name}: wall {wall:.2f} ms "
               f"({wall / steps:.2f} ms per forward), device busy "
@@ -1039,60 +1171,92 @@ def work(q, block, lens, hkv: int, itemsize: int):
     return nbytes, 4 * hd * H * visible
 
 
-def phase_timing_paged(launches: int, max_err: float, smi: str):
+def paged_timing_row(label: str, q, views, block, lens, smi: str):
+    """Device ms of the paged kernel (cycling ``views``, one layer's K/V
+    each, so a call finds its K/V out of L2 as the served model does),
+    its bound, its plain version, and the gather + SDPA yardstick on the
+    same inputs; printed, and returned as (ms, plain, bound, by)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
-    m = MAIN
-    rows = []
+    B, T, H, hd = q.shape
+    ps, Hkv = views[0][0].shape[1], views[0][0].shape[2]
+    P = block.shape[1]
+    S, n = P * ps, len(views)
+    kern = lambda i: pa.paged_attention(q, *views[i % n], block, lens)  # noqa
+    plain = lambda i: ref.paged_attention_ref(q, *views[i % n],  # noqa
+                                              block, lens)
+
+    def gather(i):
+        k, v = views[i % n]
+        blk = block.long()
+        return (k[blk].reshape(B, S, Hkv, hd), v[blk].reshape(B, S, Hkv, hd))
+
+    kg, vg = gather(0)
+    q_pos = lens.long()[:, None] - T + torch.arange(T, device="cuda")[None]
+    mask = (torch.arange(S, device="cuda")[None, None, :]
+            <= q_pos[:, :, None])[:, None]               # [B,1,T,S]
+    g = H // Hkv
+    qt, kt, vt = (x.transpose(1, 2) for x in (
+        q, kg.repeat_interleave(g, dim=2), vg.repeat_interleave(g, dim=2)))
+    sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask)
+    before = (pa.launches, pa.combine_launches)
+    t_kern = timed(kern)
+    t_plain = timed(plain, inner=10)
+    t_gather = timed(gather, inner=10)
+    t_sdpa = timed(sdpa, inner=10)
+    pa.launches, pa.combine_launches = before   # timing is not counted
+    nbytes, flops = work(q, block, lens, Hkv, 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    bound = max(t_bytes, t_ops)
+    way = pa.route(q, *views[0])
+    plan = (f", {pa.split_plan(B, Hkv, P, ps)[0]} splits + combine"
+            if way == "split" else "")
+    print(f"paged_attention {label} (H={H}, Hkv={Hkv}, hd={hd}, ps={ps}, "
+          f"P={P}, bf16, lens {lens.tolist()}; route {way}{plan}): kernel "
+          f"{t_kern:.4f} ms, bound {bound:.5f} ms ({by}: "
+          f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), plain "
+          f"{t_plain:.4f} ms; yardstick (not used by the port): gather "
+          f"{t_gather:.4f} ms + SDPA on gathered K/V {t_sdpa:.4f} ms "
+          f"[{smi}]")
+    return t_kern, t_plain, bound, by
+
+
+def phase_timing_paged(launches: int, max_err: float, smi: str):
+    """The paged kernel at the main paths' shapes: slot_paged's T=1
+    decode and T=64 chunk (B=8 over the strided layer views of the pool)
+    and slot_fused's decode read (B=4 over the [4, 1024] ring as 64-token
+    identity pages, lens 65/300/513/1000).  The kernel JSON row carries
+    the T=1 decode, the hot shape."""
+    import torch
+    from repro_torch.models.layers import ring_page_size
+    m, d = MAIN, DENSE
+    rows = {}
     for T in (1, m["chunk"]):
         q, pk, pv, block, lens = main_path_inputs(torch, T, seed=100 + T)
-        # Cycle the 30 layer views so a call finds its K/V out of L2, as
-        # the served model does (the 30 layers' K/V exceed the 50 MB L2).
         views = [(pk[:, :, li], pv[:, :, li]) for li in range(m["L"])]
-        kern = lambda i: pa.paged_attention(q, *views[i % m["L"]],  # noqa
-                                            block, lens)
-        plain = lambda i: ref.paged_attention_ref(q, *views[i % m["L"]],  # noqa
-                                                  block, lens)
-        S = m["P"] * m["ps"]
-
-        def gather(i):
-            k, v = views[i % m["L"]]
-            blk = block.long()
-            return (k[blk].reshape(m["B"], S, m["Hkv"], m["hd"]),
-                    v[blk].reshape(m["B"], S, m["Hkv"], m["hd"]))
-
-        kg, vg = gather(0)
-        q_pos = (lens.long()[:, None] - T
-                 + torch.arange(T, device="cuda")[None, :])
-        mask = (torch.arange(S, device="cuda")[None, None, :]
-                <= q_pos[:, :, None])[:, None]            # [B,1,T,S]
-        g = m["H"] // m["Hkv"]
-        qt, kt, vt = (x.transpose(1, 2) for x in (
-            q, kg.repeat_interleave(g, dim=2), vg.repeat_interleave(g, dim=2)))
-        sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, attn_mask=mask)
-        before = pa.launches
-        t_kern = timed(kern)
-        t_plain = timed(plain, inner=10)
-        t_gather = timed(gather, inner=10)
-        t_sdpa = timed(sdpa, inner=10)
-        pa.launches = before                # timing launches are not counted
-        nbytes, flops = work(q, block, lens, m["Hkv"], 2)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-        bound = max(t_bytes, t_ops)
-        print(f"paged_attention T={T} (B=8, H=9, Hkv=3, hd=64, ps=16, bf16, "
-              f"strided layer view): kernel {t_kern:.4f} ms, bound "
-              f"{bound:.5f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}"
-              f": {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), plain "
-              f"{t_plain:.4f} ms; yardstick (not used by the port): gather "
-              f"{t_gather:.4f} ms + SDPA on gathered K/V {t_sdpa:.4f} ms "
-              f"[{smi}]")
-        rows.append((T, t_kern, t_plain, bound,
-                     "bytes" if t_bytes >= t_ops else "operations"))
-    T, t_kern, t_plain, bound, by = rows[0]          # decode: the hot shape
+        rows[T] = paged_timing_row(f"T={T} B={m['B']}", q, views, block,
+                                   lens, smi)
+    B, size = d["B"], d["size"]
+    ps = ring_page_size(size)
+    rk, rv = dense_ring(torch, B, seed=102)
+    views = [(rk[li].view(B * size // ps, ps, d["Hkv"], d["hd"]),
+              rv[li].view(B * size // ps, ps, d["Hkv"], d["hd"]))
+             for li in range(d["L"])]
+    block = torch.arange(B * size // ps, dtype=torch.int32,
+                         device="cuda").view(B, size // ps)
+    lens = torch.tensor([65, 300, 513, 1000], dtype=torch.int32,
+                        device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(103)
+    q = torch.randn((B, 1, d["H"], d["hd"]), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    paged_timing_row(f"dense-ring decode T=1 B={B}", q, views, block, lens,
+                     smi)
+    t_kern, t_plain, bound, by = rows[1]
     return {"name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:152",
@@ -1199,7 +1363,10 @@ def phase_timing_nbb(launches: int, max_err: float, smi: str):
         t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
         by = "bytes" if t_bytes >= t_ops else "operations"
         bound = max(t_bytes, t_ops)
-        print(f"nbb_matmul {M} x {K} x {N} bf16: kernel {t_kern:.4f} ms "
+        inst = nbb.instance_for(torch.bfloat16, M, N)
+        print(f"nbb_matmul {M} x {K} x {N} bf16 (instance {inst}: tile "
+              f"{nbb.TILE[inst]}, {nbb.SLOTS[inst]} slots): kernel "
+              f"{t_kern:.4f} ms "
               f"({flops / t_kern / 1e9:.1f} TFLOP/s), bound {bound:.5f} ms "
               f"({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP), "
               f"plain {t_plain:.4f} ms, library (torch.matmul, not used by "

@@ -1,5 +1,6 @@
 // Device helpers shared by the flash-attention forward
-// (flash_attention.cu) and backward (flash_attention_bwd.cu) on Hopper:
+// (flash_attention.cu) and backward (flash_attention_bwd.cu) and the
+// paged-attention kernels (paged_attention.cu) on Hopper:
 // the visibility rule, 16-byte cp.async copies into padded shared-memory
 // tiles, ldmatrix fragment loads and the bf16 mma.sync.m16n8k16 product
 // with f32 accumulation.

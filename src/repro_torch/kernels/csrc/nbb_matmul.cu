@@ -1,5 +1,4 @@
-// NBB double-buffered matmul for Hopper (sm_90a), CUDA C++ with a plain C
-// entry point.
+// NBB ring matmul for Hopper (sm_90a), CUDA C++ with a plain C entry point.
 //
 // Replaces the TPU kernel of the JAX package: `nbb_matmul`
 // (src/repro/kernels/nbb_matmul.py:84), whose body `_nbb_matmul_kernel`
@@ -8,77 +7,83 @@
 // (float32 or bfloat16); A and B are row-major and contiguous.
 //
 // The point of the kernel is the paper's NBB ring (Kim'07), made explicit.
-// Each block owns one kTileM x kTileN output tile and walks K in kTileK
-// steps through a 2-slot shared-memory ring per operand:
+// Each block owns one output tile and walks K in steps through a ring of
+// S slots in shared memory, each slot holding one K step of A and of B:
 //
-//   producer (warp kConsumerWarps, the copy side): for K tile k it waits on
-//     the slot's *empty* mbarrier (the consumers' "acknowledge" counter),
-//     arms the slot's *full* mbarrier with the tile's byte count, and
-//     issues one `cp.async.bulk ... mbarrier::complete_tx::bytes` copy per
-//     tile row; the copy engine's completions are the "update" counter.
-//   consumers (warps 0..kConsumerWarps-1, the math side): for K tile k they
-//     wait on slot k % 2's *full* mbarrier -- on data readiness only, never
-//     on a lock -- accumulate the slot's product, then arrive on its
-//     *empty* mbarrier.
+//   producer (one thread of the last warp, the copy side): for K tile k it
+//     waits on slot k % S's *empty* mbarrier -- the consumers' acknowledge
+//     counter -- arms the slot's *full* mbarrier with the tile's byte count,
+//     and asks the copy engine for the tile; the engine's completion of
+//     those bytes is the update counter.
+//   consumers (the first warps, the math side): for K tile k they wait on
+//     slot k % S's *full* mbarrier -- on data readiness only, never on a
+//     lock -- multiply the slot, and arrive on its *empty* mbarrier once
+//     their products have read it.
 //
-// The producer is therefore at most one slot ahead of the consumers: it
-// fills slot (k+1) % 2 while they read slot k % 2, the TPU kernel's
-// discipline (nbb_matmul.py:54-76) with mbarriers in place of DMA
-// semaphores.  Each slot's barriers complete one phase per use, so the
-// phase parity a waiter asks for is (k / 2) % 2 for the full barrier and
-// (k / 2 - 1) % 2 for the empty one (no wait for the first two tiles: the
-// ring starts empty).
+// The NBB counters, update u (tiles the producer has started) and
+// acknowledge a (tiles the consumers have released), name the slots as
+// u mod S and a mod S; the TPU kernel's 2-slot ring (nbb_matmul.py:54-76)
+// is S = 2, where mod 2 is the one-ahead alternation.  With S slots the
+// producer may run S - 1 tiles ahead, and it never overwrites a slot the
+// consumers hold: it fills slot s for round r = k / S only after the
+// consumers' release of round r - 1 of that slot.  An mbarrier counts its
+// completed phases, so a slot's barriers complete once per round: a
+// waiter for round r of the *full* barrier asks for phase parity r & 1;
+// the producer, for round r >= 1, asks the *empty* barrier for the
+// parity of round r - 1, (r - 1) & 1, and does not wait in round 0 (the
+// ring starts empty).  For S = 2 this is the 2-slot rule (k / 2) % 2.
+//
+// Three instances (kTiles; the wrapper picks one by dtype and shape):
+//
+// * 1 and 2, bfloat16, on the tensor cores: the tiles come by TMA
+//   (`cp.async.bulk.tensor.2d`, tensor maps from cuTensorMapEncodeTiled,
+//   reached through cudaGetDriverEntryPoint so this nvcc build links no
+//   libcuda), 128-byte swizzled, K steps of 64 (one 128-byte row of
+//   bf16).  A [M,K] arrives K-major, B [K,N] N-major in boxes of 64
+//   columns; `wgmma.mma_async.m64nNk16` reads both from the slot through
+//   matrix descriptors (B through the descriptor's transpose bit: an
+//   MN-major operand, no copy) into an f32 accumulator in registers.  One
+//   consumer warpgroup per 64 rows of the tile; a warpgroup releases a
+//   slot when its next tile's products are issued and the slot's have
+//   finished (wgmma.wait_group 1).  TMA's out-of-bounds zero fill takes
+//   the ragged edges of M, N and K; the epilogue stores only rows < M and
+//   columns < N.  Instance 1 (64 x 64 tiles, one consumer warpgroup)
+//   serves shapes whose 128 x 128 tiling would leave the card's SMs idle
+//   (512 x 1024 x 512 gives 64 blocks); instance 2 (128 x 128, two
+//   consumer warpgroups) the large ones.
+// * 0, float32, on the CUDA cores: the first design.  64 x 64 tiles, K steps
+//   of 32, 2 slots filled row by row with `cp.async.bulk`; f32 FMA, since
+//   TF32 would break the reference's 2e-5 float32 tolerance at K = 384.
 //
 // What bounds it on an H100: a large product (the 4096^3 timing shape) is
-// far above the ~295 flop/byte line, so the bound is the tensor-core rate.
-// This first version does not approach it: the arithmetic is float32 FMA
-// on the CUDA cores for both dtypes (TF32 would break the reference's
-// 2e-5 float32 tolerance at K=384), each operand read from shared memory.
-// Tensor maps (cuTensorMapEncodeTiled lives in libcuda, which this plain
-// nvcc build does not link), a deeper ring and wgmma are the work of the
-// change that makes it fast.
+// far above the ~295 flop/byte line, so the bound is the tensor-core rate
+// (989 TFLOP/s bf16).  512 x 1024 x 512 is latency-bound: 16 K steps in
+// series per block.  Results are bit-identical from call to call: no
+// split over K, each output summed in one fixed order.
 //
-// Ragged edges are handled by bounds: rows past M or K are not copied,
-// a row's copy is cut at K or N, and the consumers sum only the K tile's
-// valid columns.  The bulk copies need 16-byte aligned addresses and
-// sizes: the base pointers, K * sizeof(T) and N * sizeof(T) must be
-// multiples of 16 (the wrapper checks; this entry point refuses).
+// The copies need 16-byte aligned bases and rows: the base pointers,
+// K * sizeof(T) and N * sizeof(T) must be multiples of 16 (the wrapper
+// checks; this entry point refuses).
 
+#include <cuda.h>            // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTileM = 64;
-constexpr int kTileN = 64;
-constexpr int kTileK = 32;
-constexpr int kConsumerWarps = 8;
-constexpr int kConsumers = kConsumerWarps * 32;   // 16 x 16, 4 x 4 each
-constexpr int kThreads = kConsumers + 32;         // + one producer warp
+typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
-
-// Leading dimensions of the ring's tiles, in elements.  An A row is padded
-// by 16 bytes so the consumers' column reads of neighbouring rows fall in
-// different banks; every row start stays 16-byte aligned for the copies.
-template <typename T> struct Ring {
-  static constexpr int lda = kTileK + 16 / sizeof(T);
-  static constexpr int ldb = kTileN;
-  static constexpr int a_slot = kTileM * lda;   // elements per slot
-  static constexpr int b_slot = kTileK * ldb;
+struct Tile {
+  int m, n, k, slots;
 };
+// instance: {tile M, tile N, K step, ring slots}
+constexpr Tile kTiles[3] = {
+    {64, 64, 32, 2},    // 0: float32, CUDA cores
+    {64, 64, 64, 4},    // 1: bfloat16, wgmma, one consumer warpgroup
+    {128, 128, 64, 3},  // 2: bfloat16, wgmma, two consumer warpgroups
+};
+constexpr int kMaxSmemBytes = 232448;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -110,11 +115,14 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
       : "memory");
 }
 
-// Spin until the phase of parity `parity` has completed.
+// Spin until the phase of parity `parity` has completed.  A hand-off
+// that never comes (a lost arrive, a copy that faulted) traps after 2^26
+// polls, each of which try_wait may suspend for a while, so a broken ring
+// fails the launch instead of holding the card.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_addr(bar);
   uint32_t done = 0;
-  while (!done) {
+  for (uint32_t polls = 0; !done; ++polls) {
     asm volatile(
         "{\n"
         ".reg .pred p;\n"
@@ -124,8 +132,37 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "=r"(done)
         : "r"(addr), "r"(parity)
         : "memory");
+    if (polls == (1u << 26)) asm volatile("trap;");
   }
 }
+
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty,
+                                          int slots, uint32_t consumers) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < slots; ++s) {
+      mbar_init(&full[s], 1);            // the producer's arrive
+      mbar_init(&empty[s], consumers);   // one arrive per consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // No block-wide barrier past this point: the two roles run apart.
+}
+
+// ---------------------------------------------------------------------------
+// Instance 0: float32 on the CUDA cores
+// ---------------------------------------------------------------------------
+constexpr int kSimtM = kTiles[0].m, kSimtN = kTiles[0].n;
+constexpr int kSimtK = kTiles[0].k, kSimtSlots = kTiles[0].slots;
+constexpr int kSimtConsumerWarps = 8;
+constexpr int kSimtThreads = kSimtConsumerWarps * 32 + 32;  // + producer
+// Leading dimensions of the ring's tiles, in floats.  An A row is padded
+// by 16 bytes so the consumers' column reads of neighbouring rows fall in
+// different banks; every row start stays 16-byte aligned for the copies.
+constexpr int kSimtLda = kSimtK + 4;
+constexpr int kSimtLdb = kSimtN;
+constexpr int kSimtASlot = kSimtM * kSimtLda;
+constexpr int kSimtBSlot = kSimtK * kSimtLdb;
 
 // Global -> shared copy by the copy engine; completion is counted in
 // bytes on `bar`.  dst, src and bytes must be multiples of 16.
@@ -138,52 +175,43 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       : "memory");
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-nbb_matmul_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                  T* __restrict__ c, int M, int N, int K) {
-  using R = Ring<T>;
-  __shared__ __align__(128) T a_ring[2 * R::a_slot];
-  __shared__ __align__(128) T b_ring[2 * R::b_slot];
-  __shared__ __align__(8) uint64_t full[2];
-  __shared__ __align__(8) uint64_t empty[2];
+__global__ void __launch_bounds__(kSimtThreads)
+nbb_simt_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                float* __restrict__ c, int M, int N, int K) {
+  __shared__ __align__(128) float a_ring[kSimtSlots * kSimtASlot];
+  __shared__ __align__(128) float b_ring[kSimtSlots * kSimtBSlot];
+  __shared__ __align__(8) uint64_t full[kSimtSlots];
+  __shared__ __align__(8) uint64_t empty[kSimtSlots];
 
-  const int m0 = blockIdx.y * kTileM;
-  const int n0 = blockIdx.x * kTileN;
-  const int m_valid = min(kTileM, M - m0);
-  const int n_valid = min(kTileN, N - n0);
-  const int n_k = (K + kTileK - 1) / kTileK;
+  const int m0 = blockIdx.y * kSimtM;
+  const int n0 = blockIdx.x * kSimtN;
+  const int m_valid = min(kSimtM, M - m0);
+  const int n_valid = min(kSimtN, N - n0);
+  const int n_k = (K + kSimtK - 1) / kSimtK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  init_ring(full, empty, kSimtSlots, kSimtConsumerWarps);
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < 2; ++s) {
-      mbar_init(&full[s], 1);                 // the producer's arrive
-      mbar_init(&empty[s], kConsumerWarps);   // one arrive per consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  // No block-wide barrier past this point: the two roles run apart.
-
-  if (warp == kConsumerWarps) {
-    // Producer: the copy side of the ring.
+  if (warp == kSimtConsumerWarps) {
+    // Producer: the copy side of the ring, one bulk copy per tile row.
+    // Ragged edges by bounds: rows past M or K are not copied, a row's
+    // copy is cut at K or N.
     for (int kt = 0; kt < n_k; ++kt) {
-      const int s = kt & 1;
-      if (kt >= 2) mbar_wait(&empty[s], ((kt >> 1) - 1) & 1);
-      const int k0 = kt * kTileK;
-      const int k_valid = min(kTileK, K - k0);
-      const uint32_t a_row = k_valid * sizeof(T);
-      const uint32_t b_row = n_valid * sizeof(T);
+      const int s = kt % kSimtSlots, r = kt / kSimtSlots;
+      if (r > 0) mbar_wait(&empty[s], (r - 1) & 1);
+      const int k0 = kt * kSimtK;
+      const int k_valid = min(kSimtK, K - k0);
+      const uint32_t a_row = k_valid * sizeof(float);
+      const uint32_t b_row = n_valid * sizeof(float);
       if (lane == 0)
         mbar_arrive_expect_tx(&full[s], m_valid * a_row + k_valid * b_row);
       __syncwarp();   // armed before any copy can complete
-      T* a_dst = a_ring + s * R::a_slot;
-      T* b_dst = b_ring + s * R::b_slot;
-      for (int r = lane; r < m_valid; r += 32)
-        bulk_copy(a_dst + r * R::lda, a + (long long)(m0 + r) * K + k0,
+      float* a_dst = a_ring + s * kSimtASlot;
+      float* b_dst = b_ring + s * kSimtBSlot;
+      for (int r2 = lane; r2 < m_valid; r2 += 32)
+        bulk_copy(a_dst + r2 * kSimtLda, a + (long long)(m0 + r2) * K + k0,
                   a_row, &full[s]);
-      for (int r = lane; r < k_valid; r += 32)
-        bulk_copy(b_dst + r * R::ldb, b + (long long)(k0 + r) * N + n0,
+      for (int r2 = lane; r2 < k_valid; r2 += 32)
+        bulk_copy(b_dst + r2 * kSimtLdb, b + (long long)(k0 + r2) * N + n0,
                   b_row, &full[s]);
     }
     return;
@@ -198,11 +226,11 @@ nbb_matmul_kernel(const T* __restrict__ a, const T* __restrict__ b,
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
   for (int kt = 0; kt < n_k; ++kt) {
-    const int s = kt & 1;
-    mbar_wait(&full[s], (kt >> 1) & 1);
-    const int k_valid = min(kTileK, K - kt * kTileK);
-    const T* as = a_ring + s * R::a_slot;
-    const T* bs = b_ring + s * R::b_slot;
+    const int s = kt % kSimtSlots;
+    mbar_wait(&full[s], (kt / kSimtSlots) & 1);
+    const int k_valid = min(kSimtK, K - kt * kSimtK);
+    const float* as = a_ring + s * kSimtASlot;
+    const float* bs = b_ring + s * kSimtBSlot;
     // The tile's partial sums first, then one add into the accumulator:
     // shorter running sums, less rounding at large K.
     float part[4][4];
@@ -213,11 +241,9 @@ nbb_matmul_kernel(const T* __restrict__ a, const T* __restrict__ b,
     for (int kk = 0; kk < k_valid; ++kk) {
       float av[4], bv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        av[i] = to_f32(as[(ty + 16 * i) * R::lda + kk]);
+      for (int i = 0; i < 4; ++i) av[i] = as[(ty + 16 * i) * kSimtLda + kk];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        bv[j] = to_f32(bs[kk * R::ldb + tx + 16 * j]);
+      for (int j = 0; j < 4; ++j) bv[j] = bs[kk * kSimtLdb + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -238,23 +264,283 @@ nbb_matmul_kernel(const T* __restrict__ a, const T* __restrict__ b,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = tx + 16 * j;
-      if (col < n_valid)
-        c[(long long)(m0 + r) * N + n0 + col] = from_f32<T>(acc[i][j]);
+      if (col < n_valid) c[(long long)(m0 + r) * N + n0 + col] = acc[i][j];
     }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* a, const void* b, void* c, int M, int N,
-                   int K, cudaStream_t stream) {
-  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a) |
-                         reinterpret_cast<uintptr_t>(b);
-  if ((ptrs % 16) || (K * sizeof(T)) % 16 || (N * sizeof(T)) % 16)
+// ---------------------------------------------------------------------------
+// Instances 1 and 2: bfloat16 on the tensor cores (TMA + wgmma)
+// ---------------------------------------------------------------------------
+constexpr int kBK = 64;      // K step: one 128-byte swizzle row of bf16
+constexpr int kBoxN = 64;    // B arrives in boxes of 64 columns (128 bytes)
+constexpr int kBoxBytes = kBK * kBoxN * 2;
+
+// TMA: the 2-D box at (c0 inner, c1 outer) of `map` into shared memory at
+// dst; completion is counted in bytes on `bar`.  Out-of-bounds elements
+// arrive as zeros and count toward the bytes.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// wgmma matrix descriptor of a 128-byte-swizzled tile at shared address
+// `addr`: leading and stride byte offsets in 16-byte units, layout type 1
+// (128B swizzle) in bits 62-63.  K-major A: the stride byte offset steps
+// 8 rows (1024 bytes), the leading one is unused (1).  N-major B: the
+// stride byte offset steps 8 rows of K (1024 bytes), the leading one the
+// next 64-column box.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pin the accumulator's registers at this point of the program: no read
+// or copy of them moves across (their values are the hardware's while
+// products are in flight).
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x BN] += A[64 x 16] (K-major) * B[16 x BN] (N-major: trans-b 1).
+template <int BN>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[BN / 2], uint64_t da,
+                                           uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, "
+      "1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BM, int BN, int S>
+struct WgmmaRing {
+  static constexpr int consumers = BM / 64;          // warpgroups
+  static constexpr int threads = consumers * 128 + 32;
+  static constexpr int a_bytes = BM * kBK * 2;       // one slot of A
+  static constexpr int b_bytes = kBK * BN * 2;       // one slot of B
+  // The slots, plus room to align the ring to 1024 bytes (the 128-byte
+  // swizzle's period, which the descriptors assume).
+  static constexpr int smem_bytes = S * (a_bytes + b_bytes) + 1024;
+};
+
+template <int BM, int BN, int S>
+__global__ void __launch_bounds__(WgmmaRing<BM, BN, S>::threads)
+nbb_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                 const __grid_constant__ CUtensorMap map_b,
+                 bf16* __restrict__ c, int M, int N, int K) {
+  using R = WgmmaRing<BM, BN, S>;
+  __shared__ __align__(8) uint64_t full[S];
+  __shared__ __align__(8) uint64_t empty[S];
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* a_ring = ring;                  // S x [BM][64], swizzled
+  unsigned char* b_ring = ring + S * R::a_bytes; // S x BN/64 boxes [64][64]
+
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const int n_k = (K + kBK - 1) / kBK;
+  const int warp = threadIdx.x / 32;
+  init_ring(full, empty, S, R::consumers);
+
+  if (warp == R::consumers * 4) {
+    // Producer: one thread issues every copy of the block.
+    if (threadIdx.x % 32 == 0) {
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int s = kt % S, r = kt / S;
+        if (r > 0) mbar_wait(&empty[s], (r - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], R::a_bytes + R::b_bytes);
+        tma_load_2d(a_ring + s * R::a_bytes, &map_a, kt * kBK, m0, &full[s]);
+#pragma unroll
+        for (int j = 0; j < BN / kBoxN; ++j)
+          tma_load_2d(b_ring + s * R::b_bytes + j * kBoxBytes, &map_b,
+                      n0 + j * kBoxN, kt * kBK, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroup wg: rows m0 + 64 wg .. + 63 of the tile.
+  const int wg = warp / 4;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  fence_acc(acc);
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int s = kt % S;
+    mbar_wait(&full[s], (kt / S) & 1);
+    const uint32_t a_addr = smem_addr(a_ring + s * R::a_bytes) + wg * 64 * 128;
+    const uint32_t b_addr = smem_addr(b_ring + s * R::b_bytes);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      // A: 16 columns of K are 32 bytes into each swizzled 128-byte row;
+      // B: 16 rows of K are 16 x 128 bytes further into each box.
+      wgmma_bf16<BN>(acc, sw128_desc(a_addr + kk * 32, 16, 1024),
+                     sw128_desc(b_addr + kk * 16 * 128, kBoxBytes, 1024));
+    }
+    wgmma_commit();
+    fence_acc(acc);
+    // The previous tile's products have finished: release its slot.
+    wgmma_wait<1>();
+    if (kt > 0 && threadIdx.x % 128 == 0) mbar_arrive(&empty[(kt - 1) % S]);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  // Accumulator layout of m64nNk16: warp w of the warpgroup holds rows
+  // 16 w + lane / 4 (+ 8); register 4 j + e holds column 8 j + 2 (lane %
+  // 4) + (e & 1), the upper row for e >= 2.
+  const int lane = threadIdx.x % 32;
+  const int row = m0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane % 4);
+    if (col >= N) continue;            // N is a multiple of 8: col + 1 < N
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row + 8 * h;
+      if (r < M) {
+        __nv_bfloat162 v =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(c + (long long)r * N + col) = v;
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A tensor map of a row-major bf16 [rows, cols] matrix, read in boxes of
+// box_rows x 64 columns, 128-byte swizzled, zeros out of bounds.
+bool bf16_map(CUtensorMap* map, const void* base, int rows, int cols,
+              int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+            const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int I>
+cudaError_t launch_wgmma(const void* a, const void* b, void* c, int M, int N,
+                         int K, cudaStream_t stream) {
+  constexpr int BM = kTiles[I].m, BN = kTiles[I].n, S = kTiles[I].slots;
+  using R = WgmmaRing<BM, BN, S>;
+  static_assert(kTiles[I].k == kBK, "the wgmma instances step K by 64");
+  static_assert(R::smem_bytes <= kMaxSmemBytes, "ring exceeds shared memory");
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        nbb_wgmma_kernel<BM, BN, S>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, R::smem_bytes);
+    if (e != cudaSuccess) return e;
+    attr = true;
+  }
+  CUtensorMap map_a, map_b;
+  if (!bf16_map(&map_a, a, M, K, BM) || !bf16_map(&map_b, b, K, N, kBK))
     return cudaErrorInvalidValue;
-  dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
-  nbb_matmul_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(c),
-      M, N, K);
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  nbb_wgmma_kernel<BM, BN, S><<<grid, R::threads, R::smem_bytes, stream>>>(
+      map_a, map_b, static_cast<bf16*>(c), M, N, K);
   return cudaGetLastError();
 }
 
@@ -262,20 +548,35 @@ cudaError_t launch(const void* a, const void* b, void* c, int M, int N,
 
 extern "C" {
 
-// The kernel's own output tile and K step: which = 0 (M), 1 (N), 2 (K).
-int nbb_matmul_tile(int which) {
-  return which == 0 ? kTileM : which == 1 ? kTileN : kTileK;
+// An instance's tile: which = 0 (M), 1 (N), 2 (K step), 3 (ring slots).
+int nbb_matmul_tile(int instance, int which) {
+  if (instance < 0 || instance > 2 || which < 0 || which > 3) return -1;
+  const Tile& t = kTiles[instance];
+  return which == 0 ? t.m : which == 1 ? t.n : which == 2 ? t.k : t.slots;
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  a [M,K], b [K,N], c [M,N], all
-// row-major and contiguous.  Returns a cudaError_t (0 = ok).
-int nbb_matmul_launch(const void* a, const void* b, void* c, int dtype, int M,
-                      int N, int K, void* stream) {
+// instance: 0 = float32 (CUDA cores), 1 or 2 = bfloat16 (tensor cores; the
+// wrapper picks by shape).  a [M,K], b [K,N], c [M,N], all row-major and
+// contiguous.  Returns a cudaError_t (0 = ok).
+int nbb_matmul_launch(const void* a, const void* b, void* c, int instance,
+                      int M, int N, int K, void* stream) {
   if (M <= 0 || N <= 0) return cudaSuccess;
   if (K <= 0) return cudaErrorInvalidValue;
+  const int size = instance == 0 ? 4 : 2;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a) |
+                         reinterpret_cast<uintptr_t>(b);
+  if ((ptrs % 16) || ((long long)K * size) % 16 || ((long long)N * size) % 16)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(a, b, c, M, N, K, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(a, b, c, M, N, K, s);
+  if (instance == 0) {
+    dim3 grid((N + kSimtN - 1) / kSimtN, (M + kSimtM - 1) / kSimtM);
+    nbb_simt_kernel<<<grid, kSimtThreads, 0, s>>>(
+        static_cast<const float*>(a), static_cast<const float*>(b),
+        static_cast<float*>(c), M, N, K);
+    return cudaGetLastError();
+  }
+  if (instance == 1) return launch_wgmma<1>(a, b, c, M, N, K, s);
+  if (instance == 2) return launch_wgmma<2>(a, b, c, M, N, K, s);
   return cudaErrorInvalidValue;
 }
 

@@ -10,7 +10,11 @@ this module is imported, so the CPU tests can import it.
 
 Dispatch is by where the tensors lie: a CPU ``q`` runs the plain PyTorch
 version (``ref.paged_attention_ref``); a CUDA ``q`` launches the kernel on
-``torch.cuda.current_stream()`` or raises.  There is no fallback.
+``torch.cuda.current_stream()`` or raises.  There is no fallback.  On the
+card :func:`route` picks one of the kernel's three routes: ``split``
+(decode: flash-decoding over :func:`split_plan`'s runs of keys, then a
+combine launch), ``chunk_tc`` (bf16 chunks on the tensor cores) or
+``simt`` (everything else, on the CUDA cores).
 """
 from __future__ import annotations
 
@@ -23,21 +27,82 @@ from repro_torch.kernels import ref
 
 SOURCE = kbuild.CSRC / "paged_attention.cu"
 
-# Kernel launches made by :func:`paged_attention` (CUDA tensors only).
-# Callers reset it to 0 and read it to show a run went through the kernel.
+# Kernel launches made by :func:`paged_attention` (CUDA tensors only):
+# ``launches`` counts the attention passes (one per call, or one per
+# T-piece of a chunk split along T), ``combine_launches`` the launches
+# that merge a split-KV pass's splits (one per split-route pass),
+# ``simt_launches`` the passes that took the CUDA-core ``simt`` route.
+# Callers reset them to 0 and read them to show a run went through the
+# kernel, and through which route.
 launches = 0
+combine_launches = 0
+simt_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("simt", "split", "chunk_tc")
+_FAST_HEAD_DIMS = (16, 32, 64, 128)
+# The split route's limits, fixed in the source (checked at load): query
+# rows g*T a block holds, and keys per tile (split_keys is a multiple).
+SPLIT_ROWS = 16
+SPLIT_TILE = 64
+# Blocks a split-KV pass aims to stay under: 8 per SM of an H100.
+_MAX_SPLIT_BLOCKS = 8 * 132
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     lib.paged_attention_max_rows.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.paged_attention_max_rows.restype = ctypes.c_int
+    lib.paged_attention_split_limit.argtypes = [ctypes.c_int]
+    lib.paged_attention_split_limit.restype = ctypes.c_int
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
     lib.paged_attention_launch.argtypes = (
-        [ptr] * 6 + [i32] * 8 + [i64] * 13 + [f32, f32, ptr])
+        [ptr] * 7 + [i32] * 11 + [i64] * 13 + [f32, f32, ptr])
     lib.paged_attention_launch.restype = ctypes.c_int
+    limits = (lib.paged_attention_split_limit(0),
+              lib.paged_attention_split_limit(1))
+    if limits != (SPLIT_ROWS, SPLIT_TILE):
+        raise RuntimeError(f"paged_attention: the built kernel's split "
+                           f"limits {limits} are not "
+                           f"{(SPLIT_ROWS, SPLIT_TILE)}")
+
+
+def split_plan(B: int, Hkv: int, P: int, ps: int) -> tuple:
+    """(n_split, keys per split) of a split-KV pass, from the static
+    shapes only: never from ``lens``, whose values would need a
+    device-to-host read.  Each split is whole pages covering at least one
+    64-key tile (a multiple of it), as many splits as keep B * Hkv *
+    n_split under ``_MAX_SPLIT_BLOCKS``; the splits cover all P * ps
+    positions, and those past a row's length cost an empty block."""
+    tile_pages = -(-SPLIT_TILE // ps)
+    per_row = max(1, _MAX_SPLIT_BLOCKS // max(1, B * Hkv))
+    pages = max(tile_pages, -(-P // per_row))
+    pages = -(-pages // tile_pages) * tile_pages
+    return max(1, -(-P // pages)), pages * ps
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """16-byte aligned rows: the base, and every stride but the last a
+    multiple of 16 bytes (the 16-byte ``cp.async`` copies)."""
+    step = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(st % step == 0
+                                          for st in t.stride()[:-1])
+
+
+def route(q: torch.Tensor, k_pages: torch.Tensor,
+          v_pages: torch.Tensor) -> str:
+    """The kernel route for these operands: ``split`` when the g*T query
+    rows of a kv head fit one split block (decode), else ``chunk_tc`` for
+    bf16; both need a head_dim of 16, 32, 64 or 128 and 16-byte aligned
+    rows.  Everything else takes ``simt``."""
+    B, T, H, hd = q.shape
+    g = H // k_pages.shape[2]
+    if hd not in _FAST_HEAD_DIMS or not all(
+            map(_aligned, (q, k_pages, v_pages))):
+        return "simt"
+    if g * T <= SPLIT_ROWS:
+        return "split"
+    return "chunk_tc" if q.dtype == torch.bfloat16 else "simt"
 
 
 def _check(q, k_pages, v_pages, block, lens) -> None:
@@ -96,28 +161,39 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     _check(q, k_pages, v_pages, block, lens)
-    global launches
+    global launches, combine_launches, simt_launches
     lib = kbuild.load(SOURCE, _declare)
     B, T, H, hd = q.shape
     ps, Hkv = k_pages.shape[1], k_pages.shape[2]
+    P = block.shape[1]
     g = H // Hkv
     out = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
-    t_max = lib.paged_attention_max_rows(hd, ps) // g
-    if t_max < 1:
-        raise ValueError(f"paged_attention: head_dim {hd} with {g} query "
-                         "heads per kv head does not fit shared memory")
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    way = route(q, k_pages, v_pages)
+    n_split, split_keys, part, t_max = 1, 0, None, T
+    if way == "split":
+        n_split, split_keys = split_plan(B, Hkv, P, ps)
+        # Each split's (m, l) and f32 accumulator, for the combine launch.
+        part = torch.empty(B * Hkv * n_split * g * T * (hd + 2),
+                           dtype=torch.float32, device=q.device)
+    elif way == "simt":
+        t_max = lib.paged_attention_max_rows(hd, ps) // g
+        if t_max < 1:
+            raise ValueError(f"paged_attention: head_dim {hd} with {g} "
+                             "query heads per kv head does not fit shared "
+                             "memory")
     for t0 in range(0, T, t_max):
-        # A chunk too long for one block's shared memory is split along
-        # T: queries [t0, t1) are the newest of a row t1 - T shorter.
+        # A chunk too long for one block's shared memory (simt) is split
+        # along T: queries [t0, t1) are the newest of a row t1 - T shorter.
         t1 = min(T, t0 + t_max)
         ln = lens if t1 == T else lens - (T - t1)
         qs, os_ = q[:, t0:t1], out[:, t0:t1]
         err = lib.paged_attention_launch(
             qs.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block.data_ptr(), ln.data_ptr(), os_.data_ptr(),
-            _DTYPES[q.dtype], B, t1 - t0, H, Hkv, hd, ps, block.shape[1],
-            qs.stride(0), qs.stride(1), qs.stride(2),
+            None if part is None else part.data_ptr(), _DTYPES[q.dtype],
+            ROUTES.index(way), B, t1 - t0, H, Hkv, hd, ps, P, n_split,
+            split_keys, qs.stride(0), qs.stride(1), qs.stride(2),
             k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
             v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
             os_.stride(0), os_.stride(1), os_.stride(2),
@@ -126,4 +202,6 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             raise RuntimeError(f"paged_attention: kernel launch failed "
                                f"(cudaError {err})")
         launches += 1
+        combine_launches += way == "split"
+        simt_launches += way == "simt"
     return out

@@ -147,3 +147,53 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     probs = torch.where(any_valid, probs, torch.zeros_like(probs))
     out = torch.einsum("bkgts,bskh->btkgh", probs, v.float())
     return out.reshape(B, T, H, hd).to(q.dtype)
+
+
+def paged_attention_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor, block: torch.Tensor,
+                              lens: torch.Tensor, split_keys: int,
+                              softcap: float = 0.0) -> torch.Tensor:
+    """:func:`paged_attention_ref` in the split-KV form the kernel's split
+    route computes: the P * page_size positions cut into runs of
+    ``split_keys`` keys; for each run and row, the max m of its visible
+    scores (-1e30 where it has none), l = sum exp(s - m) and the
+    unnormalised accumulator; then the runs merged in split order, M =
+    max m, out = sum acc exp(m - M) / sum l exp(m - M), or 0 where that
+    sum is 0 (a row that sees no key).  Used by nothing on the main
+    path: it is the plain version of the kernel's arithmetic, tested on
+    the CPU against the JAX reference."""
+    B, T, H, hd = q.shape
+    page_size, Hkv = k_pages.shape[1], k_pages.shape[2]
+    S = block.shape[1] * page_size
+    g = H // Hkv
+    blk = block.long()
+    k = k_pages[blk].reshape(B, S, Hkv, hd).float()
+    v = v_pages[blk].reshape(B, S, Hkv, hd).float()
+    qg = q.reshape(B, T, Hkv, g, hd).float()
+    scores = torch.einsum("btkgh,bskh->bkgts", qg, k) * (hd ** -0.5)
+    if softcap:
+        scores = torch.tanh(scores / softcap) * softcap
+    q_pos = (lens.long()[:, None] - T
+             + torch.arange(T, device=q.device)[None, :])          # [B, T]
+    kv_pos = torch.arange(S, device=q.device)
+    mask = (kv_pos[None, None, :] <= q_pos[:, :, None])[:, None, None]
+    parts = []
+    for k0 in range(0, S, split_keys):
+        sl = slice(k0, min(S, k0 + split_keys))
+        sc, mk = scores[..., sl], mask[..., sl]
+        m = torch.where(mk, sc, torch.full_like(sc, -1e30)).amax(-1)
+        p = torch.where(mk, torch.exp(sc - m[..., None]),
+                        torch.zeros_like(sc))
+        parts.append((m, p.sum(-1),
+                      torch.einsum("bkgts,bskh->bkgth", p, v[:, sl])))
+    big = torch.stack([m for m, _, _ in parts]).amax(0)
+    den = torch.zeros_like(big)
+    num = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:                    # in split order
+        w = torch.exp(m - big)
+        den = den + l * w
+        num = num + acc * w[..., None]
+    out = torch.where(den[..., None] > 0,
+                      num / torch.where(den > 0, den, 1.0)[..., None],
+                      torch.zeros_like(num))
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, hd).to(q.dtype)

@@ -3,14 +3,18 @@ against their plain PyTorch versions, on the card (``pytest -m cuda``).
 Paged: the reference test shapes in float32 (1e-4: the summation order
 differs) and bfloat16 (3e-2), poison pages, zero-length rows, a strided
 per-layer pool view, a chunk that reaches past the block table and one
-split along T.  Flash: the cases of the JAX package's flash tests,
-ragged T and S, a strided ring slice, rows that see no key, the
-forward's log-sum-exp; the flash backward kernel against
+split along T; the split-KV decode and its combine (B=8, ps=16; the
+ps=64 identity pages of a dense ring), the T=64 tensor-core chunk with
+softcap, bit-identical repeats.  Flash: the cases of the JAX package's
+flash tests, ragged T and S, a strided ring slice, rows that see no key,
+the forward's log-sum-exp; the flash backward kernel against
 ``ref.flash_attention_bwd_ref`` on every case with T <= S and at
 smollm's training shape, bit-identical from call to call; and
 ``flash_attention_trainable``'s gradients (1e-4).  NBB matmul: the
 reference test shapes and tolerances, one and 13 kernel K tiles, ragged
-edges, refused operands.  Imports no JAX, so it runs where only the port
+edges, refused operands; in bf16, each tile instance's ring at 1, S-1,
+S+1 and 2S+1 K steps, ragged edges through TMA's zero fill,
+bit-identical repeats.  Imports no JAX, so it runs where only the port
 is installed; skipped without a card."""
 import numpy as np
 import pytest
@@ -130,15 +134,146 @@ def test_kernel_strided_view_on_card(cuda_device):
 @pytest.mark.cuda
 def test_kernel_padded_chunk_and_split_on_card(cuda_device):
     """cache_pos + T past the table (the page loop is bounded by P), and
-    a chunk too long for one block's shared memory (split along T)."""
+    a chunk too long for one block's shared memory on the CUDA-core route
+    (float32: split along T); in bf16 the same chunk is one tensor-core
+    launch."""
     _kernel_vs_plain(_setup(9, B=2, T=8, H=4, Hkv=2, hd=16, n_pages=16,
                             ps=4, P=3, lens=[14, 5]),
                      cuda_device, torch.float32, 1e-4)
-    before = pa_mod.launches
-    _kernel_vs_plain(_setup(10, B=2, T=48, H=8, Hkv=1, hd=128, n_pages=32,
-                            ps=16, P=8, lens=[100, 60]),
-                     cuda_device, torch.bfloat16, 3e-2)
-    assert pa_mod.launches - before > 1
+    long_chunk = _setup(10, B=2, T=48, H=8, Hkv=1, hd=128, n_pages=32,
+                        ps=16, P=8, lens=[100, 60])
+    before = (pa_mod.launches, pa_mod.simt_launches)
+    _kernel_vs_plain(long_chunk, cuda_device, torch.float32, 1e-4)
+    pieces = pa_mod.launches - before[0]
+    assert pieces > 1 and pa_mod.simt_launches - before[1] == pieces
+    before = (pa_mod.launches, pa_mod.simt_launches)
+    _kernel_vs_plain(long_chunk, cuda_device, torch.bfloat16, 3e-2)
+    assert (pa_mod.launches - before[0],
+            pa_mod.simt_launches - before[1]) == (1, 0)
+
+
+def _main_pool(seed, B, T, lens, ps=16, P=64, n_pages=512, H=9, Hkv=3,
+               hd=64, L=3, li=1, device="cuda"):
+    """A strided per-layer view of a [n_pages, ps, L, Hkv, hd] pool (the
+    serving pool's layout), a block table of disjoint scattered pages and
+    the given lengths, numpy-seeded; float32 tensors on ``device``."""
+    rng = np.random.default_rng(seed)
+    pk, pv = (rng.normal(size=(n_pages, ps, L, Hkv, hd)).astype(np.float32)
+              for _ in range(2))
+    q = rng.normal(size=(B, T, H, hd)).astype(np.float32)
+    block = rng.permutation(n_pages)[:B * P].reshape(B, P).astype(np.int32)
+    tq, tk, tv, tb, tl = _torch(q, pk, pv, block,
+                                np.asarray(lens, np.int32), device=device)
+    return tq, tk[:, :, li], tv[:, :, li], tb, tl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4),
+                                        ("bfloat16", 3e-2)])
+def test_split_kv_decode_and_combine_on_card(cuda_device, dtype, atol):
+    """The slot_paged decode shape (B=8, ps=16, P=64: 16 splits of 64
+    keys): a lens=0 row, rows shorter than one split, a row that ends on
+    a split's edge, the full table; one split launch and one combine."""
+    lens = [0, 5, 63, 64, 65, 300, 545, 1024]
+    q, kv, vv, block, ln = _main_pool(30, 8, 1, lens)
+    dt = getattr(torch, dtype)
+    q, kv, vv = q.to(dt), kv.to(dt), vv.to(dt)
+    assert pa_mod.route(q, kv, vv) == "split"
+    assert pa_mod.split_plan(8, 3, 64, 16) == (16, 64)
+    before = (pa_mod.launches, pa_mod.combine_launches)
+    out = pa_mod.paged_attention(q, kv, vv, block, ln)
+    torch.cuda.synchronize()
+    assert (pa_mod.launches, pa_mod.combine_launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    want = tref.paged_attention_ref(q, kv, vv, block, ln)
+    torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                               rtol=atol)
+    assert torch.count_nonzero(out[0]) == 0
+    split = tref.paged_attention_split_ref(q, kv, vv, block, ln,
+                                           split_keys=64)
+    torch.testing.assert_close(out.float(), split.float(), atol=atol,
+                               rtol=atol)
+
+
+@pytest.mark.cuda
+def test_split_kv_single_split_and_t_gt_1_on_card(cuda_device):
+    """A table of 64 positions is one split (its combine merges one
+    partial); T=4 decode rows (g*T = 12) with lens below T; softcap."""
+    q, kv, vv, block, ln = _main_pool(31, 3, 4, [2, 0, 40], P=4,
+                                      n_pages=32)
+    assert pa_mod.route(q, kv, vv) == "split"
+    assert pa_mod.split_plan(3, 3, 4, 16) == (1, 64)
+    before = pa_mod.combine_launches
+    out = pa_mod.paged_attention(q, kv, vv, block, ln, softcap=20.0)
+    torch.cuda.synchronize()
+    assert pa_mod.combine_launches == before + 1
+    want = tref.paged_attention_ref(q, kv, vv, block, ln, softcap=20.0)
+    torch.testing.assert_close(out, want, atol=1e-4, rtol=1e-4)
+    assert torch.count_nonzero(out[1]) == 0
+    assert torch.count_nonzero(out[0, :2]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4),
+                                        ("bfloat16", 3e-2)])
+def test_split_kv_identity_pages_on_card(cuda_device, dtype, atol):
+    """The dense ring's decode read: a [4, 1024] ring viewed as 64-token
+    identity pages (ps=64, P=16) of a strided layer slice."""
+    rng = np.random.default_rng(32)
+    B, size, Hkv, hd, ps = 4, 1024, 3, 64, 64
+    dt = getattr(torch, dtype)
+    ring_k, ring_v = (torch.from_numpy(rng.normal(
+        size=(2, B, size, Hkv, hd)).astype(np.float32)).to(cuda_device,
+                                                           dt)[1]
+        for _ in range(2))
+    kp = ring_k.view(B * size // ps, ps, Hkv, hd)
+    vp = ring_v.view(B * size // ps, ps, Hkv, hd)
+    block = torch.arange(B * size // ps, dtype=torch.int32,
+                         device=cuda_device).view(B, size // ps)
+    ln = torch.tensor([65, 300, 513, 1000], dtype=torch.int32,
+                      device=cuda_device)
+    q = torch.from_numpy(rng.normal(size=(B, 1, 9, hd)).astype(
+        np.float32)).to(cuda_device, dt)
+    assert pa_mod.route(q, kp, vp) == "split"
+    assert pa_mod.split_plan(B, Hkv, size // ps, ps) == (16, 64)
+    out = pa_mod.paged_attention(q, kp, vp, block, ln)
+    want = tref.paged_attention_ref(q, kp, vp, block, ln)
+    torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                               rtol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_chunk_tensor_cores_on_card(cuda_device, softcap):
+    """A T=64 bf16 chunk (g*T = 192 rows) on the tensor cores: causal to
+    each row's lens, a row shorter than T, one past the table, softcap."""
+    lens = [64, 300, 40, 1100]
+    q, kv, vv, block, ln = _main_pool(33, 4, 64, lens)
+    q, kv, vv = (t.to(torch.bfloat16) for t in (q, kv, vv))
+    assert pa_mod.route(q, kv, vv) == "chunk_tc"
+    before = (pa_mod.launches, pa_mod.combine_launches)
+    out = pa_mod.paged_attention(q, kv, vv, block, ln, softcap=softcap)
+    torch.cuda.synchronize()
+    assert (pa_mod.launches, pa_mod.combine_launches) == (before[0] + 1,
+                                                          before[1])
+    want = tref.paged_attention_ref(q, kv, vv, block, ln, softcap=softcap)
+    torch.testing.assert_close(out.float(), want.float(), atol=3e-2,
+                               rtol=3e-2)
+    assert torch.count_nonzero(out[2, :24]) == 0      # q_pos < 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 64])
+def test_paged_is_deterministic_on_card(cuda_device, T):
+    """No atomics (split partials merged in split order): repeated calls
+    are bit-identical."""
+    q, kv, vv, block, ln = _main_pool(34, 8, T, [1, 70, 129, 300, 511, 512,
+                                                 900, 1024])
+    q, kv, vv = (t.to(torch.bfloat16) for t in (q, kv, vv))
+    first = pa_mod.paged_attention(q, kv, vv, block, ln)
+    for _ in range(3):
+        assert torch.equal(first, pa_mod.paged_attention(q, kv, vv, block,
+                                                         ln))
 
 
 # ---------------------------------------------------------------------------
@@ -278,6 +413,61 @@ def test_nbb_matmul_matches_plain_on_card(cuda_device, name, dtype):
     want = tref.matmul_ref(a, b)
     torch.testing.assert_close(out.float(), want.float(), atol=atol,
                                rtol=rtol)
+
+
+def _nbb_bf16(M, K, N, seed, device):
+    rng = np.random.default_rng(seed)
+    return (t.to(torch.bfloat16) for t in _torch(
+        rng.normal(size=(M, K)).astype(np.float32),
+        rng.normal(size=(K, N)).astype(np.float32), device=device))
+
+
+# name: (M, N, instance); K runs over 1, S-1, S+1 and 2S+1 K steps of the
+# instance's S-slot ring, so each slot's phase parity is met in more
+# than one round and the last round is partial.
+NBB_RINGS = {"tile_64": (128, 128, 1), "tile_128": (1408, 1536, 2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(NBB_RINGS))
+@pytest.mark.parametrize("rounds", ["1", "S-1", "S+1", "2S+1"])
+def test_nbb_bf16_ring_depths_on_card(cuda_device, name, rounds):
+    M, N, inst = NBB_RINGS[name]
+    S = nbb_mod.SLOTS[inst]
+    steps = {"1": 1, "S-1": S - 1, "S+1": S + 1, "2S+1": 2 * S + 1}[rounds]
+    K = steps * nbb_mod.TILE[inst][2]
+    assert nbb_mod.instance_for(torch.bfloat16, M, N) == inst
+    a, b = _nbb_bf16(M, K, N, steps + inst, cuda_device)
+    out = nbb_mod.nbb_matmul(a, b, bm=M, bn=N, bk=K)
+    torch.testing.assert_close(out.float(), tref.matmul_ref(a, b).float(),
+                               atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,inst", [
+    (100, 40, 72, 1),         # one ragged K step, ragged M and N
+    (130, 200, 72, 1),        # three full K steps and 8 more
+    (1500, 200, 1544, 2),     # 12 x 13 blocks, every edge ragged
+])
+def test_nbb_bf16_ragged_edges_on_card(cuda_device, M, K, N, inst):
+    """TMA's out-of-bounds zero fill takes the ragged edges: rows past M,
+    columns past N and K steps past K read as zeros."""
+    assert nbb_mod.instance_for(torch.bfloat16, M, N) == inst
+    a, b = _nbb_bf16(M, K, N, M + K, cuda_device)
+    out = nbb_mod.nbb_matmul(a, b, bm=M, bn=N, bk=K)
+    torch.testing.assert_close(out.float(), tref.matmul_ref(a, b).float(),
+                               atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(512, 1024, 512), (1408, 704, 1536)])
+def test_nbb_bf16_is_deterministic_on_card(cuda_device, M, K, N):
+    """No split over K: repeated calls are bit-identical."""
+    a, b = _nbb_bf16(M, K, N, 7, cuda_device)
+    first = nbb_mod.nbb_matmul(a, b, bm=M, bn=N, bk=K)
+    for _ in range(3):
+        assert torch.equal(first, nbb_mod.nbb_matmul(a, b, bm=M, bn=N,
+                                                     bk=K))
 
 
 @pytest.mark.cuda

@@ -117,13 +117,49 @@ def test_cuda_checks_refuse_what_the_copy_engine_cannot_take():
 
 
 def test_tile_constant_matches_the_source():
+    """The wrapper's per-instance tiles are the source's ``kTiles``, and
+    the source builds the NBB ring the way the wrapper documents it: TMA
+    tensor maps filling full/empty mbarrier slots for the bf16 ``wgmma``
+    instances, row-wise bulk copies for the f32 one."""
     src = nbb_mod.SOURCE.read_text()
-    tile = tuple(int(re.search(rf"constexpr int kTile{d} = (\d+);",
-                               src).group(1)) for d in "MNK")
-    assert tile == nbb_mod.TILE
+    rows = re.findall(r"\{(\d+), (\d+), (\d+), (\d+)\},\s+// (\d): (\w+)",
+                      src)
+    assert [int(r[4]) for r in rows] == list(range(len(nbb_mod.INSTANCES)))
+    for r, (dtype, m, n, k, slots) in zip(rows, nbb_mod.INSTANCES):
+        assert tuple(map(int, r[:4])) == (m, n, k, slots)
+        assert r[5] == dtype
+    assert nbb_mod.TILE == tuple(i[1:4] for i in nbb_mod.INSTANCES)
+    assert nbb_mod.SLOTS == tuple(i[4] for i in nbb_mod.INSTANCES)
     for needle in ("mbarrier.try_wait.parity", "mbarrier.arrive.expect_tx",
-                   "cp.async.bulk.shared::cluster.global.mbarrier"):
-        assert needle in src
+                   "cp.async.bulk.shared::cluster.global.mbarrier",
+                   "cp.async.bulk.tensor.2d", "cuTensorMapEncodeTiled",
+                   "cudaGetDriverEntryPoint", "__grid_constant__",
+                   "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16",
+                   "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
+                   "CU_TENSOR_MAP_SWIZZLE_128B"):
+        assert needle in src, needle
+
+
+@pytest.mark.parametrize("dtype,M,N,want", [
+    (torch.float32, 4096, 4096, 0),
+    (torch.bfloat16, 512, 512, 1),       # 16 blocks of 128 x 128: too few
+    (torch.bfloat16, 100, 72, 1),
+    (torch.bfloat16, 1408, 1536, 2),     # 11 x 12 = 132 blocks: one wave
+    (torch.bfloat16, 1400, 1400, 1),     # 11 x 11 = 121
+    (torch.bfloat16, 4096, 4096, 2),
+])
+def test_instance_for_shape(dtype, M, N, want):
+    assert nbb_mod.instance_for(dtype, M, N) == want
+
+
+def test_instances_fit_the_ring_rules():
+    """Every bf16 instance steps K by 64 (one 128-byte swizzle row), tiles
+    M by whole 64-row warpgroups and N by whole 64-column TMA boxes, and
+    its ring fits a block's 227 KB of shared memory."""
+    for dtype, m, n, k, slots in nbb_mod.INSTANCES[1:]:
+        assert dtype == "bfloat16" and k == 64
+        assert m % 64 == 0 and n % 64 == 0 and slots >= 3
+        assert slots * (m * k + k * n) * 2 + 1024 <= 232448
 
 
 def test_matmul_ref_matches_jax_ref():

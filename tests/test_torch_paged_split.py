@@ -1,0 +1,158 @@
+"""The split-KV form of the port's paged attention on the CPU:
+``ref.paged_attention_split_ref`` — each run of ``split_keys`` keys'
+(max, sum, accumulator), merged in split order, as the kernel's split
+route computes it — against the JAX package's oracle
+``repro.kernels.ref.paged_attention_ref`` on the same numpy-seeded
+inputs, at several split sizes: splits wholly past a row's length, a
+zero-length row, rows shorter than one split, T=1 and T=8, page sizes
+8/16/64, GQA 9:3, 8:1 and 6:2, softcap.  Tolerance 2e-5 abs/rel (the
+reference's own; the split form sums in another order).  Also the split
+plan (a function of static shapes only) and the route the wrapper picks
+for the card, both plain Python."""
+import inspect
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import paged_attention as pa_mod  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+jax.config.update("jax_platform_name", "cpu")
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _setup(seed, B, T, H, Hkv, hd, n_pages, ps, P, lens):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, T, H, hd)).astype(np.float32)
+    kp = rng.normal(size=(n_pages, ps, Hkv, hd)).astype(np.float32)
+    vp = rng.normal(size=(n_pages, ps, Hkv, hd)).astype(np.float32)
+    block = rng.permutation(n_pages)[:B * P].reshape(B, P).astype(np.int32)
+    return q, kp, vp, block, np.asarray(lens, np.int32)
+
+
+def _split_vs_jax(inputs, split_keys, softcap=0.0):
+    q, kp, vp, block, lens = inputs
+    got = tref.paged_attention_split_ref(
+        *(torch.from_numpy(a) for a in inputs), split_keys=split_keys,
+        softcap=softcap).numpy()
+    want = np.asarray(jref.paged_attention_ref(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(block),
+        jnp.asarray(lens), softcap=softcap))
+    np.testing.assert_allclose(got, want, **TOL)
+    return got
+
+
+CASES = {
+    # B=8 at ps=16 over 8 pages (128 positions): a zero-length row, rows
+    # shorter than one split, rows whose later splits are all past lens.
+    "decode_b8_ps16": dict(seed=0, B=8, T=1, H=9, Hkv=3, hd=16, n_pages=96,
+                           ps=16, P=8, lens=[0, 1, 5, 16, 17, 64, 100, 128]),
+    "decode_gqa_8_1_ps8": dict(seed=1, B=3, T=1, H=8, Hkv=1, hd=32,
+                               n_pages=40, ps=8, P=12,
+                               lens=[3, 40, 96]),
+    "decode_gqa_6_2_ps64": dict(seed=2, B=4, T=1, H=6, Hkv=2, hd=16,
+                                n_pages=16, ps=64, P=4,
+                                lens=[65, 300, 0, 256]),
+    "chunk_t8_gqa_9_3_ps16": dict(seed=3, B=3, T=8, H=9, Hkv=3, hd=16,
+                                  n_pages=40, ps=16, P=8,
+                                  lens=[8, 30, 128]),
+    "chunk_t8_lens_below_t": dict(seed=4, B=2, T=8, H=4, Hkv=2, hd=16,
+                                  n_pages=16, ps=8, P=6, lens=[3, 0]),
+    "past_the_table": dict(seed=5, B=2, T=8, H=4, Hkv=2, hd=16, n_pages=16,
+                           ps=4, P=3, lens=[14, 5]),
+}
+
+
+@pytest.mark.parametrize("split_keys", [8, 16, 64, 128])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_split_ref_matches_jax(name, split_keys):
+    _split_vs_jax(_setup(**CASES[name]), split_keys)
+
+
+def test_split_ref_softcap_matches_jax():
+    _split_vs_jax(_setup(**CASES["decode_b8_ps16"]), 32, softcap=5.0)
+
+
+def test_split_ref_zero_rows_are_exact_zeros():
+    """A row of length 0 and a row whose queries all precede position 0
+    (lens < T) sees no key in any split: exact zeros, no NaN."""
+    out = _split_vs_jax(_setup(**CASES["chunk_t8_lens_below_t"]), 16)
+    assert not np.isnan(out).any()
+    assert np.count_nonzero(out[1]) == 0              # lens 0
+    assert np.count_nonzero(out[0, :5]) == 0          # q_pos < 0
+
+
+def test_split_ref_equals_plain_version():
+    """The split form and the dense plain version agree on the port's own
+    plain path (f32, same inputs)."""
+    inputs = [torch.from_numpy(a) for a in _setup(**CASES["decode_b8_ps16"])]
+    a = tref.paged_attention_split_ref(*inputs, split_keys=64)
+    b = tref.paged_attention_ref(*inputs)
+    torch.testing.assert_close(a, b, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# The split plan and the route
+# ---------------------------------------------------------------------------
+def test_split_plan_takes_static_shapes_only():
+    """The plan is a function of (B, Hkv, P, ps) alone: no lens, so the
+    decode loop needs no device-to-host read to launch."""
+    assert list(inspect.signature(pa_mod.split_plan).parameters) == [
+        "B", "Hkv", "P", "ps"]
+    assert pa_mod.split_plan(8, 3, 64, 16) == pa_mod.split_plan(8, 3, 64, 16)
+
+
+@pytest.mark.parametrize("B,Hkv,P,ps,want", [
+    (8, 3, 64, 16, (16, 64)),      # slot_paged decode: 384 blocks
+    (4, 3, 16, 64, (16, 64)),      # slot_fused: the ring as 64-token pages
+    (3, 2, 4, 8, (1, 64)),         # 32 positions: one split
+    (64, 8, 2048, 16, (2, 16384)), # 512 (b, kv head) pairs: 2 splits
+])
+def test_split_plan_main_shapes(B, Hkv, P, ps, want):
+    assert pa_mod.split_plan(B, Hkv, P, ps) == want
+
+
+@pytest.mark.parametrize("B,Hkv,P,ps", [
+    (1, 1, 1, 4), (8, 3, 64, 16), (4, 3, 16, 64), (2, 2, 7, 128),
+    (32, 8, 513, 16), (1, 1, 0, 16),
+])
+def test_split_plan_covers_the_table_in_whole_tiles(B, Hkv, P, ps):
+    n_split, keys = pa_mod.split_plan(B, Hkv, P, ps)
+    assert n_split >= 1 and keys % pa_mod.SPLIT_TILE == 0 and keys % ps == 0
+    assert n_split * keys >= P * ps
+    assert (n_split - 1) * keys < max(1, P * ps)   # no split wholly past P
+
+
+def _route(dtype, B, T, H, Hkv, hd, ps=16, view=False):
+    q = torch.zeros((B, T, H, hd), dtype=dtype)
+    if view:                                   # a pool's per-layer view
+        pool = torch.zeros((8, ps, 3, Hkv, hd), dtype=dtype)
+        k = v = pool[:, :, 1]
+    else:
+        k = v = torch.zeros((8, ps, Hkv, hd), dtype=dtype)
+    return pa_mod.route(q, k, v)
+
+
+def test_route_by_shape():
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert _route(bf16, 8, 1, 9, 3, 64, view=True) == "split"
+    assert _route(f32, 8, 1, 9, 3, 64) == "split"
+    assert _route(bf16, 2, 5, 9, 3, 64) == "split"           # 15 rows
+    assert _route(bf16, 8, 64, 9, 3, 64, view=True) == "chunk_tc"
+    assert _route(bf16, 2, 6, 9, 3, 64) == "chunk_tc"        # 18 rows
+    assert _route(f32, 8, 64, 9, 3, 64) == "simt"
+    assert _route(bf16, 2, 1, 4, 2, 80) == "simt"            # head_dim 80
+    assert _route(bf16, 2, 64, 4, 2, 12) == "simt"
+
+
+def test_route_needs_aligned_rows():
+    q = torch.zeros((2, 1, 4, 16), dtype=torch.bfloat16)
+    kv = torch.zeros((8, 4, 2, 17), dtype=torch.bfloat16)[..., 1:]
+    assert pa_mod.route(q, kv, kv) == "simt"
