@@ -45,6 +45,30 @@ each of which fails the run hard:
    combines = 30 x decode steps), then 4 requests each under
    ``slot_chunked`` and ``wave``; then where a prefill's and a decode
    block's time goes;
+3c-3e. the robustness paths of ``slot_paged`` at full width (30 layers,
+   d=576, bf16, seed-0 weights; ``max_len=1024``, 16-token pages,
+   ``chunk_tokens=64``, ``k_max=8``), each run driven inline, every kernel
+   counter zeroed before it and read after it (paged launches = 30 x
+   forwards, combines = 30 x one-token forwards, no flash, no CUDA-core
+   route); every served run of phases 3-5 without a fault plan must end
+   with 0 watchdog catches and 0 failed requests in ``fault_report()``,
+   so a device error cannot hide behind the watchdog: (3c) overload —
+   2 priority classes, preemption, WFQ, 8 slots over 128 pages (47 MB of
+   K/V), two low-class clients sending 4 requests each (400-480 prompt
+   tokens, 64 new, one outstanding at a time), then, once both decode,
+   two high-class clients 4 requests each at once (40-120 tokens, 32
+   new): at least one preemption, every parked sequence resumed and
+   finished, swap bytes whole pages, no negative page in any dispatched
+   block table, each preempted request's stream byte-identical to the
+   same request served alone, TTFT p50 per class printed; (3d) faults —
+   ``FaultPlan.sweep(8, seed=0)`` over the eight sites this path probes,
+   4 requests a plan, ``tick_retries=1``: no wedge, every failure an
+   injected one (the watchdog's catches equal the raising faults fired),
+   survivors byte-identical to the run with no fault; (3e) recovery —
+   snapshots every 2 ticks, the engine abandoned at its second, middle
+   and next-to-last tick and restored in a fresh engine from the newest
+   snapshot plus the journal: every stream byte-identical to the
+   uninterrupted run, snapshot bytes and restore times printed;
 5. CPU/CUDA parity: the SMOKE config at float32, same weights on both
    devices, identical greedy tokens under ``slot_paged``, ``slot_fused``
    and ``wave``;
@@ -66,9 +90,11 @@ each of which fails the run hard:
    CPU/CUDA parity of 3 SMOKE steps' losses at float32.
 
 Phase 7 runs before the timing of phase 6, which reports its launch
-count.  Every kernel counter is set to 0 just before a served or trained
-run (or the NBB matmul's entry-point call) and read just after it;
-launches made to compare or time a kernel are not counted.  Prints one
+count; the paged row's launches add phases 3c-3e's to phase 3's.  Every
+kernel counter is set to 0 just before a served or trained run (or the
+NBB matmul's entry-point call) and read just after it; launches made to
+compare or time a kernel (or to serve a request alone for comparison)
+are not counted.  Prints one
 JSON line of kernel results, then the device line ``{"ok": true,
 "device": {...}}`` last.  Exits non-zero, printing no result, without a
 card or outside a checkout of the repository.
@@ -78,6 +104,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -881,6 +908,10 @@ def serve_run(eng, prompts, max_tokens: int, forwards, smi: str,
     check(not any(t.is_alive() for t in threads), f"{label}: a client hung")
     check(not errors, f"{label}: client errors: {errors}")
     check(eng.dead is None, f"{label}: engine died: {eng.dead}")
+    fr = eng.fault_report()
+    check(fr["tick_failures"] == 0 and fr["requests_failed"] == 0,
+          f"{label}: the tick watchdog caught {fr['tick_failures']} "
+          f"exceptions, {fr['requests_failed']} requests failed")
     check(simt == 0, f"{label}: {simt} flash launches took the CUDA-core "
                      "instance, not the tensor-core one")
     check(paged_simt == 0, f"{label}: {paged_simt} paged launches took the "
@@ -1110,6 +1141,367 @@ def phase_split_dense(model, params, smi: str):
 
 
 # ---------------------------------------------------------------------------
+# Phases 3c-3e: the robustness paths of slot_paged at full width
+# ---------------------------------------------------------------------------
+# smollm-135m's slot_paged geometry for the three robustness runs; the
+# overload run's pool of 128 pages (47 MB of K/V) is what forces
+# preemption.
+ROBUST = dict(max_len=1024, page_size=16, chunk_tokens=64, k_max=8)
+RAISING_SITES = ("engine.dispatch", "engine.sync", "transport.stall")
+FAULT_SITES = ("engine.dispatch", "engine.sync", "pool.page_write",
+               "pool.claim", "pool.extend", "transport.recv",
+               "transport.send_burst", "transport.stall")
+
+
+def zero_counts(forwards):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    fa.launches = fa.simt_launches = 0
+    pa.launches = pa.combine_launches = pa.simt_launches = 0
+    forwards[0] = forwards[1] = 0
+
+
+def read_counts(forwards, label: str, L: int):
+    """The launches since ``zero_counts``; checks that the paged kernel
+    ran 30 times per forward (one combine per layer of each one-token
+    decode forward), flash never, and no CUDA-core route."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    torch.cuda.synchronize()
+    got = dict(paged=pa.launches, combine=pa.combine_launches,
+               flash=fa.launches, simt=pa.simt_launches + fa.simt_launches,
+               forwards=forwards[0], decode_forwards=forwards[1])
+    check(got["forwards"] > 0 and got["paged"] == L * got["forwards"],
+          f"{label}: paged launches {got['paged']} != {L} x "
+          f"{got['forwards']} forwards")
+    check(got["combine"] == L * got["decode_forwards"],
+          f"{label}: combine launches {got['combine']} != {L} x "
+          f"{got['decode_forwards']} decode forwards")
+    check(got["flash"] == 0 and got["simt"] == 0,
+          f"{label}: flash launches {got['flash']}, CUDA-core launches "
+          f"{got['simt']}")
+    return got
+
+
+def drive_inline(eng, handles, label: str, max_ticks: int = 2000,
+                 on_tick=None) -> int:
+    """Tick ``eng`` on this thread until every handle is terminal; the
+    tick budget is the no-wedge check.  ``on_tick(ticks)`` may submit
+    more work (it returns the handles to add)."""
+    ticks = 0
+    while not all(h.test() for h in handles):
+        ticks += 1
+        check(ticks < max_ticks, f"{label}: wedged after {ticks} ticks "
+              f"({sum(h.test() for h in handles)}/{len(handles)} done)")
+        eng.tick()
+        if on_tick is not None:
+            handles.extend(on_tick(ticks))
+    return ticks
+
+
+def clean_run(eng, label: str) -> None:
+    """A run with no fault plan: the watchdog caught nothing and no
+    request failed (a real device error cannot hide behind the
+    watchdog), the pool drained and its copy ledger balances."""
+    fr = eng.fault_report()
+    check(fr["tick_failures"] == 0 and fr["requests_failed"] == 0
+          and fr["dead"] is None and fr["faults_injected"] == 0,
+          f"{label}: fault report {fr}")
+    pool = eng.pool
+    if eng.prefix_cache is not None:
+        eng.prefix_cache.clear()
+    check(pool.n_seqs() == 0 and pool.used_pages() == 0,
+          f"{label}: pool not drained: {pool.stats()}")
+    check(pool.kv_copy_bytes == pool.cow_copy_bytes + pool.swap_in_bytes
+          + pool.swap_out_bytes, f"{label}: copy ledger {pool.stats()}")
+
+
+def tokens_of(h):
+    return list(map(int, h.response.tokens_out))
+
+
+def serve_alone(model, params, prompt, max_tokens: int):
+    """One request on a fresh slot_paged engine, no policy: the stream
+    a preempted, failed-around or restored request must reproduce."""
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(model, params, max_batch=8, n_clients=1,
+                      pool_pages=128, scheduler="slot_paged", **ROBUST)
+    h = eng.connect(0).submit_i(prompt, max_tokens=max_tokens)
+    drive_inline(eng, [h], "served alone")
+    check(h.response.fsm.state.endswith("COMPLETED"),
+          f"served alone: {h.response.fsm.state}")
+    clean_run(eng, "served alone")
+    return tokens_of(h)
+
+
+def phase_overload(model, params, forwards, smi: str):
+    """Overload control with page-swap preemption: 2 priority classes,
+    preemption and WFQ, 8 slots over a 128-page pool.  Two low-class
+    clients each send 4 requests (400-480 prompt tokens, 64 new), one
+    outstanding at a time; once both hold a decoding slot, two
+    high-class clients each send 4 requests at once (40-120 prompt
+    tokens, 32 new).  Returns the paged launches."""
+    import numpy as np
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.overload import OverloadPolicy
+    L, vocab = model.cfg.num_layers, model.cfg.vocab_size
+    rng = np.random.default_rng(2024)
+    low = {c: [rng.integers(0, vocab, int(rng.integers(400, 481)))
+               for _ in range(4)] for c in (0, 1)}
+    high = {c: [rng.integers(0, vocab, int(rng.integers(40, 121)))
+                for _ in range(4)] for c in (2, 3)}
+    policy = OverloadPolicy(n_classes=2, preemption=True, wfq=True)
+    # No prefix cache: its references would keep a parked sequence's
+    # prompt pages resident (shared pages never move), and the burst
+    # would find the pool full with no victim left to swap.
+    eng = ServeEngine(model, params, max_batch=8, n_clients=4,
+                      pool_pages=128, scheduler="slot_paged",
+                      prefix_cache=False, overload=policy, **ROBUST)
+    page_b = eng.pool.page_nbytes
+    kv_mb = eng.pool.n_pages * page_b
+    print(f"overload: slot_paged, 2 classes, preemption, WFQ, max_batch 8, "
+          f"pool 128 pages ({kv_mb / 1e6:.0f} MB of K/V, {page_b} B a "
+          f"page), no prefix cache")
+    sess = [eng.connect(c) for c in range(4)]
+    parked_ids, tables = set(), []
+    orig_bt = eng._block_table
+
+    def recording_block_table():
+        bt = orig_bt()
+        tables.append(int(bt.min()))
+        parked_ids.update(p.req.req_id for p in eng._parked)
+        return bt
+    eng._block_table = recording_block_table
+    sent = {c: 0 for c in (0, 1)}
+    handles, prompts_of = [], {}
+    lows = {}
+
+    def send_low(c):
+        h = sess[c].submit_i(low[c][sent[c]], max_tokens=64, priority=1)
+        prompts_of[h.req_id] = (low[c][sent[c]], 64)
+        lows[c] = h
+        sent[c] += 1
+        return h
+    highs_sent = [False]
+
+    def on_tick(ticks):
+        new = []
+        for c in (0, 1):
+            if lows[c].test() and sent[c] < 4:
+                new.append(send_low(c))
+        if (not highs_sent[0] and all(
+                s.request is not None and s.generated > 0
+                and s.request.client_id in (0, 1)
+                for s in eng.slots[:2])):
+            highs_sent[0] = True
+            for c in (2, 3):
+                for p in high[c]:
+                    h = sess[c].submit_i(p, max_tokens=32, priority=0)
+                    prompts_of[h.req_id] = (p, 32)
+                    new.append(h)
+        return new
+
+    zero_counts(forwards)
+    t0 = time.monotonic()
+    handles = [send_low(0), send_low(1)]
+    ticks = drive_inline(eng, handles, "overload", on_tick=on_tick)
+    dt = time.monotonic() - t0
+    got = read_counts(forwards, "overload", L)
+    st = eng.stats
+    check(highs_sent[0] and len(handles) == 16, "overload: the high-class "
+          f"burst never came ({len(handles)} requests)")
+    check(all(h.response.fsm.state.endswith("COMPLETED") for h in handles),
+          "overload: not every request completed: "
+          + str([h.response.fsm.state for h in handles]))
+    check(st["preemptions"] >= 1, "overload: no preemption")
+    check(st["resumes"] == st["preemptions"] and not eng._parked,
+          f"overload: {st['resumes']} resumes of {st['preemptions']} "
+          "preemptions")
+    check(st["swap_out_bytes"] > 0 and st["swap_out_bytes"] % page_b == 0
+          and st["swap_in_bytes"] % page_b == 0,
+          f"overload: swap bytes {st['swap_out_bytes']} / "
+          f"{st['swap_in_bytes']} not whole pages of {page_b} B")
+    check(min(tables) >= 0, "overload: a dispatched block table held a "
+          "negative page")
+    clean_run(eng, "overload")
+    ttft = eng.class_ttft()
+    print(f"overload: 16 requests in {ticks} ticks, {dt:.2f} s; "
+          f"preemptions {st['preemptions']}, resumes {st['resumes']}, "
+          f"swap out {st['swap_out_bytes']} B ({st['swap_out_bytes'] // page_b}"
+          f" pages), swap in {st['swap_in_bytes']} B, host_syncs "
+          f"{st['host_syncs']}, {len(tables)} dispatched block tables, none "
+          f"negative; TTFT p50 high {ttft[0]['p50_ms']:.0f} ms (n="
+          f"{ttft[0]['n']}), low {ttft[1]['p50_ms']:.0f} ms (n="
+          f"{ttft[1]['n']}); launches paged {got['paged']} (combine "
+          f"{got['combine']}) over {got['forwards']} forwards [{smi}]")
+    by_id = {h.req_id: h for h in handles}
+    for rid in sorted(parked_ids):
+        prompt, n = prompts_of[rid]
+        check(tokens_of(by_id[rid]) == serve_alone(model, params, prompt, n),
+              f"overload: preempted request {rid}'s stream differs from "
+              "the same request served alone")
+    print(f"overload: {len(parked_ids)} preempted requests' streams "
+          "byte-identical to each served alone")
+    return got["paged"]
+
+
+def phase_faults(model, params, forwards, smi: str):
+    """``FaultPlan.sweep(8, seed=0)`` over the sites the engine probes on
+    this path, each plan a run of 4 requests with ``tick_retries=1``:
+    every request ends in tokens or a typed terminal, nothing wedges,
+    every failure is an injected fault, and the survivors' streams equal
+    the run with no fault.  Returns the paged launches of all 9 runs."""
+    import numpy as np
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.serve.engine import FailedStatus, ServeEngine
+    L, vocab = model.cfg.num_layers, model.cfg.vocab_size
+    rng = np.random.default_rng(77)
+    prompts = [rng.integers(0, vocab, int(rng.integers(40, 201)))
+               for _ in range(4)]
+
+    def run(plan):
+        eng = ServeEngine(model, params, max_batch=4, n_clients=2,
+                          pool_pages=128, scheduler="slot_paged",
+                          fault_plan=plan, tick_retries=1, **ROBUST)
+        sess = [eng.connect(c) for c in range(2)]
+        hs = [sess[i % 2].submit_i(p, max_tokens=24)
+              for i, p in enumerate(prompts)]
+        drive_inline(eng, hs, f"faults {plan}")
+        return eng, hs
+
+    total = 0
+    zero_counts(forwards)
+    ref_eng, ref_h = run(None)
+    total += read_counts(forwards, "faults (no plan)", L)["paged"]
+    clean_run(ref_eng, "faults (no plan)")
+    ref = [tokens_of(h) for h in ref_h]
+    check(all(len(t) == 24 for t in ref), "faults: the no-fault run")
+    lines = []
+    for plan in FaultPlan.sweep(8, seed=0, sites=FAULT_SITES):
+        zero_counts(forwards)
+        eng, hs = run(plan)
+        total += read_counts(forwards, f"faults {plan.name}", L)["paged"]
+        fr = eng.fault_report()
+        check(eng.dead is None, f"faults {plan.name}: engine died")
+        raised = sum(s in RAISING_SITES for s in plan.fired)
+        check(fr["tick_failures"] == raised,
+              f"faults {plan.name}: the watchdog caught "
+              f"{fr['tick_failures']} exceptions, {raised} injected "
+              f"({plan.fired})")
+        refused = sum(s in ("pool.claim", "pool.extend")
+                      for s in plan.fired)
+        survived = 0
+        for h, want in zip(hs, ref):
+            r = h.response
+            if r.fsm.state.endswith("COMPLETED"):
+                check(tokens_of(h) == want,
+                      f"faults {plan.name}: a survivor's stream differs")
+                survived += 1
+            elif isinstance(r.status, FailedStatus):
+                check("injected fault" in r.status.reason
+                      or "poisoned page write" in r.status.reason,
+                      f"faults {plan.name}: failure not injected: "
+                      f"{r.status.reason}")
+            else:
+                check(r.fsm.state.endswith("CANCELLED") and refused > 0,
+                      f"faults {plan.name}: {r.fsm.state} with no "
+                      "injected refusal")
+        pool = eng.pool
+        eng.prefix_cache.clear()
+        check(pool.n_seqs() == 0
+              and pool.used_pages() == len(pool.quarantined),
+              f"faults {plan.name}: pool not drained")
+        lines.append(f"{plan.name} fired {plan.fired}: {survived}/4 "
+                     f"survived, {fr['requests_failed']} failed, "
+                     f"{eng.stats['rejected']} rejected, "
+                     f"{fr['tick_failures']} watchdog catches")
+    print("faults: 8 plans x 4 requests, every survivor byte-identical to "
+          "the no-fault run, every failure injected:\n  "
+          + "\n  ".join(lines) + f"\n  paged launches {total} [{smi}]")
+    return total
+
+
+def phase_recovery(model, params, forwards, smi: str):
+    """Crash recovery: snapshots every 2 ticks; the engine is abandoned
+    at its second tick, its middle one and the one before last, and a
+    fresh engine in this process restores from the newest snapshot plus
+    the journal and finishes — every stream byte-identical to the
+    uninterrupted run.  Returns the paged launches of the 4 runs."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.serve.engine import ServeEngine
+    L, vocab = model.cfg.num_layers, model.cfg.vocab_size
+    rng = np.random.default_rng(99)
+    prompts = [rng.integers(0, vocab, int(rng.integers(150, 451)))
+               for _ in range(4)]
+    root = ROOT / "build" / "chip_smoke_snapshots"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def make(d):
+        return ServeEngine(model, params, max_batch=4, n_clients=2,
+                           pool_pages=128, scheduler="slot_paged",
+                           snapshot_dir=str(d), snapshot_every=2, **ROBUST)
+
+    def run(d, kill=None):
+        eng = make(d)
+        sess = [eng.connect(c) for c in range(2)]
+        hs = [sess[i % 2].submit_i(p, max_tokens=48)
+              for i, p in enumerate(prompts)]
+        ticks, info = 0, {}
+        while not all(h.test() for h in hs):
+            ticks += 1
+            check(ticks < 2000, "recovery: wedged")
+            eng.tick()
+            if ticks == kill:
+                for s in sess:
+                    s.pump()
+                fr = eng.fault_report()
+                check(fr["tick_failures"] == 0,
+                      f"recovery: fault report {fr}")
+                info["snapshot_bytes"] = eng.stats["snapshot_bytes"]
+                del eng                 # abandoned: no final snapshot
+                eng = make(d)
+                t0 = time.perf_counter()
+                report = eng.restore_latest()
+                info["restore_s"] = time.perf_counter() - t0
+                check(report is not None and report["failed"] == 0,
+                      f"recovery: restore at tick {kill}: {report}")
+                info["report"] = report
+                sess = [eng.connect(c, resume=s)
+                        for c, s in enumerate(sess)]
+        clean_run(eng, f"recovery kill@{kill}")
+        return [tokens_of(h) for h in hs], ticks, info, eng
+
+    total = 0
+    zero_counts(forwards)
+    ref, ticks, _, eng = run(root / "ref")
+    total += read_counts(forwards, "recovery (uninterrupted)", L)["paged"]
+    snaps, snap_b = eng.stats["snapshots"], eng.stats["snapshot_bytes"]
+    check(all(len(t) == 48 for t in ref) and ticks >= 6,
+          f"recovery: the uninterrupted run ({ticks} ticks)")
+    lines = []
+    for kill in sorted({2, ticks // 2, ticks - 1}):
+        zero_counts(forwards)
+        got, _, info, eng = run(root / f"kill{kill}", kill)
+        total += read_counts(forwards, f"recovery kill@{kill}", L)["paged"]
+        check(got == ref, f"recovery: kill at tick {kill}: streams differ "
+                          "from the uninterrupted run")
+        rep = info["report"]
+        lines.append(f"kill@{kill}: restored {os.path.basename(rep['path'])}"
+                     f" ({info['snapshot_bytes']} B) in "
+                     f"{1e3 * info['restore_s']:.1f} ms, resumed "
+                     f"{rep['resumed']}, replayed {rep['replayed']}")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"recovery: 4 requests, {ticks} ticks, {snaps} snapshots "
+          f"(last {snap_b} B); every restored stream byte-identical to "
+          "the uninterrupted run:\n  " + "\n  ".join(lines)
+          + f"\n  paged launches {total} [{smi}]")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: CPU/CUDA parity at float32
 # ---------------------------------------------------------------------------
 def phase_parity():
@@ -1139,8 +1531,9 @@ def phase_parity():
             while (eng.stats["served"] + eng.stats["rejected"]
                    < len(lengths)):
                 eng.step()
-            check(eng.stats["rejected"] == 0,
-                  f"{sched} {dev}: requests rejected")
+            check(eng.stats["rejected"] == 0
+                  and eng.fault_report()["tick_failures"] == 0,
+                  f"{sched} {dev}: requests rejected or a tick failed")
             got = {}
             for _ in lengths:
                 r = eng.get_response(0, timeout_s=30)
@@ -1707,6 +2100,9 @@ def main() -> int:
     phase_split(model, params, smi)
     fused = phase_serve_dense(model, params, forwards, smi)
     phase_split_dense(model, params, smi)
+    paged_launches += phase_overload(model, params, forwards, smi)
+    paged_launches += phase_faults(model, params, forwards, smi)
+    paged_launches += phase_recovery(model, params, forwards, smi)
     del model, params
     phase_parity()
     train_launches, train_bwd_launches = phase_train(smi)

@@ -387,8 +387,8 @@ class PriorityTransport:
     the single-writer invariant holds per ring and the consumer's
     priority scan is just N non-blocking probes — no ordered shared
     structure, no lock (the same per-class-ring construction the serving
-    engine's overload ``PriorityIntake`` (not yet ported) uses across
-    producers).
+    engine's :class:`repro_torch.serve.overload.PriorityIntake` uses
+    across producers).
 
     ``send`` without a priority lands in ``default_class`` (the least
     urgent, so unprioritized traffic never preempts prioritized);

@@ -11,10 +11,21 @@ main thread over private SPSC rings.  Prints throughput, completion
 latency, TTFT, the engine's stats, the KV memory report and how many
 times the flash- and paged-attention kernels were launched.  Weights are
 random, drawn from ``--seed`` with the port's own initializer.
+
+The robustness flags are the JAX launcher's: ``--priorities``,
+``--preemption`` (``slot_paged`` only), ``--wfq`` and ``--slo-ms`` install
+an overload policy (per-class TTFT and the preemption counters are
+printed); ``--lease-s`` and ``--tick-retries`` arm leases and the tick
+watchdog; ``--snapshot-dir``/``--snapshot-every`` arm crash recovery
+(``slot_paged`` only; SIGINT/SIGTERM snapshot before exiting) and
+``--restore`` restores a snapshot file or the newest valid snapshot of a
+directory before serving.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import signal
 import threading
 import time
 
@@ -28,6 +39,8 @@ from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import paged_attention as pa_kernel
 from repro_torch.models.model import build_model
 from repro_torch.serve.engine import SCHEDULERS, ServeEngine
+from repro_torch.serve.overload import (PRIORITY_HIGH, PRIORITY_LOW,
+                                        PRIORITY_NORMAL, OverloadPolicy)
 
 
 def _pct(sorted_vals, q: float) -> float:
@@ -74,6 +87,45 @@ def main(argv=None) -> ServeEngine:
     ap.add_argument("--shared-prefix-len", type=int, default=0,
                     help="tokens of a common system prompt prepended to "
                          "every request (exercises the prefix cache)")
+    ap.add_argument("--priorities", action="store_true",
+                    help="enable overload control: requests carry a "
+                         "priority class (~20%% high / 60%% normal / 20%% "
+                         "low) and intake serves classes strictly with "
+                         "aging")
+    ap.add_argument("--preemption", action="store_true",
+                    help="let a high-priority arrival preempt a running "
+                         "low-priority slot by swapping its private KV "
+                         "pages to host (slot_paged only; implies "
+                         "--priorities)")
+    ap.add_argument("--wfq", action="store_true",
+                    help="weighted-fair queuing across clients inside "
+                         "each priority class (implies --priorities)")
+    ap.add_argument("--slo-ms", type=float, default=None,
+                    help="admission SLO: shed any request that waited "
+                         "longer than this in the intake before binding "
+                         "(implies --priorities)")
+    ap.add_argument("--lease-s", type=float, default=None,
+                    help="per-session lease: a client silent (no pump, "
+                         "no submit) longer than this is presumed dead — "
+                         "its in-flight requests fail with a typed "
+                         "terminal and its slots/pages/rings are "
+                         "reclaimed")
+    ap.add_argument("--tick-retries", type=int, default=1,
+                    help="whole-tick retries the watchdog grants a "
+                         "transient dispatch fault before failing the "
+                         "bound slots")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="arm crash recovery (slot_paged only): "
+                         "crash-consistent engine snapshots + a "
+                         "write-ahead intake journal land here; "
+                         "SIGINT/SIGTERM snapshot before exiting")
+    ap.add_argument("--snapshot-every", type=int, default=None,
+                    help="periodic snapshot cadence in engine ticks "
+                         "(default: only at shutdown/crash)")
+    ap.add_argument("--restore", default=None, metavar="PATH",
+                    help="restore before serving: a snapshot file, or a "
+                         "snapshot directory (newest valid snapshot + "
+                         "journal replay); prints the restore report")
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -98,13 +150,65 @@ def main(argv=None) -> ServeEngine:
     else:
         # The dense schedulers use the pool for admission accounting only.
         pool_pages = max(256, args.clients * 16)
+    overload = None
+    if (args.priorities or args.preemption or args.wfq
+            or args.slo_ms is not None):
+        preemption = args.preemption
+        if preemption and scheduler != "slot_paged":
+            # Page-swap preemption needs the page pool as the KV store.
+            print(f"{scheduler}: no page pool, disabling --preemption")
+            preemption = False
+        overload = OverloadPolicy(
+            priorities=True, preemption=preemption, wfq=args.wfq,
+            slo_s=None if args.slo_ms is None else args.slo_ms / 1e3)
+    snapshot_dir = args.snapshot_dir
+    if args.restore is not None and snapshot_dir is None:
+        # --restore implies a snapshot home: the directory the snapshot
+        # lives in (so the journal opens alongside it).
+        snapshot_dir = (args.restore if os.path.isdir(args.restore)
+                        else os.path.dirname(args.restore) or ".")
+    if snapshot_dir is not None and scheduler != "slot_paged":
+        print(f"{scheduler}: crash recovery: slot_paged only, disabling "
+              "snapshots")
+        snapshot_dir = None
     eng = ServeEngine(model, params, max_batch=max_batch,
                       max_len=args.max_len, n_clients=args.clients,
                       pool_pages=pool_pages, page_size=page_size,
                       scheduler=scheduler, k_max=args.k_max,
                       chunk_tokens=min(args.chunk_tokens, args.max_len),
                       prefix_cache=not args.no_prefix_cache,
+                      overload=overload, lease_s=args.lease_s,
+                      tick_retries=args.tick_retries,
+                      snapshot_dir=snapshot_dir,
+                      snapshot_every=args.snapshot_every,
                       device=args.device)
+    if args.restore is not None and snapshot_dir is not None:
+        report = (eng.restore_latest() if os.path.isdir(args.restore)
+                  else eng.restore(args.restore))
+        if report is None:
+            print(f"restore: no usable snapshot under {args.restore}, "
+                  f"starting empty")
+        else:
+            print(f"restore: resumed {report['resumed']} requests, "
+                  f"replayed {report['replayed']}, "
+                  f"redelivered {report['redelivered']} terminals, "
+                  f"failed {report['failed']} "
+                  f"(from {report.get('path', args.restore)})")
+    # Graceful shutdown: SIGINT/SIGTERM stop the serve loop, whose exit
+    # path snapshots the final consistent state — the handler only sets
+    # flags (signal-safe).  Previous handlers are restored on the way out.
+    prev_handlers = {}
+
+    def _graceful(signum, frame):
+        eng.request_snapshot()
+        eng.stop()
+
+    if snapshot_dir is not None:
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            try:
+                prev_handlers[sig] = signal.signal(sig, _graceful)
+            except ValueError:
+                pass                    # not the main thread: skip
     fa_kernel.launches = pa_kernel.launches = 0
     eng_thread = eng.start()
 
@@ -121,7 +225,13 @@ def main(argv=None) -> ServeEngine:
                 prompt = np.concatenate([
                     shared,
                     rng.integers(0, cfg.vocab_size, args.prompt_len)])
-                handle = session.submit_i(prompt, max_tokens=args.max_tokens)
+                pri = None
+                if overload is not None:
+                    u = rng.random()
+                    pri = (PRIORITY_HIGH if u < 0.2
+                           else PRIORITY_NORMAL if u < 0.8 else PRIORITY_LOW)
+                handle = session.submit_i(prompt, max_tokens=args.max_tokens,
+                                          priority=pri)
                 n_stream = sum(1 for _ in handle.tokens(timeout_s=300))
                 r = handle.response
                 assert r is not None and n_stream == len(r.tokens_out)
@@ -143,6 +253,14 @@ def main(argv=None) -> ServeEngine:
     dt = time.monotonic() - t0
     eng.stop()
     eng_thread.join(timeout=10)
+    for sig, h in prev_handlers.items():
+        signal.signal(sig, h)
+    if snapshot_dir is not None:
+        print(f"crash recovery: {eng.stats['snapshots']} snapshots "
+              f"({eng.stats['snapshot_bytes'] / 1024:.0f} KiB last), "
+              f"{eng.stats['restores']} restores, "
+              f"{eng.stats['replayed_requests']} replayed -> "
+              f"{snapshot_dir}")
 
     lat, ttft, toks = [], [], 0
     for ring in results:
@@ -164,6 +282,14 @@ def main(argv=None) -> ServeEngine:
     print(f"engine stats: {eng.stats}")
     print(f"kernel launches: flash_attention {fa_kernel.launches}  "
           f"paged_attention {pa_kernel.launches}")
+    if args.lease_s is not None or eng.faults is not None:
+        fr = eng.fault_report()
+        print(f"robustness: faults injected {fr['faults_injected']}  "
+              f"requests failed {fr['requests_failed']}  "
+              f"leases reaped {fr['leases_reaped']}  "
+              f"pages quarantined {fr['pages_quarantined']}  "
+              f"tick failures {fr['tick_failures']}  "
+              f"dead: {fr['dead'] or 'no'}")
     pstats = eng.pool.stats()
     if scheduler != "wave":
         syncs_tok = eng.stats["host_syncs"] / max(toks, 1)
@@ -182,6 +308,18 @@ def main(argv=None) -> ServeEngine:
           f"(dense batch cache would be {dense_b / 1024:.0f} KiB, "
           f"{resident / max(dense_b, 1):.2f}x)  "
           f"kv copy traffic: {pstats['kv_copy_bytes'] / 1024:.0f} KiB")
+    if overload is not None:
+        names = {PRIORITY_HIGH: "high", PRIORITY_NORMAL: "normal",
+                 PRIORITY_LOW: "low"}
+        for cls, c in sorted(eng.class_ttft().items()):
+            print(f"ttft[{names.get(cls, cls)}]: "
+                  f"p50 {c['p50_ms']:.0f} p99 {c['p99_ms']:.0f} ms "
+                  f"(n={c['n']})")
+        print(f"overload: preemptions {eng.stats['preemptions']}  "
+              f"resumes {eng.stats['resumes']}  "
+              f"shed {eng.stats['shed_requests']}  "
+              f"swap out {eng.stats['swap_out_bytes'] / 1024:.0f} KiB  "
+              f"swap in {eng.stats['swap_in_bytes'] / 1024:.0f} KiB")
     if eng.prefix_cache is not None:
         cstats = eng.prefix_cache.stats()
         looked = cstats["hits"] + cstats["misses"]

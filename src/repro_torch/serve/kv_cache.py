@@ -20,14 +20,29 @@ pages instead of dispatching prefill, and a write into a page whose
 count exceeds one is gated behind copy-on-write (``ensure_private``):
 claim a fresh page, copy that one page in place on the device
 (``index_copy_``), repoint the single block-table row, decref the shared
-original.  CoW traffic is the only KV copying the paged scheduler ever
-performs and is charged to ``kv_copy_bytes`` (mirrored in
+original.  CoW traffic is charged to ``kv_copy_bytes`` (mirrored in
 ``cow_copy_bytes``).
+
+The host-offload preemption tier: ``swap_out_preempt`` parks a victim
+sequence by gathering its PRIVATE written pages to host memory (one
+indexed read, one ``.cpu()``) and releasing them — refcount>1 pages (live
+prefix shares) are never moved or released, the victim keeps its
+references — and leaves ``-1`` tombstones in its block-table row inside
+a :class:`SwapImage`.  ``swap_in_preempt`` re-claims fresh pages
+all-or-nothing and writes the saved bytes back in place
+(``index_copy_``), so a resumed sequence reads back byte-identical
+through the new physical page numbers.  Swap traffic is charged to
+``kv_copy_bytes`` and itemized in ``swap_out_bytes``/``swap_in_bytes``,
+so ``kv_copy_bytes == cow_copy_bytes + swap_in_bytes + swap_out_bytes``.
+``snapshot_state``/``restore_state`` image and rebuild the whole pool for
+crash recovery (``serve/snapshot.py``).  Host copies of page bytes are
+numpy arrays; a bfloat16 pool's are the ``int16`` view of their bits
+(:func:`to_host`), since numpy has no bfloat16 without ``ml_dtypes``.
 
 The store holds one page more than the pool: page ``n_pages`` is the
 write sink of masked rows (``models.layers.is_paged``) and is never
-claimed, never in a block table, never read.  Page-swap preemption and
-crash-recovery snapshots wait for later slices.
+claimed, never in a block table, never read, swapped, imaged or
+restored.
 """
 from __future__ import annotations
 
@@ -36,6 +51,7 @@ import itertools
 import math
 from typing import Callable, Dict, List, Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core import faults as faults_mod
@@ -43,6 +59,28 @@ from repro_torch.core.refcount import RefCountArray
 
 OK = 0
 POOL_FULL = 1
+
+# Host form of page bytes: numpy, with bfloat16 carried as its int16 bits.
+_HOST_VIEW = {torch.bfloat16: torch.int16}
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A device tensor's bytes as a numpy array (one ``.cpu()``):
+    bfloat16 as the ``int16`` view of its bits, other dtypes as
+    themselves."""
+    t = t.cpu()
+    view = _HOST_VIEW.get(t.dtype)
+    return (t.view(view) if view is not None else t).numpy()
+
+
+def from_host(a: np.ndarray, dtype: torch.dtype,
+              device: Union[str, torch.device]) -> torch.Tensor:
+    """Inverse of :func:`to_host`: numpy bytes back to a ``dtype``
+    tensor on ``device``."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dtype in _HOST_VIEW:
+        t = t.view(dtype)
+    return t.to(device=device, dtype=dtype)
 
 
 @dataclasses.dataclass
@@ -58,6 +96,27 @@ class PageTable:
     n_tokens: int = 0
     slot: Optional[int] = None
     n_reserved: int = 0
+
+
+@dataclasses.dataclass
+class SwapImage:
+    """Host-side parking record for one preempted sequence.  ``rows`` are
+    the block-table rows whose private live pages were gathered into
+    ``k``/``v`` (numpy in :func:`to_host` form, one entry per row, in row
+    order); ``dead_rows`` were reserved-ahead (never-attended) pages
+    released without copying; ``shared_rows`` are refcount>1 prefix
+    pages that never moved — the sequence keeps its references and the
+    block-table rows stay valid while parked."""
+    seq_id: int
+    rows: List[int]
+    k: np.ndarray
+    v: np.ndarray
+    dead_rows: List[int]
+    shared_rows: List[int]
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.k.nbytes) + int(self.v.nbytes)
 
 
 class PagedKVPool:
@@ -91,15 +150,22 @@ class PagedKVPool:
         # (``cow_copy_bytes`` isolates that share).
         self.kv_copy_bytes = 0
         self.cow_copy_bytes = 0
+        self.swap_in_bytes = 0
+        self.swap_out_bytes = 0
         self._peak_pages = 0
         self._shared_peak = 0
         # Pool-pressure escape hatch: the prefix cache registers its LRU
         # evictor here so resident-but-unreferenced prefixes yield their
         # pages before any claim fails.
         self._evict: Optional[Callable[[], bool]] = None
-        # Fault-injection plan: no plan is armed in this port yet; every
-        # probe below is one ``is None`` check.
+        # Fault-injection plan: armed by the engine; every probe below is
+        # one ``is None`` check when disarmed.
         self.faults: Optional["faults_mod.FaultPlan"] = None
+        # Pages implicated in a failed/poisoned write, pinned out of
+        # circulation: quarantine holds one extra reference, so when the
+        # owning sequence frees, the count lands at 1 — never 0 — and
+        # claim-from-zero can never hand the page out again.
+        self.quarantined: set = set()
 
     # -- allocation (lock-free) ------------------------------------------------
     def pages_needed(self, n_tokens: int) -> int:
@@ -145,6 +211,15 @@ class PagedKVPool:
     def page_nbytes(self) -> int:
         """Device bytes one page occupies across both pool arrays."""
         return 2 * self.k[0].numel() * self.k.element_size()
+
+    def reset_traffic(self) -> None:
+        """Zero the copy/peak counters (benchmark pass boundaries)."""
+        self.kv_copy_bytes = 0
+        self.cow_copy_bytes = 0
+        self.swap_in_bytes = 0
+        self.swap_out_bytes = 0
+        self._peak_pages = self.used_pages()
+        self._shared_peak = self._alloc.shared_count()
 
     def try_admit(self, seq_id: int, n_tokens: int,
                   slot: Optional[int] = None) -> int:
@@ -260,7 +335,34 @@ class PagedKVPool:
     def free(self, seq_id: int) -> None:
         t = self._tables.pop(seq_id)
         for p in t.pages:
-            self._alloc.release(p)
+            if p >= 0:  # skip swap tombstones of a parked sequence
+                self._alloc.release(p)
+
+    def quarantine_range(self, seq_id: int, start_pos: int,
+                         end_pos: int) -> List[int]:
+        """Remove the pages backing positions ``[start_pos, end_pos)`` of
+        a sequence from circulation after a failed/poisoned write.  Only
+        PRIVATE pages (refcount == 1) are pinned: a shared page's bytes
+        predate the failed write, so it is provably clean.  Pinning is one
+        incref; the page stays accounted as used and, because claims only
+        win on count zero, it can never back a future sequence.
+        Idempotent per page.  Returns the pages quarantined by THIS
+        call."""
+        t = self._tables.get(seq_id)
+        if t is None or end_pos <= start_pos:
+            return []
+        ps = self.page_size
+        first = max(0, start_pos // ps)
+        last = min((end_pos - 1) // ps, len(t.pages) - 1)
+        got: List[int] = []
+        for i in range(first, last + 1):
+            p = t.pages[i]
+            if (p >= 0 and p not in self.quarantined
+                    and self._alloc.refcount(p) == 1):
+                self._alloc.incref(p)
+                self.quarantined.add(p)
+                got.append(p)
+        return got
 
     def free_pages(self) -> int:
         return self.n_pages - self._alloc.count()
@@ -292,8 +394,213 @@ class PagedKVPool:
                 "kv_resident_bytes_peak": self._peak_pages * self.page_nbytes,
                 "kv_copy_bytes": self.kv_copy_bytes,
                 "cow_copy_bytes": self.cow_copy_bytes,
+                "swap_in_bytes": self.swap_in_bytes,
+                "swap_out_bytes": self.swap_out_bytes,
                 "shared_pages": self._alloc.shared_count(),
-                "shared_pages_peak": self._shared_peak}
+                "shared_pages_peak": self._shared_peak,
+                "quarantined": len(self.quarantined)}
+
+    # -- device <-> host page movement -----------------------------------------
+    def _gather_host(self, pages: List[int]):
+        """The k and v bytes of ``pages`` in host form: one indexed read
+        per store, ONE device->host fetch for both."""
+        idx = torch.tensor(pages, dtype=torch.long,
+                           device=self.store_k.device)
+        kv = torch.stack((self.store_k.index_select(0, idx),
+                          self.store_v.index_select(0, idx)))
+        host = to_host(kv)
+        return host[0], host[1]
+
+    def _scatter_host(self, pages: List[int], k_host: np.ndarray,
+                      v_host: np.ndarray) -> None:
+        """Write host-form page bytes into ``pages``, in place
+        (``index_copy_`` into the store; ``self.k``/``self.v`` stay the
+        same views)."""
+        dev = self.store_k.device
+        d = torch.tensor(pages, dtype=torch.long, device=dev)
+        self.store_k.index_copy_(0, d, from_host(k_host, self.k.dtype, dev))
+        self.store_v.index_copy_(0, d, from_host(v_host, self.v.dtype, dev))
+
+    # -- page-swap preemption (the overload tier) ------------------------------
+    def swap_out_preempt(self, seq_id: int, n_live_tokens: int) -> SwapImage:
+        """Park a sequence host-side, releasing its pool pages.
+
+        Page disposition, by rule not position:
+          * refcount > 1 (live prefix shares) — NEVER moved or
+            released; the victim keeps its references and the rows stay
+            valid, so a preempted prefix-cache hit leaves the shared
+            pages resident and ``cow_copy_bytes`` untouched.
+          * refcount == 1, row < live extent — gathered to host in one
+            indexed read and one fetch, then released (``-1`` tombstone
+            in the row).
+          * refcount == 1, row >= live extent (reserved-ahead pages no
+            token was ever written to) — released without copying;
+            resume re-claims them blank, and positions past the live
+            extent are never attended before being rewritten.
+
+        Only the copied bytes are charged (``swap_out_bytes``, mirrored
+        into ``kv_copy_bytes``)."""
+        if (self.faults is not None
+                and self.faults.fire("pool.swap_out") is not None):
+            # Raised before ANY mutation: the victim's pages, table and
+            # counters are untouched, so the engine treats this exactly
+            # like "no preemptible victim".
+            raise faults_mod.InjectedFault("pool.swap_out",
+                                           self.faults.n_fired,
+                                           retryable=True)
+        t = self._tables[seq_id]
+        live = 0 if n_live_tokens <= 0 else self.pages_needed(n_live_tokens)
+        rows: List[int] = []
+        dead_rows: List[int] = []
+        shared_rows: List[int] = []
+        for i, p in enumerate(t.pages):
+            if p < 0:
+                continue
+            if self._alloc.refcount(p) > 1:
+                shared_rows.append(i)
+            elif i < live:
+                rows.append(i)
+            else:
+                dead_rows.append(i)
+        if rows:
+            k_host, v_host = self._gather_host([t.pages[i] for i in rows])
+        else:
+            k_host = to_host(self.k[0:0])
+            v_host = k_host
+        for i in rows + dead_rows:
+            self._alloc.release(t.pages[i])
+            t.pages[i] = -1
+        nbytes = len(rows) * self.page_nbytes
+        self.swap_out_bytes += nbytes
+        self.kv_copy_bytes += nbytes
+        t.slot = None
+        return SwapImage(seq_id, rows, k_host, v_host, dead_rows,
+                         shared_rows)
+
+    def swap_in_preempt(self, seq_id: int, image: SwapImage) -> int:
+        """Re-establish a parked sequence's residency: claim fresh pages
+        for every tombstoned row (all-or-nothing — POOL_FULL leaves the
+        image and table untouched for a later retry), write the saved
+        bytes back in place, and leave the shared rows alone (they never
+        left).  The resumed sequence reads back byte-identical: pages
+        moved wholesale, and the block-table indirection makes the new
+        physical page numbers invisible."""
+        if (self.faults is not None
+                and self.faults.fire("pool.swap_in") is not None):
+            return POOL_FULL            # injected: image stays parked
+        t = self._tables[seq_id]
+        need = len(image.rows) + len(image.dead_rows)
+        got = self._claim_pages(need)
+        if got is None:
+            return POOL_FULL
+        for i, p in zip(image.rows + image.dead_rows, got):
+            t.pages[i] = p
+        if image.rows:
+            self._scatter_host(got[:len(image.rows)], image.k, image.v)
+        nbytes = len(image.rows) * self.page_nbytes
+        self.swap_in_bytes += nbytes
+        self.kv_copy_bytes += nbytes
+        self._peak_pages = max(self._peak_pages, self.used_pages())
+        return OK
+
+    # -- crash-recovery snapshots ----------------------------------------------
+    def snapshot_state(self, extra_pages=()) -> Dict[str, object]:
+        """Host-side image of the pool at a tick boundary: block tables,
+        per-page refcounts, quarantine pins, traffic counters, and the
+        bytes of every page that backs *written* positions — gathered
+        once per distinct physical page in a single device fetch, so a
+        page shared by N sequences (or pinned by a prefix-cache entry)
+        costs one page of host memory, not N.  Reserved-ahead pages
+        carry no bytes: nothing attended lives there, so restore
+        re-claims them blank.  ``extra_pages`` lets the engine pin
+        prefix-cache-resident pages whose owning sequences have already
+        retired.  The sink page is never imaged."""
+        refcounts = {p: self._alloc.refcount(p) for p in range(self.n_pages)
+                     if self._alloc.refcount(p) > 0}
+        tables = {sid: {"pages": list(t.pages), "n_tokens": t.n_tokens,
+                        "slot": t.slot, "n_reserved": t.n_reserved}
+                  for sid, t in self._tables.items()}
+        need = {int(p) for p in extra_pages}
+        for t in self._tables.values():
+            if t.n_tokens > 0:
+                live = min(self.pages_needed(t.n_tokens), len(t.pages))
+                need.update(p for p in t.pages[:live] if p >= 0)
+        idx = sorted(need)
+        if idx:
+            k_host, v_host = self._gather_host(idx)
+        else:
+            k_host = v_host = np.zeros((0,), np.int8)
+        return {
+            "n_pages": self.n_pages, "page_size": self.page_size,
+            "refcounts": refcounts, "tables": tables,
+            "quarantined": set(self.quarantined),
+            "next_probe": self._next_probe,
+            "counters": {
+                "kv_copy_bytes": self.kv_copy_bytes,
+                "cow_copy_bytes": self.cow_copy_bytes,
+                "swap_in_bytes": self.swap_in_bytes,
+                "swap_out_bytes": self.swap_out_bytes,
+                "peak_pages": self._peak_pages,
+                "shared_peak": self._shared_peak,
+            },
+            "data_pages": idx, "k": k_host, "v": v_host,
+        }
+
+    def reset(self) -> None:
+        """Return the pool to its just-constructed state: the pool pages
+        zeroed in place (stale bytes from a previous incarnation must not
+        leak into restored sequences; the sink page is left alone), a
+        fresh allocator, no tables, no quarantine, zero counters."""
+        self.k.zero_()
+        self.v.zero_()
+        self._alloc = RefCountArray(self.n_pages)
+        self._tables = {}
+        self._next_probe = 0
+        self.quarantined = set()
+        self.kv_copy_bytes = 0
+        self.cow_copy_bytes = 0
+        self.swap_in_bytes = 0
+        self.swap_out_bytes = 0
+        self._peak_pages = 0
+        self._shared_peak = 0
+
+    def restore_state(self, state: Dict[str, object]) -> None:
+        """Rebuild the pool from a :meth:`snapshot_state` image.  Every
+        physical page id is re-claimed at its exact saved refcount via
+        ``RefCountArray.claim_specific`` — block tables restore verbatim,
+        so post-restore decode reads the same page numbers the snapshot
+        recorded.  Saved page bytes are written back in place; traffic
+        counters restore to their snapshotted values (the restore write
+        itself is recovery traffic, not scheduler traffic, and is not
+        charged)."""
+        if (state["n_pages"] != self.n_pages
+                or state["page_size"] != self.page_size):
+            raise ValueError(
+                f"pool shape mismatch: snapshot {state['n_pages']}p x "
+                f"{state['page_size']}, pool {self.n_pages}p x "
+                f"{self.page_size}")
+        self.reset()
+        for p, n in state["refcounts"].items():
+            if not self._alloc.claim_specific(p):
+                raise RuntimeError(f"page {p} not claimable on restore")
+            for _ in range(n - 1):
+                self._alloc.incref(p)
+        self._tables = {
+            sid: PageTable(sid, list(d["pages"]), d["n_tokens"],
+                           slot=d["slot"], n_reserved=d["n_reserved"])
+            for sid, d in state["tables"].items()}
+        self.quarantined = set(state["quarantined"])
+        self._next_probe = state["next_probe"]
+        c = state["counters"]
+        self.kv_copy_bytes = c["kv_copy_bytes"]
+        self.cow_copy_bytes = c["cow_copy_bytes"]
+        self.swap_in_bytes = c["swap_in_bytes"]
+        self.swap_out_bytes = c["swap_out_bytes"]
+        self._peak_pages = c["peak_pages"]
+        self._shared_peak = c["shared_peak"]
+        if state["data_pages"]:
+            self._scatter_host(list(state["data_pages"]), state["k"],
+                               state["v"])
 
 
 @dataclasses.dataclass

@@ -1,0 +1,107 @@
+"""The page pool's preemption and snapshot halves on the card, read back
+through the Hopper paged-attention kernel (``pytest -m cuda``): a
+sequence swapped out to the host and swapped back in onto DIFFERENT
+physical pages gives the kernel bit-identical output for its row — the
+T=1 split-KV decode and the T=64 tensor-core chunk — and leaves the sink
+page untouched; a pool imaged by ``snapshot_state`` and rebuilt by
+``restore_state`` in a fresh pool does the same.  Imports no JAX;
+skipped without a card."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import paged_attention as pa_mod  # noqa: E402
+from repro_torch.serve.kv_cache import OK, PagedKVPool  # noqa: E402
+
+# The slot_paged main path's page geometry (smollm-135m: 3 kv heads of
+# 64, 16-token pages, a 64-page table), cut to 4 layers.
+PS, L, HKV, HD, H, P = 16, 4, 3, 64, 9, 64
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _pool(device, dtype, n_pages=96, seed=0):
+    """A pool with every page (and the sink) full of seeded values and
+    one sequence of 300 written tokens (19 pages) admitted."""
+    pool = PagedKVPool(n_pages, PS, L, HKV, HD, dtype=dtype, device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    pool.store_k.copy_(torch.randn(pool.store_k.shape, generator=g,
+                                   device=device).to(dtype))
+    pool.store_v.copy_(torch.randn(pool.store_v.shape, generator=g,
+                                   device=device).to(dtype))
+    assert pool.try_admit(1, 300) == OK
+    pool.note_tokens(1, 300)
+    return pool
+
+
+def _attend(pool, seq_id, T, li=2, seed=1):
+    """The kernel's output for ``seq_id``'s row (padded to B=8 with
+    zero-length rows), layer ``li``, T queries ending at token 300."""
+    dev = pool.store_k.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((8, T, H, HD), generator=g, device=dev).to(pool.k.dtype)
+    block = torch.zeros((8, P), dtype=torch.int32, device=dev)
+    pages = pool.table(seq_id).pages
+    assert all(p >= 0 for p in pages)
+    block[0, :len(pages)] = torch.tensor(pages, dtype=torch.int32)
+    lens = torch.zeros((8,), dtype=torch.int32, device=dev)
+    lens[0] = 300
+    before = pa_mod.launches
+    out = pa_mod.paged_attention(q, pool.store_k[:, :, li],
+                                 pool.store_v[:, :, li], block, lens)
+    torch.cuda.synchronize()
+    assert pa_mod.launches == before + 1
+    return out[0].clone()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T", [1, 64])
+def test_swap_out_in_to_new_pages_is_bit_identical_on_card(cuda_device,
+                                                           dtype, T):
+    pool = _pool(cuda_device, dtype)
+    sink = (pool.store_k[-1].clone(), pool.store_v[-1].clone())
+    old_pages = list(pool.table(1).pages)
+    want = _attend(pool, 1, T)
+    img = pool.swap_out_preempt(1, 300)
+    assert img.rows == list(range(19)) and img.k.shape[0] == 19
+    assert pool.swap_out_bytes == 19 * pool.page_nbytes
+    # The freed pages are scribbled over (their old bytes are gone) and
+    # another sequence claims pages, so the swap-in lands elsewhere.
+    freed = torch.tensor(old_pages, device=cuda_device)
+    pool.k[freed] = 0
+    pool.v[freed] = 0
+    assert pool.try_admit(2, 100) == OK
+    assert pool.swap_in_preempt(1, img) == OK
+    new_pages = pool.table(1).pages
+    assert not set(new_pages) & set(old_pages)
+    got = _attend(pool, 1, T)
+    assert torch.equal(got, want)
+    assert torch.equal(pool.store_k[-1], sink[0])
+    assert torch.equal(pool.store_v[-1], sink[1])
+    assert pool.kv_copy_bytes == pool.swap_in_bytes + pool.swap_out_bytes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_snapshot_restore_is_bit_identical_on_card(cuda_device, dtype):
+    pool = _pool(cuda_device, dtype)
+    want = [_attend(pool, 1, T) for T in (1, 64)]
+    state = pool.snapshot_state()
+    if dtype == torch.bfloat16:
+        assert state["k"].dtype == np.int16     # bf16 travels as its bits
+    other = _pool(cuda_device, dtype, seed=7)   # other bytes everywhere
+    sink = (other.store_k[-1].clone(), other.store_v[-1].clone())
+    other.restore_state(state)
+    assert other.table(1).pages == pool.table(1).pages
+    got = [_attend(other, 1, T) for T in (1, 64)]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(other.store_k[-1], sink[0])
+    assert torch.equal(other.store_v[-1], sink[1])
