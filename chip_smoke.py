@@ -15,7 +15,10 @@ each of which fails the run hard:
    attention at the reference test shapes and the paged main path's (a
    strided per-layer view of a [512, 16, 30, 3, 64] pool), then its
    split-KV decode (with a lens=0 row and rows shorter than one split)
-   and tensor-core T=64 chunk (with softcap), each twice, bit-identical;
+   and tensor-core T=64 chunk (with softcap), each twice, bit-identical,
+   then both at olmoe-1b-7b's shapes (hd 128, 16 kv heads, g 1) without
+   and with the written-key bound ``kv_lens`` (rows of 0, below and equal
+   to lens) against both plain versions;
    flash
    attention at the reference test shapes, ragged T and S, and the dense
    main path's (B=1 causal prefills of 64/256/512 tokens over a ring
@@ -69,13 +72,22 @@ each of which fails the run hard:
    and next-to-last tick and restored in a fresh engine from the newest
    snapshot plus the journal: every stream byte-identical to the
    uninterrupted run, snapshot bytes and restore times printed;
-5. CPU/CUDA parity: the SMOKE config at float32, same weights on both
-   devices, identical greedy tokens under ``slot_paged``, ``slot_fused``
-   and ``wave``;
+3f. the MoE family at full width: ``olmoe-1b-7b`` (16 layers, d=2048,
+   16/16 heads of 128, 64 experts top-8, vocab 50304, bf16, seed-0
+   weights) under ``slot_paged`` (``max_batch=8``, 512 pages,
+   ``chunk_tokens=64``, ``k_max=8``) on the same 16 requests: every
+   stream complete and exactly-once, paged launches = 16 x forwards,
+   combines = 16 x one-token forwards, no CUDA-core route, no watchdog
+   catch; then where a decode block's and a chunk's time goes;
+5. CPU/CUDA parity: the SMOKE configs at float32, same weights on both
+   devices, identical greedy tokens: smollm under ``slot_paged``,
+   ``slot_fused`` and ``wave``, olmoe (weights x3) under ``slot_paged``
+   and ``slot_fused``;
 6. kernel timing at the main paths' shapes (CUDA events around windows
    enqueued behind a device-side spin, so they time the card's work and
    not the host's launch rate; paged: slot_paged's T=1 decode and T=64
-   chunk, slot_fused's dense-ring decode), beside each kernel's bound,
+   chunk, slot_fused's dense-ring decode, olmoe's T=1 and T=64 with
+   ``kv_lens``), beside each kernel's bound,
    its plain version and the one PyTorch call that computes the same
    function
    where there is one (``scaled_dot_product_attention`` forward, backward,
@@ -90,7 +102,7 @@ each of which fails the run hard:
    CPU/CUDA parity of 3 SMOKE steps' losses at float32.
 
 Phase 7 runs before the timing of phase 6, which reports its launch
-count; the paged row's launches add phases 3c-3e's to phase 3's.  Every
+count; the paged row's launches add phases 3c-3f's to phase 3's.  Every
 kernel counter is set to 0 just before a served or trained run (or the
 NBB matmul's entry-point call) and read just after it; launches made to
 compare or time a kernel (or to serve a request alone for comparison)
@@ -121,6 +133,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 MAIN = dict(n_pages=512, ps=16, L=30, Hkv=3, hd=64, B=8, H=9, P=64,
             chunk=64)
+# olmoe-1b-7b's slot_paged path (phase 3f): the same pool geometry at hd
+# 128 with one query head per kv head.
+OLMOE = dict(MAIN, L=16, Hkv=16, hd=128, H=16)
 # The dense main path (slot_fused): a [4, 1024] ring per layer, B=1
 # prefills of bucketed prompts, B=4 decode.
 DENSE = dict(L=30, B=4, size=1024, Hkv=3, hd=64, H=9, prefill=(64, 256, 512),
@@ -327,11 +342,11 @@ def ref_case(torch, c):
             f(block, torch.int32), f(np.asarray(c["lens"]), torch.int32))
 
 
-def main_path_inputs(torch, T: int, seed: int):
-    """A bf16 pool of the main path's shape, a block table of disjoint
-    scattered pages and lengths like the served traffic's (bucketed
-    prompts of 64..512 tokens plus up to 32 generated)."""
-    m = MAIN
+def main_path_inputs(torch, T: int, seed: int, m=MAIN):
+    """A bf16 pool of the main path's shape (``m``: MAIN or OLMOE), a
+    block table of disjoint scattered pages and lengths like the served
+    traffic's (bucketed prompts of 64..512 tokens plus up to 32
+    generated)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     shape = (m["n_pages"], m["ps"], m["L"], m["Hkv"], m["hd"])
     pk = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
@@ -398,12 +413,13 @@ def phase_compare():
                 if dt_name == "bfloat16":
                     main_err = max(main_err, err)
     split_err = phase_compare_split()
+    olmoe_err = phase_compare_olmoe()
     print(f"kernel vs plain: reference cases (and their poison-page "
           f"variants, bit-identical) max err f32 "
           f"{worst['float32']:.3g} (tol 1e-4), bf16 "
           f"{worst['bfloat16']:.3g} (tol 3e-2); main-path shapes bf16 "
           f"max err {main_err:.3g}")
-    return max(main_err, split_err)
+    return max(main_err, split_err, olmoe_err)
 
 
 # (label, B, T, lens, softcap): the split-KV decode at the paged main
@@ -464,6 +480,79 @@ def phase_compare_split():
         lines.append(f"{label} ({way}, B={B}, lens {lens}) {err:.3g}")
     print("redesigned paged routes vs plain (bf16, tol 3e-2; two calls "
           "bit-identical): " + "; ".join(lines))
+    return worst
+
+
+# olmoe's kv_lens per row (B=8) beside lens, per T: 0 (an idle slot),
+# below lens (a dead decode row, a padded chunk tail) and equal to lens.
+OLMOE_KV_LENS = {1: lambda lens: [0, 0] + [max(0, n - 1) for n in lens[2:5]]
+                 + lens[5:],
+                 64: lambda lens: [0, 0] + [n - 20 for n in lens[2:5]]
+                 + lens[5:]}
+
+
+def phase_compare_olmoe():
+    """The paged kernel at olmoe-1b-7b's main-path shapes (hd 128, 16 kv
+    heads, g 1; strided layer views of a [512, 16, 16, 16, 128] bf16
+    pool): the T=1 split-KV decode (8 splits of 128 keys + combine) and
+    the T=64 tensor-core chunk, without and with ``kv_lens`` (rows of 0,
+    below and equal to lens), against both plain versions; zero rows
+    exact, two calls bit-identical, kv_lens = lens bit-identical to no
+    kv_lens.  Returns the max bf16 error."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    m = OLMOE
+    worst, lines = 0.0, []
+    for T in (1, m["chunk"]):
+        q, pk, pv, block, lens = main_path_inputs(torch, T, 50 + T, m)
+        kview, vview = pk[:, :, 5], pv[:, :, 5]
+        way = pa.route(q, kview, vview)
+        check(way == ("split" if T == 1 else "chunk_tc"),
+              f"olmoe T={T}: route {way}")
+        if way == "split":
+            plan = pa.split_plan(m["B"], m["Hkv"], m["P"], m["ps"])
+            check(plan[0] > 1, f"olmoe T=1: split plan {plan} does not "
+                               "split")
+        kl = torch.tensor(OLMOE_KV_LENS[T](lens.tolist()), dtype=torch.int32,
+                          device="cuda")
+        for kv_lens in (None, kl):
+            before = (pa.launches, pa.combine_launches, pa.simt_launches)
+            out = pa.paged_attention(q, kview, vview, block, lens,
+                                     kv_lens=kv_lens)
+            again = pa.paged_attention(q, kview, vview, block, lens,
+                                       kv_lens=kv_lens)
+            torch.cuda.synchronize()
+            split = way == "split"
+            check((pa.launches - before[0], pa.combine_launches - before[1],
+                   pa.simt_launches - before[2]) == (2, 2 * split, 0),
+                  f"olmoe T={T}: launches")
+            check(torch.equal(out, again), f"olmoe T={T}: two calls differ")
+            want = ref.paged_attention_ref(q, kview, vview, block, lens,
+                                           kv_lens=kv_lens)
+            want2 = ref.paged_attention_split_ref(
+                q, kview, vview, block, lens,
+                pa.split_plan(m["B"], m["Hkv"], m["P"], m["ps"])[1],
+                kv_lens=kv_lens)
+            err = max((out.float() - w.float()).abs().max().item()
+                      for w in (want, want2))
+            check(err <= TOLS["bfloat16"], f"olmoe T={T} kv_lens "
+                                           f"{kv_lens is not None}: err {err}")
+            if kv_lens is not None:
+                check(torch.count_nonzero(out[kv_lens == 0]) == 0,
+                      f"olmoe T={T}: a kv_lens=0 row is not zero")
+            worst = max(worst, err)
+            lines.append(f"T={T} ({way}) kv_lens "
+                         f"{'-' if kv_lens is None else kv_lens.tolist()} "
+                         f"{err:.3g}")
+        same = pa.paged_attention(q, kview, vview, block, lens,
+                                  kv_lens=torch.maximum(lens, kl))
+        check(torch.equal(same, pa.paged_attention(q, kview, vview, block,
+                                                   lens)),
+              f"olmoe T={T}: kv_lens = lens changed the output")
+    print("paged at olmoe-1b-7b's shapes (hd 128, Hkv 16, g 1) vs both "
+          "plain versions (bf16, tol 3e-2; two calls bit-identical): "
+          + "; ".join(lines))
     return worst
 
 
@@ -819,14 +908,13 @@ def phase_compare_trainable():
 # ---------------------------------------------------------------------------
 # Phases 3 and 4: the paged and dense main paths at full width
 # ---------------------------------------------------------------------------
-def full_width_model():
-    """``smollm-135m`` at full width on the card, random weights from
-    seed 0, with a count of model forwards: [all, one-token decode
-    forwards]."""
+def full_width_model(arch: str = "smollm-135m"):
+    """``arch`` at full width on the card, random weights from seed 0,
+    with a count of model forwards: [all, one-token decode forwards]."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
-    cfg = get_config("smollm-135m")
+    cfg = get_config(arch)
     model = build_model(cfg)                          # cuda by default
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     forwards = [0, 0]
@@ -973,6 +1061,55 @@ def phase_serve(model, params, forwards, smi: str):
     return launches["paged_attention"]
 
 
+def phase_serve_olmoe(smi: str):
+    """3f: ``olmoe-1b-7b`` at full width (16 layers, d=2048, 16/16 heads
+    of 128, 64 experts top-8, vocab 50304, bf16, seed-0 weights) under
+    ``slot_paged`` on the main workload's 16 requests: every stream
+    complete and exactly-once, paged launches = 16 x forwards, combines =
+    16 x one-token forwards, no flash, no CUDA-core route, no watchdog
+    catch; then where a decode block's and a chunk's time goes.  Returns
+    the paged launches."""
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import tree
+    t0 = time.monotonic()
+    model, params, forwards = full_width_model("olmoe-1b-7b")
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    # ModelConfig.param_count leaves out the 2 L + 1 norm vectors.
+    n_params = sum(t.numel() for t in tree.flatten(params)[0])
+    want = cfg.param_count() + (2 * cfg.num_layers + 1) * cfg.d_model
+    check(n_params == want, f"olmoe params {n_params} != {want}")
+    eng = ServeEngine(model, params, max_batch=8, max_len=1024,
+                      n_clients=4, pool_pages=512, page_size=16,
+                      scheduler="slot_paged", chunk_tokens=64, k_max=8)
+    kv_mb = 2 * eng.pool.store_k.numel() * eng.pool.store_k.element_size()
+    print(f"olmoe main path: olmoe-1b-7b ({cfg.num_layers} layers, "
+          f"d={cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.head_dim_}, {cfg.moe.num_experts} experts top-"
+          f"{cfg.moe.top_k}, vocab {cfg.vocab_size}, bf16, {n_params} "
+          f"params drawn in {time.monotonic() - t0:.1f} s) slot_paged, pool "
+          f"{kv_mb / 1e6:.0f} MB of K/V, device memory "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    launches, n_fwd, *_ = serve_run(eng, main_workload(cfg.vocab_size), 32,
+                                    forwards, smi, "olmoe slot_paged")
+    L = cfg.num_layers
+    check(n_fwd > 0 and launches["paged_attention"] == L * n_fwd,
+          f"olmoe: paged launches {launches['paged_attention']} != {L} x "
+          f"{n_fwd} forwards")
+    check(forwards[1] > 0 and launches["paged_combine"] == L * forwards[1],
+          f"olmoe: combine launches {launches['paged_combine']} != {L} x "
+          f"{forwards[1]} decode forwards")
+    check(launches["flash_attention"] == 0, "olmoe slot_paged launched "
+                                            "flash")
+    print(f"  olmoe: forwards {n_fwd} ({forwards[1]} one-token), "
+          f"prefix_hits {eng.stats['prefix_hits']}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del eng
+    phase_split(model, params, smi, m=OLMOE)
+    return launches["paged_attention"]
+
+
 def phase_serve_dense(model, params, forwards, smi: str):
     """The dense main path: ``slot_fused`` on the same 16 requests (flash
     launches = 30 x prefills, paged = 30 x decode steps), then 4 requests
@@ -1066,22 +1203,25 @@ def profile_split(cases, smi: str):
                 for k, needle in (("flash_attention", "flash_fwd_tc"),
                                   ("paged_attention", "paged_"))}
         top = sorted(rows, key=dev_us, reverse=True)[:5]
+        ranges = range_ms(prof)
         print(f"time split, {name}: wall {wall:.2f} ms "
               f"({wall / steps:.2f} ms per forward), device busy "
               f"{busy:.3f} ms (idle share {1 - busy / wall:.3f}; every "
               f"profiler row summed: {every_row:.3f} ms), "
               f"flash_attention {kern['flash_attention']:.3f} ms, "
-              f"paged_attention {kern['paged_attention']:.3f} ms; top "
-              f"device ops: "
+              f"paged_attention {kern['paged_attention']:.3f} ms"
+              + "".join(f", range {k} {v:.3f} ms"
+                        for k, v in sorted(ranges.items()) if v)
+              + "; top device ops: "
               + "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.3f} ms"
                           for e in top) + f" [{smi}]")
 
 
-def phase_split(model, params, smi: str):
+def phase_split(model, params, smi: str, m=MAIN):
     """The paged path: one K=8 decode block and one T=64 prefill chunk at
-    its shapes (B=8, lengths 65..512)."""
+    its shapes (``m``; B=8, lengths 65..512)."""
     import torch
-    m, vocab = MAIN, model.cfg.vocab_size
+    vocab = model.cfg.vocab_size
     B, P, C = m["B"], m["P"], m["chunk"]
     g = torch.Generator(device="cuda").manual_seed(3)
     shape = (m["n_pages"] + 1, m["ps"], m["L"], m["Hkv"], m["hd"])
@@ -1103,11 +1243,14 @@ def phase_split(model, params, smi: str):
     start = (torch.randint(0, 7, (B,), generator=g, device="cuda")
              * C).to(torch.int32)
     nval = torch.full((B,), C, **i32)
+    name = model.cfg.name
     profile_split((
-        ("slot_paged decode block K=8", 8, lambda: model.decode_loop(
-            params, caches, cur, pos, rem, eos, k=8, max_len=1024)),
-        ("slot_paged prefill chunk T=64", 1, lambda: model.prefill_chunk_into(
-            params, caches, chunk, start, nval))), smi)
+        (f"{name} slot_paged decode block K=8", 8,
+         lambda: model.decode_loop(params, caches, cur, pos, rem, eos, k=8,
+                                   max_len=1024)),
+        (f"{name} slot_paged prefill chunk T=64", 1,
+         lambda: model.prefill_chunk_into(params, caches, chunk, start,
+                                          nval))), smi)
 
 
 def phase_split_dense(model, params, smi: str):
@@ -1504,19 +1647,38 @@ def phase_recovery(model, params, forwards, smi: str):
 # ---------------------------------------------------------------------------
 # Phase 5: CPU/CUDA parity at float32
 # ---------------------------------------------------------------------------
+def _scaled(tree, scale: float):
+    """Every weight matrix (rank >= 2) times ``scale``, as the parity
+    tests' ``smoke_pair(scale=)`` does."""
+    if isinstance(tree, dict):
+        return {k: _scaled(v, scale) for k, v in tree.items()}
+    return tree * scale if tree.dim() >= 2 else tree
+
+
 def phase_parity():
+    """The SMOKE configs at float32, same weights on both devices: greedy
+    tokens identical on the CPU and the card; smollm under slot_paged,
+    slot_fused and wave, olmoe (weights x3, so its streams vary and its
+    expert capacity binds behind idle rows) under slot_paged and
+    slot_fused."""
+    for arch, scheds, scale in (
+            ("smollm-135m", ("slot_paged", "slot_fused", "wave"), 1.0),
+            ("olmoe-1b-7b", ("slot_paged", "slot_fused"), 3.0)):
+        parity(arch, scheds, scale)
+
+
+def parity(arch: str, scheds, scale: float):
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import ServeEngine
-    cfg = dataclasses.replace(get_smoke_config("smollm-135m"),
-                              dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     cpu_model = build_model(cfg, device="cpu")
-    params = cpu_model.init(torch.Generator().manual_seed(7))
+    params = _scaled(cpu_model.init(torch.Generator().manual_seed(7)), scale)
 
     lengths = [12, 2, 7, 2, 1, 9, 24, 3]
-    for sched in ("slot_paged", "slot_fused", "wave"):
+    for sched in scheds:
         seqs = {}
         for dev in ("cpu", "cuda"):
             model = build_model(cfg, device=dev)
@@ -1541,34 +1703,41 @@ def phase_parity():
                 got[r.req_id] = list(map(int, r.tokens_out))
             seqs[dev] = [got[k] for k in sorted(got)]
         check(seqs["cpu"] == seqs["cuda"],
-              f"{sched}: CPU and CUDA greedy tokens differ")
-        print(f"cpu/cuda parity, {sched}: {sum(map(len, seqs['cuda']))} "
-              f"greedy tokens identical (SMOKE, float32)")
+              f"{arch} {sched}: CPU and CUDA greedy tokens differ")
+        print(f"cpu/cuda parity, {arch} {sched}: "
+              f"{sum(map(len, seqs['cuda']))} greedy tokens identical "
+              f"(SMOKE, float32, weights x{scale:g})")
 
 
 # ---------------------------------------------------------------------------
 # Phase 6: kernel timing at the main paths' shapes
 # ---------------------------------------------------------------------------
-def work(q, block, lens, hkv: int, itemsize: int):
+def work(q, block, lens, hkv: int, itemsize: int, kv_lens=None):
     """(bytes, flops) the function needs on these inputs: q, out, the
-    block table and lens once each, and the K/V of every position below
-    each row's length once per kv head; two hd-long dot products per
-    (query head, visible key)."""
+    block table, lens and kv_lens once each, and the K/V of every
+    position below each row's key end (min(lens, kv_lens); the timed
+    inputs stay inside the table) once per kv head; two hd-long dot
+    products per (query head, visible key)."""
     B, T, H, hd = q.shape
     lens_l = [int(x) for x in lens.tolist()]
-    kv_bytes = sum(lens_l) * hkv * hd * 2 * itemsize
+    kv_l = (lens_l if kv_lens is None
+            else [int(x) for x in kv_lens.tolist()])
+    ends = [max(0, min(n, k)) for n, k in zip(lens_l, kv_l)]
+    kv_bytes = sum(ends) * hkv * hd * 2 * itemsize
     nbytes = (2 * q.numel() * itemsize + kv_bytes + block.numel() * 4
-              + len(lens_l) * 4)
-    visible = sum(max(0, min(n, n - T + t + 1)) for n in lens_l
+              + len(lens_l) * 4 * (1 if kv_lens is None else 2))
+    visible = sum(max(0, min(e, n - T + t + 1)) for n, e in zip(lens_l, ends)
                   for t in range(T))
     return nbytes, 4 * hd * H * visible
 
 
-def paged_timing_row(label: str, q, views, block, lens, smi: str):
+def paged_timing_row(label: str, q, views, block, lens, smi: str,
+                     kv_lens=None):
     """Device ms of the paged kernel (cycling ``views``, one layer's K/V
     each, so a call finds its K/V out of L2 as the served model does),
     its bound, its plain version, and the gather + SDPA yardstick on the
-    same inputs; printed, and returned as (ms, plain, bound, by)."""
+    same inputs (``kv_lens`` as the served path passes it); printed, and
+    returned as (ms, plain, bound, by)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attention as pa
@@ -1577,9 +1746,10 @@ def paged_timing_row(label: str, q, views, block, lens, smi: str):
     ps, Hkv = views[0][0].shape[1], views[0][0].shape[2]
     P = block.shape[1]
     S, n = P * ps, len(views)
-    kern = lambda i: pa.paged_attention(q, *views[i % n], block, lens)  # noqa
-    plain = lambda i: ref.paged_attention_ref(q, *views[i % n],  # noqa
-                                              block, lens)
+    kern = lambda i: pa.paged_attention(  # noqa: E731
+        q, *views[i % n], block, lens, kv_lens=kv_lens)
+    plain = lambda i: ref.paged_attention_ref(  # noqa: E731
+        q, *views[i % n], block, lens, kv_lens=kv_lens)
 
     def gather(i):
         k, v = views[i % n]
@@ -1588,8 +1758,11 @@ def paged_timing_row(label: str, q, views, block, lens, smi: str):
 
     kg, vg = gather(0)
     q_pos = lens.long()[:, None] - T + torch.arange(T, device="cuda")[None]
-    mask = (torch.arange(S, device="cuda")[None, None, :]
-            <= q_pos[:, :, None])[:, None]               # [B,1,T,S]
+    kv_pos = torch.arange(S, device="cuda")[None, None, :]
+    mask = kv_pos <= q_pos[:, :, None]
+    if kv_lens is not None:
+        mask &= kv_pos < kv_lens.long()[:, None, None]
+    mask = mask[:, None]                                 # [B,1,T,S]
     g = H // Hkv
     qt, kt, vt = (x.transpose(1, 2) for x in (
         q, kg.repeat_interleave(g, dim=2), vg.repeat_interleave(g, dim=2)))
@@ -1601,7 +1774,7 @@ def paged_timing_row(label: str, q, views, block, lens, smi: str):
     t_gather = timed(gather, inner=10)
     t_sdpa = timed(sdpa, inner=10)
     pa.launches, pa.combine_launches = before   # timing is not counted
-    nbytes, flops = work(q, block, lens, Hkv, 2)
+    nbytes, flops = work(q, block, lens, Hkv, 2, kv_lens)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
@@ -1609,8 +1782,10 @@ def paged_timing_row(label: str, q, views, block, lens, smi: str):
     way = pa.route(q, *views[0])
     plan = (f", {pa.split_plan(B, Hkv, P, ps)[0]} splits + combine"
             if way == "split" else "")
+    kv = "" if kv_lens is None else f", kv_lens {kv_lens.tolist()}"
     print(f"paged_attention {label} (H={H}, Hkv={Hkv}, hd={hd}, ps={ps}, "
-          f"P={P}, bf16, lens {lens.tolist()}; route {way}{plan}): kernel "
+          f"P={P}, bf16, lens {lens.tolist()}{kv}; route {way}{plan}): "
+          f"kernel "
           f"{t_kern:.4f} ms, bound {bound:.5f} ms ({by}: "
           f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), plain "
           f"{t_plain:.4f} ms; yardstick (not used by the port): gather "
@@ -1623,8 +1798,9 @@ def phase_timing_paged(launches: int, max_err: float, smi: str):
     """The paged kernel at the main paths' shapes: slot_paged's T=1
     decode and T=64 chunk (B=8 over the strided layer views of the pool)
     and slot_fused's decode read (B=4 over the [4, 1024] ring as 64-token
-    identity pages, lens 65/300/513/1000).  The kernel JSON row carries
-    the T=1 decode, the hot shape."""
+    identity pages, lens 65/300/513/1000), then olmoe-1b-7b's T=1 and
+    T=64 (hd 128, 16 kv heads, g 1, with kv_lens).  The kernel JSON row
+    carries smollm's T=1 decode, the hot shape."""
     import torch
     from repro_torch.models.layers import ring_page_size
     m, d = MAIN, DENSE
@@ -1649,6 +1825,15 @@ def phase_timing_paged(launches: int, max_err: float, smi: str):
                     device="cuda").to(torch.bfloat16)
     paged_timing_row(f"dense-ring decode T=1 B={B}", q, views, block, lens,
                      smi)
+    # olmoe-1b-7b's slot_paged shapes, with kv_lens = lens as every row of
+    # a served batch that writes passes it.
+    m = OLMOE
+    for T in (1, m["chunk"]):
+        q, pk, pv, block, lens = main_path_inputs(torch, T, 110 + T, m)
+        views = [(pk[:, :, li], pv[:, :, li]) for li in range(m["L"])]
+        paged_timing_row(f"olmoe T={T} B={m['B']}", q, views, block, lens,
+                         smi, kv_lens=lens.clone())
+        del q, pk, pv, views
     t_kern, t_plain, bound, by = rows[1]
     return {"name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1884,6 +2069,34 @@ def phase_timing_flash_bwd(launches: int, max_err: float, smi: str):
 TRAIN = dict(steps=20, resume_steps=5, ckpt_every=10)
 
 
+# The port's profiler ranges (``torch.profiler.record_function``): the
+# flash backward, the optimizer, the fill of paged rows that see no key,
+# and the expert mixture.
+RANGES = ("flash_attention_trainable.backward", "adamw.update",
+          "attention.fill_unseen", "moe.block")
+
+
+def range_ms(prof) -> dict:
+    """Device ms of the kernels that ran inside each of ``RANGES``'s
+    spans on the device timeline (the range's device-side annotation),
+    summed over calls.  ``key_averages`` reports a range's span itself,
+    idle gaps between its kernels included (merged with its host-side
+    subtree under one key), and a host-side subtree misses kernels
+    launched outside an aten op (the flash backward's, through ctypes on
+    the autograd thread), so neither is used."""
+    from torch.autograd import DeviceType
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [(e.time_range.start, e.time_range.end) for e in dev
+               if e.name not in RANGES]
+    out = {}
+    for e in dev:
+        if e.name in RANGES:
+            a, b = e.time_range.start, e.time_range.end
+            out[e.name] = out.get(e.name, 0.0) + sum(
+                k1 - k0 for k0, k1 in kernels if a <= k0 < b) / 1e3
+    return out
+
+
 def kernel_rows(prof):
     """The profiler's device-side rows (kernels, copies, memsets): each
     device op once.  The host-side rows carry the same device time again
@@ -1891,9 +2104,7 @@ def kernel_rows(prof):
     user ranges are left out too."""
     from torch.autograd import DeviceType
     return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.key not in ("flash_attention_trainable.backward",
-                              "adamw.update")]
+            if e.device_type == DeviceType.CUDA and e.key not in RANGES]
 
 
 def phase_train(smi: str):
@@ -2009,9 +2220,7 @@ def phase_train_split(model, opt, params, opt_state, smi: str):
         print(f"training step split: wall {wall:.1f} ms; device time not "
               f"measured (the profiler saw no device activity) [{smi}]")
         return
-    ranges = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
-              if e.key in ("flash_attention_trainable.backward",
-                           "adamw.update")}
+    ranges = range_ms(prof)
 
     def part(*needles):
         return sum(e.self_device_time_total for e in rows
@@ -2104,6 +2313,7 @@ def main() -> int:
     paged_launches += phase_faults(model, params, forwards, smi)
     paged_launches += phase_recovery(model, params, forwards, smi)
     del model, params
+    paged_launches += phase_serve_olmoe(smi)
     phase_parity()
     train_launches, train_bwd_launches = phase_train(smi)
     phase_train_parity()

@@ -7,9 +7,12 @@
 // an int32 block table [B,P] and int32 lengths [B]; query t sits at
 // lens[b]-T+t and is causally masked to it; GQA maps head h to kv head
 // h / (H/Hkv); optional tanh softcap; scale hd^-0.5; f32 softmax and
-// accumulation; output in q's dtype; keys at or past min(lens, P*ps) are
-// never read or summed; a row that sees no key (lens<=0) returns exact
-// zeros.  The pool is read through its strides: the caller hands one
+// accumulation; output in q's dtype.  An optional int32 kv_lens [B] bounds
+// each row's keys by the count actually written (the reference's `total =
+// cp + sum(write_mask)`, src/repro/models/layers.py:214-233): keys at or
+// past min(lens, P*ps, kv_lens[b]) are never read or summed, so query t
+// sees keys < min(lens-T+t+1, kv_lens[b]).  A row that sees no key
+// (lens<=0 or kv_lens[b]<=0) returns exact zeros; the caller fills it.  The pool is read through its strides: the caller hands one
 // layer's non-contiguous view pool[:, :, li] and nothing is copied.
 //
 // What bounds it on an H100: decode (T=1) is memory-bound.  Each query row
@@ -36,8 +39,9 @@
 //   partial (m, l, acc) to a scratch buffer; a second launch,
 //   paged_combine, merges each row's splits in split order (no atomics:
 //   bit-identical from call to call).  A split that starts at or past
-//   min(lens, P*ps) writes nothing and the combine does not read it; a
-//   row with no visible key has l = 0 everywhere and gets zeros.
+//   the row's key end (key_end: min(lens, P*ps, kv_lens)) writes nothing
+//   and the combine does not read it; a row with no visible key has l = 0
+//   everywhere and gets zeros.
 // * chunk_tc (bf16, g*T > kSplitRows: chunked prefill): the tensor-core
 //   design of flash_attention.cu's flash_fwd_tc.  One block per (64 query
 //   tokens, query head, b), heaviest causal tiles first; K/V tiles of 64
@@ -96,6 +100,7 @@ struct Params {
   const void* v;
   const int* block;
   const int* lens;
+  const int* kv_lens;  // optional [B] written-key bound (nullptr: none)
   void* out;
   float* part;         // split: [3][part_rows] m, l; then [part_rows][hd]
   long long part_rows; // B * Hkv * n_split * g * T
@@ -111,6 +116,14 @@ struct Params {
 };
 
 int tile_pages_for(int ps) { return ps >= kTileKeys ? 1 : kTileKeys / ps; }
+
+// Keys row b may read at all: [0, min(lens, P*ps, kv_lens)).  Every route
+// bounds its key walk and its mask by it; the causal bound is per query.
+__device__ __forceinline__ int key_end(const Params& p, int b) {
+  int k = min(p.lens[b], p.P * p.ps);
+  if (p.kv_lens != nullptr) k = min(k, p.kv_lens[b]);
+  return max(0, k);
+}
 
 // Floats of shared memory one simt block needs for R query rows.
 long long smem_floats(int rows, int hd, int ps) {
@@ -154,6 +167,7 @@ paged_simt(const Params p) {
   const T* kp = static_cast<const T*>(p.k);
   const T* vp = static_cast<const T*>(p.v);
   const int len = p.lens[b];
+  const int kend = key_end(p, b);
 
   // Row r = t*g + gi is query token t of head kvh*g + gi.
   for (int i = threadIdx.x; i < R * hd; i += kThreads) {
@@ -168,9 +182,8 @@ paged_simt(const Params p) {
     l_s[r] = 0.f;
   }
 
-  // Never walk past the table, never touch a page at or past lens.
-  int n_pages = len <= 0 ? 0 : (len + p.ps - 1) / p.ps;
-  if (n_pages > p.P) n_pages = p.P;
+  // Never walk past the table, never touch a page at or past kend.
+  const int n_pages = (kend + p.ps - 1) / p.ps;
   const int* brow = p.block + b * p.blk_sb;
 
   for (int j0 = 0; j0 < n_pages; j0 += p.tile_pages) {
@@ -203,7 +216,7 @@ paged_simt(const Params p) {
         const int r = r0 + rr;
         const int q_pos = len - p.T + r / g;
         float s = kNegInf;
-        if (c < keys && kbase + c <= q_pos) {   // causal AND valid
+        if (c < keys && kbase + c < kend && kbase + c <= q_pos) {
           const float* qr = q_s + r * ldh;
           const float* kr = k_s + c * ldh;
           float dot = 0.f;
@@ -218,7 +231,8 @@ paged_simt(const Params p) {
       for (int rr = threadIdx.x; rr < rows; rr += kThreads) {
         const int r = r0 + rr;
         const int q_pos = len - p.T + r / g;
-        int valid = q_pos - kbase + 1;          // keys this row may see
+        // Keys of this tile the row may see: causal AND below kend.
+        int valid = min(q_pos + 1, kend) - kbase;
         if (valid > keys) valid = keys;
         float* sr = s_s + rr * ldk;
         const float m_prev = m_s[r];
@@ -316,7 +330,7 @@ __global__ void __launch_bounds__(kSplitThreads) paged_split(const Params p) {
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int g = p.H / p.Hkv, R = g * p.T;
   const int len = p.lens[b];
-  const int kmax = max(0, min(len, p.P * p.ps));  // keys any row may see
+  const int kmax = key_end(p, b);               // keys any row may see
   const int k0 = split * p.split_keys;
   const int k1 = min(k0 + p.split_keys, kmax);
   // A split with no key writes nothing: the combine reads only splits
@@ -505,7 +519,7 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(128) paged_combine(const Params p) {
   const int kvh = blockIdx.x, b = blockIdx.y;
   const int g = p.H / p.Hkv, R = g * p.T;
-  const int kmax = max(0, min(p.lens[b], p.P * p.ps));
+  const int kmax = key_end(p, b);
   const int used = (kmax + p.split_keys - 1) / p.split_keys;
   const long long base = (long long)(b * p.Hkv + kvh) * p.n_split * R;
   const float* pm = p.part;
@@ -570,7 +584,7 @@ __global__ void __launch_bounds__(128) paged_chunk_tc(const Params p) {
   const int tq = min(BQ, p.T - t0);
   const int len = p.lens[b];
   const int off = len - p.T;                 // query t sits at t + off
-  const int kmax = max(0, min(len, p.P * p.ps));
+  const int kmax = key_end(p, b);
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [64][LD]
@@ -832,6 +846,7 @@ int paged_attention_max_rows(int hd, int ps) {
   return rows;
 }
 
+// kv_lens: nullptr, or [B] int32 bounds of each row's written keys.
 // dtype: 0 = float32, 1 = bfloat16.  route: 0 = simt, 1 = split (n_split
 // splits of split_keys keys, then the combine; `part` holds
 // B*Hkv*n_split*g*T*(hd+2) floats), 2 = chunk_tc (bfloat16).  Strides are in elements;
@@ -839,7 +854,8 @@ int paged_attention_max_rows(int hd, int ps) {
 // (0 = ok).
 int paged_attention_launch(
     const void* q, const void* k, const void* v, const int* block,
-    const int* lens, void* out, float* part, int dtype, int route, int B,
+    const int* lens, const int* kv_lens, void* out, float* part, int dtype,
+    int route, int B,
     int T, int H, int Hkv, int hd, int ps, int P, int n_split,
     int split_keys, long long q_sb, long long q_st, long long q_sh,
     long long k_sp, long long k_st, long long k_sh, long long v_sp,
@@ -847,7 +863,8 @@ int paged_attention_launch(
     long long o_sh, long long blk_sb, float softcap, float scale,
     void* stream) {
   Params p;
-  p.q = q; p.k = k; p.v = v; p.block = block; p.lens = lens; p.out = out;
+  p.q = q; p.k = k; p.v = v; p.block = block; p.lens = lens;
+  p.kv_lens = kv_lens; p.out = out;
   p.T = T; p.H = H; p.Hkv = Hkv; p.hd = hd; p.ps = ps; p.P = P;
   p.q_sb = q_sb; p.q_st = q_st; p.q_sh = q_sh;
   p.k_sp = k_sp; p.k_st = k_st; p.k_sh = k_sh;

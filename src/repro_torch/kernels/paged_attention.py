@@ -19,6 +19,7 @@ combine launch), ``chunk_tc`` (bf16 chunks on the tensor cores) or
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -57,7 +58,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
     lib.paged_attention_launch.argtypes = (
-        [ptr] * 7 + [i32] * 11 + [i64] * 13 + [f32, f32, ptr])
+        [ptr] * 8 + [i32] * 11 + [i64] * 13 + [f32, f32, ptr])
     lib.paged_attention_launch.restype = ctypes.c_int
     limits = (lib.paged_attention_split_limit(0),
               lib.paged_attention_split_limit(1))
@@ -105,10 +106,12 @@ def route(q: torch.Tensor, k_pages: torch.Tensor,
     return "chunk_tc" if q.dtype == torch.bfloat16 else "simt"
 
 
-def _check(q, k_pages, v_pages, block, lens) -> None:
+def _check(q, k_pages, v_pages, block, lens, kv_lens) -> None:
     dev = q.device
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
-                    ("block", block), ("lens", lens)):
+                    ("block", block), ("lens", lens), ("kv_lens", kv_lens)):
+        if t is None:
+            continue
         if t.device != dev:
             raise ValueError(f"paged_attention: {name} on {t.device}, "
                              f"q on {dev}")
@@ -118,8 +121,10 @@ def _check(q, k_pages, v_pages, block, lens) -> None:
     if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise TypeError("paged_attention: q, k_pages and v_pages must "
                         "share one dtype")
-    if block.dtype != torch.int32 or lens.dtype != torch.int32:
-        raise TypeError("paged_attention: block and lens must be int32")
+    if block.dtype != torch.int32 or lens.dtype != torch.int32 or (
+            kv_lens is not None and kv_lens.dtype != torch.int32):
+        raise TypeError("paged_attention: block, lens and kv_lens must be "
+                        "int32")
     if q.dim() != 4 or k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
         raise ValueError("paged_attention: q [B,T,H,hd] and k/v pages "
                          "[n_pages, ps, Hkv, hd] expected")
@@ -128,19 +133,23 @@ def _check(q, k_pages, v_pages, block, lens) -> None:
     if khd != hd or H % Hkv:
         raise ValueError(f"paged_attention: q {tuple(q.shape)} does not "
                          f"fit pages {tuple(k_pages.shape)}")
-    if block.dim() != 2 or block.shape[0] != B or tuple(lens.shape) != (B,):
-        raise ValueError("paged_attention: block [B,P] and lens [B] "
-                         "expected")
+    if block.dim() != 2 or block.shape[0] != B or tuple(lens.shape) != (B,) \
+            or (kv_lens is not None and tuple(kv_lens.shape) != (B,)):
+        raise ValueError("paged_attention: block [B,P], lens [B] and "
+                         "kv_lens [B] expected")
     if (q.stride(3) != 1 or k_pages.stride(3) != 1
             or v_pages.stride(3) != 1 or block.stride(1) != 1
-            or lens.stride(0) != 1):
+            or lens.stride(0) != 1
+            or (kv_lens is not None and kv_lens.stride(0) != 1)):
         raise ValueError("paged_attention: the last dimension of q, k/v "
-                         "pages and block, and lens, must be unit-stride")
+                         "pages and block, lens and kv_lens, must be "
+                         "unit-stride")
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block: torch.Tensor,
-                    lens: torch.Tensor, softcap: float = 0.0
+                    lens: torch.Tensor, softcap: float = 0.0,
+                    kv_lens: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """Attend q over page-scattered KV via a block table.
 
@@ -152,15 +161,18 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     v_pages:  same shape.
     block:    [B, P] int32 — page ids per row, position-ordered.
     lens:     [B] int32 — kv extent per row including the T queries.
+    kv_lens:  optional [B] int32 — keys each row has written: query t of
+              row b sees keys < min(lens[b] - T + t + 1, kv_lens[b]).
 
-    Returns [B, T, H, hd] in q.dtype.
+    Returns [B, T, H, hd] in q.dtype; exact zeros for a row that sees no
+    key.
     """
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_pages, v_pages, block, lens,
-                                       softcap=softcap)
+                                       softcap=softcap, kv_lens=kv_lens)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
-    _check(q, k_pages, v_pages, block, lens)
+    _check(q, k_pages, v_pages, block, lens, kv_lens)
     global launches, combine_launches, simt_launches
     lib = kbuild.load(SOURCE, _declare)
     B, T, H, hd = q.shape
@@ -184,13 +196,15 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                              "memory")
     for t0 in range(0, T, t_max):
         # A chunk too long for one block's shared memory (simt) is split
-        # along T: queries [t0, t1) are the newest of a row t1 - T shorter.
+        # along T: queries [t0, t1) are the newest of a row t1 - T shorter
+        # (kv_lens bounds keys, not queries: the same for every piece).
         t1 = min(T, t0 + t_max)
         ln = lens if t1 == T else lens - (T - t1)
         qs, os_ = q[:, t0:t1], out[:, t0:t1]
         err = lib.paged_attention_launch(
             qs.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block.data_ptr(), ln.data_ptr(), os_.data_ptr(),
+            block.data_ptr(), ln.data_ptr(),
+            None if kv_lens is None else kv_lens.data_ptr(), os_.data_ptr(),
             None if part is None else part.data_ptr(), _DTYPES[q.dtype],
             ROUTES.index(way), B, t1 - t0, H, Hkv, hd, ps, P, n_split,
             split_keys, qs.stride(0), qs.stride(1), qs.stride(2),

@@ -106,19 +106,38 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
             dv.to(v.dtype))
 
 
+def _paged_mask(q: torch.Tensor, lens: torch.Tensor, S: int,
+                kv_lens) -> torch.Tensor:
+    """[B, T, S] keys each query may see: query t of row b sits at
+    ``lens[b] - T + t`` and sees the keys at or before it (one comparison
+    for causality and the row's extent; ``kv_pos < S`` bounds it by the
+    table), and below ``kv_lens[b]`` when given: the keys the row has
+    written."""
+    T = q.shape[1]
+    q_pos = (lens.long()[:, None] - T
+             + torch.arange(T, device=q.device)[None, :])        # [B, T]
+    kv_pos = torch.arange(S, device=q.device)
+    mask = kv_pos[None, None, :] <= q_pos[:, :, None]           # [B, T, S]
+    if kv_lens is not None:
+        mask &= kv_pos[None, None, :] < kv_lens.long()[:, None, None]
+    return mask
+
+
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, block: torch.Tensor,
-                        lens: torch.Tensor, softcap: float = 0.0
-                        ) -> torch.Tensor:
+                        lens: torch.Tensor, softcap: float = 0.0,
+                        kv_lens=None) -> torch.Tensor:
     """Reference paged attention: dense gather through the block table.
 
     q: [B, T, H, hd] — the T newest tokens per row (KV already written;
     q token t sits at absolute position ``lens[b] - T + t``).
     k_pages/v_pages: [n_pages, page_size, Hkv, hd] (one layer's pool
     view, any strides); block: [B, P] int32 position-ordered page ids;
-    lens: [B] int32 true kv extent per row.  This is the copy-in path the
-    kernel deletes: materialize each row's pages contiguously, then
-    attend.  Returns [B, T, H, hd] in q.dtype.
+    lens: [B] int32 true kv extent per row; kv_lens: optional [B] int32
+    count of keys each row has written (keys at or past it are masked).
+    This is the copy-in path the kernel deletes: materialize each row's
+    pages contiguously, then attend.  Returns [B, T, H, hd] in q.dtype,
+    zeros for a row that sees no key.
     """
     B, T, H, hd = q.shape
     page_size, Hkv = k_pages.shape[1], k_pages.shape[2]
@@ -132,12 +151,7 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                           k.float()) * (hd ** -0.5)
     if softcap:
         scores = torch.tanh(scores / softcap) * softcap
-    ar_t = torch.arange(T, device=q.device)
-    q_pos = lens.long()[:, None] - T + ar_t[None, :]            # [B, T]
-    kv_pos = torch.arange(S, device=q.device)
-    # One comparison covers causality AND the row's true extent:
-    # kv_pos <= q_pos <= lens - 1 < S.
-    mask = kv_pos[None, None, :] <= q_pos[:, :, None]           # [B, T, S]
+    mask = _paged_mask(q, lens, S, kv_lens)
     scores = torch.where(mask[:, None, None], scores,
                          torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1)
@@ -152,7 +166,8 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
 def paged_attention_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
                               v_pages: torch.Tensor, block: torch.Tensor,
                               lens: torch.Tensor, split_keys: int,
-                              softcap: float = 0.0) -> torch.Tensor:
+                              softcap: float = 0.0,
+                              kv_lens=None) -> torch.Tensor:
     """:func:`paged_attention_ref` in the split-KV form the kernel's split
     route computes: the P * page_size positions cut into runs of
     ``split_keys`` keys; for each run and row, the max m of its visible
@@ -173,10 +188,7 @@ def paged_attention_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
     scores = torch.einsum("btkgh,bskh->bkgts", qg, k) * (hd ** -0.5)
     if softcap:
         scores = torch.tanh(scores / softcap) * softcap
-    q_pos = (lens.long()[:, None] - T
-             + torch.arange(T, device=q.device)[None, :])          # [B, T]
-    kv_pos = torch.arange(S, device=q.device)
-    mask = (kv_pos[None, None, :] <= q_pos[:, :, None])[:, None, None]
+    mask = _paged_mask(q, lens, S, kv_lens)[:, None, None]
     parts = []
     for k0 in range(0, S, split_keys):
         sl = slice(k0, min(S, k0 + split_keys))

@@ -130,7 +130,10 @@ def main(argv=None) -> ServeEngine:
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg, device=args.device)
-    params = model.init(torch.Generator().manual_seed(args.seed))
+    # Drawn on the model's device: a full-width MoE's experts (13 GB for
+    # olmoe-1b-7b) would take minutes from a CPU generator.
+    params = model.init(
+        torch.Generator(device=model.device).manual_seed(args.seed))
     scheduler = args.scheduler
     if scheduler is None:
         # Chunked admission needs position-indexed caches; recurrent

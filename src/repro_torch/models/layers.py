@@ -11,6 +11,16 @@ without a cache, ``ops.flash_attention`` over the written ring prefix for
 a scalar ``cache_pos`` (prefill, lockstep wave decode),
 ``ops.paged_attention`` over the ring viewed as identity-mapped pages for
 a ``[B]`` one.
+
+Every query sees exactly the keys the JAX package lets it see: keys at or
+before its own position and, under a ``write_mask``, below the count the
+row has written (:func:`written_lens`).  A row that has written nothing
+sees no key at all; the reference's softmax over its all-masked scores
+is uniform, and :func:`_fill_unseen` gives it that value.  Such rows (idle
+slots, rows not chunking this dispatch) feed nothing back in the uniform
+family, but a mixture-of-experts layer routes every token of the
+dispatch, so their hidden states decide which live choices keep their
+expert's capacity.
 """
 from __future__ import annotations
 
@@ -19,6 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
@@ -157,13 +168,62 @@ def _paged(cfg: ModelConfig, q, k, v, cache, cache_pos, write_mask):
     if write_mask is not None:
         page = torch.where(write_mask, page, torch.full_like(page, sink))
     # In place, through the layer's strided view of the shared pool.
-    kp[:, :, li].index_put_((page, off), k.to(kp.dtype))
-    vp[:, :, li].index_put_((page, off), v.to(vp.dtype))
-    # Query t sits at lens-T+t, so lens = cache_pos + T (not the written
-    # count): each valid query t attends k_pos <= cp+t.
+    kl, vl = kp[:, :, li], vp[:, :, li]
+    kl.index_put_((page, off), k.to(kp.dtype))
+    vl.index_put_((page, off), v.to(vp.dtype))
+    # Query t sits at lens-T+t = cp+t and attends keys <= cp+t that the
+    # row has written (kv_lens).
     lens = (cp + T).to(torch.int32)
-    return ops.paged_attention(q, kp[:, :, li], vp[:, :, li], blockt, lens,
-                               softcap=cfg.attn_logit_softcap)
+    kv_lens = written_lens(cp, write_mask)
+    out = ops.paged_attention(q, kl, vl, blockt, lens,
+                              softcap=cfg.attn_logit_softcap, kv_lens=kv_lens)
+    return _fill_unseen(out, vl, blockt, kv_lens)
+
+
+def written_lens(cp: torch.Tensor, write_mask: Optional[torch.Tensor]
+                 ) -> Optional[torch.Tensor]:
+    """[B] int32 keys each row holds once this dispatch's writes land,
+    ``cp + sum(write_mask)``: the JAX package's ``total``, which bounds
+    its keys (``layers.py:214-233`` there).  None without a write mask:
+    every row then writes all T tokens and ``lens = cp + T`` bounds it.
+    Computed on the device; nothing is read back."""
+    if write_mask is None:
+        return None
+    return (cp + write_mask.sum(1)).to(torch.int32)
+
+
+def _fill_unseen(out: torch.Tensor, v_pages: torch.Tensor,
+                 block: torch.Tensor, kv_lens: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+    """Rows with ``kv_lens == 0`` see no key, so the kernel gives them
+    0.  The reference masks all their scores to -1e30 and its softmax is
+    uniform: their output is the mean of V over the row's ``P * ps``
+    gathered keys (its block table's pages, after this dispatch's
+    writes), the mean of its P page means.  Each page mean is one bag of
+    an ``embedding_bag`` over the layer's V viewed as ``(page, token)``
+    rows: it reads the rows in place and builds no ``[B, P * ps]``
+    gather, and B * P bags keep the card busier than B bags of P * ps
+    rows (2.9x less time at olmoe's decode on an H100).  Rows that see
+    keys average page 0 instead of their own table (cheap, and
+    discarded), since which rows are unseen is known only on the device:
+    no host sync."""
+    if kv_lens is None:
+        return out
+    with record_function("attention.fill_unseen"):
+        B, T, H, hd = out.shape
+        n, ps, Hkv, _ = v_pages.shape
+        P = block.shape[1]
+        unseen = kv_lens == 0                                       # [B]
+        blk = torch.where(unseen[:, None], block, 0).long()          # [B, P]
+        rows = blk[:, :, None] * ps + torch.arange(ps, device=out.device)
+        page_mean = F.embedding_bag(rows.view(B * P, ps),
+                                    v_pages.reshape(n * ps, Hkv * hd),
+                                    mode="mean")
+        # [B, 1, Hkv, 1, hd], broadcast over T and each kv head's queries.
+        mean = page_mean.view(B, 1, P, Hkv, 1, hd).mean(2).to(out.dtype)
+        got = out.reshape(B, T, Hkv, H // Hkv, hd)
+        return torch.where(unseen[:, None, None, None, None], mean,
+                           got).view(B, T, H, hd)
 
 
 def _dense_ring(cfg: ModelConfig, q, k, v, cache, cache_pos, write_mask):
@@ -172,12 +232,16 @@ def _dense_ring(cfg: ModelConfig, q, k, v, cache, cache_pos, write_mask):
 
     A Python-int ``cache_pos`` writes the same slots for every row and
     reads ``ring[:, :cp + T]`` through the flash kernel (queries at its
-    suffix: the flash contract with ``q_offset = cp``).  A [B] tensor
+    suffix: the flash contract with ``q_offset = cp``).  That is the
+    reference's lockstep read: no write mask, every row's keys end at
+    ``cp + T`` and query t sees the keys up to ``cp + t``.  A [B] tensor
     writes each row at its own slots (masked tokens keep the old value
     through a gather + where over the T touched slots) and reads the ring
     as identity-mapped pages through the paged kernel with ``lens = cp +
-    T``.  Dead decode rows write junk into their own private row, as in
-    the JAX package; no caller reads their outputs."""
+    T`` and, under a write mask, ``kv_lens`` = the written count, as the
+    reference bounds it (``prefill_chunk_into``, ``chunked_block``).  Its
+    dense decode loop passes no mask: dead decode rows write junk into
+    their own private row and read ``cp + T`` keys, in both packages."""
     if cfg.sliding_window:
         raise NotImplementedError(
             "the sliding-window ring (wrap-around reads) is not ported yet "
@@ -215,10 +279,12 @@ def _dense_ring(cfg: ModelConfig, q, k, v, cache, cache_pos, write_mask):
     ps = ring_page_size(size)
     Hkv, hd = ck.shape[2], ck.shape[3]
     lens = (cp + T).to(torch.int32)
-    return ops.paged_attention(q, ck.view(B * size // ps, ps, Hkv, hd),
-                               cv.view(B * size // ps, ps, Hkv, hd),
-                               cache["block"], lens,
-                               softcap=cfg.attn_logit_softcap)
+    kv_lens = written_lens(cp, write_mask)
+    vpages = cv.view(B * size // ps, ps, Hkv, hd)
+    out = ops.paged_attention(q, ck.view(B * size // ps, ps, Hkv, hd),
+                              vpages, cache["block"], lens,
+                              softcap=cfg.attn_logit_softcap, kv_lens=kv_lens)
+    return _fill_unseen(out, vpages, cache["block"], kv_lens)
 
 
 # ---------------------------------------------------------------------------

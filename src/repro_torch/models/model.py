@@ -1,4 +1,5 @@
-"""Model assembly for the uniform-attention family (``smollm-135m``).
+"""Model assembly for the uniform-attention (``smollm-135m``) and
+mixture-of-experts (``olmoe-1b-7b``, ``arctic-480b``) families.
 
 ``build_model(cfg, remat_policy="nothing", device=None)`` returns a
 :class:`Model` exposing the JAX package's training and serving surface
@@ -8,6 +9,7 @@ over plain parameter dicts of tensors:
   loss(params, batch) -> (total, {"xent", "aux"})       [training]
   init_cache(batch, max_len) -> dense ring cache {"k", "v"}
   forward(params, tokens, caches=, cache_pos=, start_pos=, write_mask=)
+      -> (hidden, caches, aux)
   prefill(params, tokens, max_len) -> (next_tok [B], fresh dense cache)
   decode_step(params, cache, tokens, pos) -> (next_tok, cache)
   decode_loop(params, cache, cur, pos, rem, eos, k=, max_len=)
@@ -43,6 +45,7 @@ from repro_torch.models.layers import (attention, embed, init_kv_cache,
                                        is_paged, mlp, ring_page_size,
                                        rms_norm, unembed_matrix)
 from repro_torch.models.losses import chunked_softmax_xent, full_logits
+from repro_torch.models.moe import moe_block
 
 Params = Dict[str, Any]
 
@@ -72,6 +75,32 @@ def attn_block(p: Params, cfg: ModelConfig, x, positions, cache=None,
     x = x + a
     x = x + mlp(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps))
     return x, cache
+
+
+def moe_layer(p: Params, cfg: ModelConfig, x, positions, cache=None,
+              cache_pos=None, write_mask=None):
+    """Attention, then the expert mixture (plus arctic's dense residual
+    MLP beside it) on the same normed input: (x, cache, aux)."""
+    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    a, cache = attention(p["attn"], cfg, h, positions, cache=cache,
+                         cache_pos=cache_pos, write_mask=write_mask)
+    x = x + a
+    h = rms_norm(p["ln2"], x, cfg.norm_eps)
+    y, aux = moe_block(p["moe"], cfg, h)
+    if "dense" in p:
+        y = y + mlp(p["dense"], h)
+    return x + y, cache, aux
+
+
+def _block(p: Params, cfg: ModelConfig, x, positions, cache=None,
+           cache_pos=None, write_mask=None):
+    """One layer of either family: (x, cache, aux); aux is None for the
+    uniform family."""
+    if "moe" in p:
+        return moe_layer(p, cfg, x, positions, cache, cache_pos, write_mask)
+    x, cache = attn_block(p, cfg, x, positions, cache, cache_pos,
+                          write_mask)
+    return x, cache, None
 
 
 REMAT_POLICIES = ("nothing", "dots", "none")
@@ -125,7 +154,9 @@ class Model:
         (``ParamBuilder``): fan-in-scaled normal for projections, unit
         normal for the embedding, ones for norms.  Drawn in float32 on the
         generator's device, then cast to the compute dtype on the model's
-        device.  The numbers differ from ``jax.random``'s."""
+        device; the expert weights one layer at a time, so the float32
+        transient is one layer's (olmoe's whole ``wi_gate`` would be 8.6
+        GB).  The numbers differ from ``jax.random``'s."""
         cfg = self.cfg
         d, L, f = cfg.d_model, cfg.num_layers, cfg.d_ff
         nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
@@ -136,6 +167,12 @@ class Model:
             x = torch.randn(shape, generator=generator, dtype=torch.float32,
                             device=generator.device) * s
             return x.to(device=self.device, dtype=dt)
+
+        def per_layer(shape, fan_in):
+            out = torch.empty((L,) + shape, dtype=dt, device=self.device)
+            for li in range(L):
+                out[li] = normal(shape, fan_in)
+            return out
 
         def ones(*shape):
             return torch.ones(shape, dtype=dt, device=self.device)
@@ -150,18 +187,25 @@ class Model:
         emb = {"table": normal((cfg.vocab_size, d), 1, scale=1.0)}
         if not cfg.tie_embeddings:
             emb["unembed"] = normal((d, cfg.vocab_size), d)
-        return {
-            "embed": emb,
-            "layers": {
-                "ln1": ones(L, d),
-                "attn": attn,
-                "ln2": ones(L, d),
-                "mlp": {"wi_gate": normal((L, d, f), d),
-                        "wi_up": normal((L, d, f), d),
-                        "wo": normal((L, f, d), f)},
-            },
-            "final_norm": ones(d),
-        }
+
+        def dense_mlp():
+            return {"wi_gate": normal((L, d, f), d),
+                    "wi_up": normal((L, d, f), d),
+                    "wo": normal((L, f, d), f)}
+
+        layers = {"ln1": ones(L, d), "attn": attn, "ln2": ones(L, d)}
+        mo = cfg.moe
+        if mo is None:
+            layers["mlp"] = dense_mlp()
+        else:
+            E, fe = mo.num_experts, mo.d_ff_expert
+            layers["moe"] = {"router": normal((L, d, E), d),
+                             "wi_gate": per_layer((E, d, fe), d),
+                             "wi_up": per_layer((E, d, fe), d),
+                             "wo": per_layer((E, fe, d), fe)}
+            if mo.dense_residual:
+                layers["dense"] = dense_mlp()
+        return {"embed": emb, "layers": layers, "final_norm": ones(d)}
 
     # -- forward -------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
@@ -186,9 +230,11 @@ class Model:
         return blk
 
     def _remat_block(self, lp: Params, x, positions):
-        """One cache-less layer under the remat policy."""
+        """One cache-less layer under the remat policy: (x, aux or
+        None)."""
         def block(lp, x, positions):
-            return attn_block(lp, self.cfg, x, positions)[0]
+            x, _, aux = _block(lp, self.cfg, x, positions)
+            return x, aux
 
         pol = self.remat_policy
         if pol == "none" or not torch.is_grad_enabled():
@@ -202,29 +248,33 @@ class Model:
 
     def _run_stack(self, params: Params, x, positions, caches, cache_pos,
                    write_mask=None):
+        """-> (hidden, caches, aux): aux sums the layers' load-balance
+        losses (0 for the uniform family)."""
         layers = params["layers"]
-        if caches is None:
-            for li in range(self.cfg.num_layers):
-                x = self._remat_block(_layer(layers, li), x, positions)
-            return x, None
-        paged = is_paged(caches)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        paged = caches is not None and is_paged(caches)
         block = None
-        if not paged and torch.is_tensor(cache_pos):
+        if caches is not None and not paged and torch.is_tensor(cache_pos):
             block = self._ring_block(*caches["k"].shape[1:3])
         for li in range(self.cfg.num_layers):
-            if paged:
-                c = {**caches, "layer": li}
+            lp = _layer(layers, li)
+            if caches is None:
+                x, a = self._remat_block(lp, x, positions)
             else:
-                c = {"k": caches["k"][li], "v": caches["v"][li],
-                     "block": block}
-            x, _ = attn_block(_layer(layers, li), self.cfg, x, positions,
-                              cache=c, cache_pos=cache_pos,
-                              write_mask=write_mask)
-        return x, caches
+                if paged:
+                    c = {**caches, "layer": li}
+                else:
+                    c = {"k": caches["k"][li], "v": caches["v"][li],
+                         "block": block}
+                x, _, a = _block(lp, self.cfg, x, positions, cache=c,
+                                 cache_pos=cache_pos, write_mask=write_mask)
+            if a is not None:
+                aux = aux + a
+        return x, caches, aux
 
     def forward(self, params: Params, tokens: torch.Tensor, caches=None,
                 cache_pos=None, start_pos=None, write_mask=None):
-        """tokens [B, T] -> (final hidden [B, T, D], caches)."""
+        """tokens [B, T] -> (final hidden [B, T, D], caches, aux)."""
         cfg = self.cfg
         B, T = tokens.shape
         ar = torch.arange(T, device=tokens.device)
@@ -233,9 +283,9 @@ class Model:
         else:
             positions = torch.broadcast_to(start_pos + ar, (B, T))
         x = embed(params["embed"], tokens, cfg)
-        x, caches = self._run_stack(params, x, positions, caches, cache_pos,
-                                    write_mask=write_mask)
-        return rms_norm(params["final_norm"], x, cfg.norm_eps), caches
+        x, caches, aux = self._run_stack(params, x, positions, caches,
+                                         cache_pos, write_mask=write_mask)
+        return rms_norm(params["final_norm"], x, cfg.norm_eps), caches, aux
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]):
         """batch {"tokens": [B, T]} -> (total, {"xent", "aux"}).
@@ -243,12 +293,14 @@ class Model:
         As ``model.py:556-576`` of the JAX package: the forward runs on
         all T tokens with the labels rolled left and the last position
         weighted 0, and the cross-entropy is chunked over the tied (or
-        separate) unembedding in the compute dtype.  The uniform family
-        has no auxiliary loss.
+        separate) unembedding in the compute dtype.  The total adds
+        ``cfg.moe.aux_loss_weight`` times the layers' summed load-balance
+        loss for the MoE family (``model.py:575`` there); the uniform
+        family's aux is 0.
         """
         cfg = self.cfg
         tokens = batch["tokens"]
-        hidden, _ = self.forward(params, tokens)
+        hidden, _, aux = self.forward(params, tokens)
         w_out = unembed_matrix(params["embed"], cfg).to(cfg.compute_dtype)
         labels = torch.roll(tokens, -1, 1)
         weights = torch.ones(tokens.shape, dtype=torch.float32,
@@ -256,8 +308,8 @@ class Model:
         weights[:, -1] = 0.0
         xent = chunked_softmax_xent(hidden, w_out, labels, weights=weights,
                                     layout=cfg.xent_layout)
-        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-        return xent, {"xent": xent, "aux": aux}
+        total = (xent + cfg.moe.aux_loss_weight * aux) if cfg.moe else xent
+        return total, {"xent": xent, "aux": aux}
 
     def _greedy(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
         """hidden [B, 1, D] -> greedy next token [B] int32."""
@@ -275,7 +327,7 @@ class Model:
         row (paged; dense rows keep their junk in their own rows).
         Greedy."""
         start = pos[:, None] if torch.is_tensor(pos) else pos
-        hidden, caches = self.forward(
+        hidden, caches, _ = self.forward(
             params, tokens, caches=caches, cache_pos=pos, start_pos=start,
             write_mask=write_mask)
         return self._greedy(params, hidden[:, -1:]), caches
@@ -285,8 +337,8 @@ class Model:
         ``max_len`` positions; returns (greedy next token [B], cache).
         Attention is the flash kernel's causal prefill on CUDA."""
         caches = self.init_cache(tokens.shape[0], max_len)
-        hidden, caches = self.forward(params, tokens, caches=caches,
-                                      cache_pos=0, start_pos=0)
+        hidden, caches, _ = self.forward(params, tokens, caches=caches,
+                                         cache_pos=0, start_pos=0)
         return self._greedy(params, hidden[:, -1:]), caches
 
     def decode_loop(self, params: Params, caches, cur, pos, rem, eos, *,
@@ -342,7 +394,7 @@ class Model:
         B, C = chunk.shape
         write_mask = (torch.arange(C, device=chunk.device)[None, :]
                       < n_valid[:, None])
-        hidden, caches = self.forward(
+        hidden, caches, _ = self.forward(
             params, chunk, caches=caches, cache_pos=start,
             start_pos=start[:, None], write_mask=write_mask)
         last = torch.clamp(n_valid.long() - 1, 0, C - 1)
@@ -393,8 +445,9 @@ def build_model(cfg: ModelConfig, remat_policy: str = "nothing",
                          f"{REMAT_POLICIES}")
     model = Model(cfg, resolve_device(device), remat_policy=remat_policy)
     fam = model._structure()
-    if fam != "uniform_attn":
+    if fam not in ("uniform_attn", "uniform_moe"):
         raise NotImplementedError(
             f"{cfg.name}: the {fam} family is not ported yet (ROADMAP, "
-            "'Still to port': the other model families)")
+            "'Still to port': gemma_local_global, vlm_cross, enc_dec, "
+            "zamba_hybrid and uniform_rwkv)")
     return model

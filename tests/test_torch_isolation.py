@@ -83,6 +83,10 @@ def test_only_the_uniform_family_is_built():
         except NotImplementedError as exc:
             assert "not ported yet" in str(exc)
     assert "smollm-135m" in built
+    # The uniform families: attention and, from this slice, MoE.
+    assert {"olmoe-1b-7b", "arctic-480b"} <= set(built)
+    assert not {"gemma3-27b", "zamba2-2.7b", "rwkv6-1.6b",
+                "llama-3.2-vision-11b", "whisper-tiny"} & set(built)
 
 
 def test_entry_points_refuse_without_a_card(monkeypatch):

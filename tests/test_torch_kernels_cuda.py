@@ -7,7 +7,9 @@ split along T; the split-KV decode and its combine (B=8, ps=16; the
 ps=64 identity pages of a dense ring), the T=64 tensor-core chunk with
 softcap, bit-identical repeats.  Flash: the cases of the JAX package's
 flash tests, ragged T and S, a strided ring slice, rows that see no key,
-the forward's log-sum-exp; the flash backward kernel against
+the forward's log-sum-exp; paged attention's written-key bound
+(``kv_lens``) at olmoe-1b-7b's shapes on all three routes; the flash
+backward kernel against
 ``ref.flash_attention_bwd_ref`` on every case with T <= S and at
 smollm's training shape, bit-identical from call to call; and
 ``flash_attention_trainable``'s gradients (1e-4).  NBB matmul: the
@@ -274,6 +276,58 @@ def test_paged_is_deterministic_on_card(cuda_device, T):
     for _ in range(3):
         assert torch.equal(first, pa_mod.paged_attention(q, kv, vv, block,
                                                          ln))
+
+
+# olmoe-1b-7b's attention (16 query heads over 16 kv heads of 128: g = 1)
+# on the slot_paged pool's pages (ps=16, P=64), cut to 2 layers.  Per T,
+# (lens, kv_lens) per row: kv_lens 0 (an idle row), below lens (a dead
+# row, a padded chunk tail, one past the table) and equal to lens.
+OLMOE_POOL = dict(H=16, Hkv=16, hd=128, L=2)
+KV_LENS_CASES = {
+    1: ([1, 70, 129, 300, 511, 512, 900, 1024],
+        [0, 69, 129, 0, 100, 512, 899, 1024]),
+    64: ([64, 128, 300, 700, 1024, 1100, 64, 500],
+         [0, 100, 300, 650, 1024, 1024, 10, 480]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", sorted(KV_LENS_CASES))
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4),
+                                        ("bfloat16", 3e-2)])
+def test_kv_lens_at_olmoe_shapes_on_card(cuda_device, T, dtype, atol):
+    """The written-key bound on every route at hd 128, g 1: the split-KV
+    decode (8 splits of 128 keys + combine), the bf16 tensor-core chunk
+    and the f32 CUDA-core chunk, against both plain versions; rows with
+    kv_lens 0 are exact zeros, and kv_lens = lens changes no bit."""
+    lens, kv = KV_LENS_CASES[T]
+    dt = getattr(torch, dtype)
+    q, kv_w, vv_w, block, ln = (
+        t.to(dt) if t.is_floating_point() else t
+        for t in _main_pool(40 + T, 8, T, lens, **OLMOE_POOL))
+    kl = torch.tensor(kv, dtype=torch.int32, device=cuda_device)
+    way = pa_mod.route(q, kv_w, vv_w)
+    assert way == ("split" if T == 1 else
+                   "chunk_tc" if dtype == "bfloat16" else "simt")
+    if way == "split":
+        assert pa_mod.split_plan(8, 16, 64, 16) == (8, 128)
+    before = (pa_mod.launches, pa_mod.combine_launches)
+    out = pa_mod.paged_attention(q, kv_w, vv_w, block, ln, kv_lens=kl)
+    torch.cuda.synchronize()
+    assert pa_mod.launches > before[0]
+    assert pa_mod.combine_launches - before[1] == (way == "split")
+    want = tref.paged_attention_ref(q, kv_w, vv_w, block, ln, kv_lens=kl)
+    torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                               rtol=atol)
+    split = tref.paged_attention_split_ref(q, kv_w, vv_w, block, ln,
+                                           split_keys=128, kv_lens=kl)
+    torch.testing.assert_close(out.float(), split.float(), atol=atol,
+                               rtol=atol)
+    assert torch.count_nonzero(out[kl == 0]) == 0
+    full = torch.maximum(ln, kl)
+    assert torch.equal(
+        pa_mod.paged_attention(q, kv_w, vv_w, block, ln, kv_lens=full),
+        pa_mod.paged_attention(q, kv_w, vv_w, block, ln))
 
 
 # ---------------------------------------------------------------------------

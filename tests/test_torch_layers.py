@@ -2,11 +2,12 @@
 and the same numpy-seeded inputs: rms_norm, rope, the SwiGLU mlp, and
 attention without a cache and through the paged branch — a [B]
 cache_pos, a write_mask with a padded tail, writes and reads that cross
-page boundaries.  Outputs of the written (valid) query positions match to
-2e-5; the padded tail's outputs are discarded by every caller and are
-not compared (the port reads stale slots there, the reference masks
-them).  The page writes land on exactly the same pool slots, with values
-within 2e-5."""
+page boundaries.  Every query's output matches to 2e-5, the padded tail's
+and an idle row's included: each query sees the keys the reference lets
+it see (at or before its position, below the row's written count), and a
+row that has written nothing gets the reference's uniform average of its
+gathered V.  The page writes land on exactly the same pool slots, with
+values within 2e-5."""
 import numpy as np
 import pytest
 
@@ -109,10 +110,76 @@ def test_paged_attention_branch(pair, name, li):
         cache={"pages_k": sk, "pages_v": sv,
                "block": torch.from_numpy(block), "layer": li},
         cache_pos=torch.from_numpy(cp), write_mask=torch.from_numpy(wm))
-    np.testing.assert_allclose(to.numpy()[wm], np.asarray(jo)[wm], **TOL)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
     for before, jnew, tnew in ((pk, jc["pages_k"], sk), (pv, jc["pages_v"],
                                                          sv)):
         jnew, tnew = np.asarray(jnew), tnew.numpy()[:n_pages]
         np.testing.assert_array_equal(tnew != before, jnew != before)
         assert (tnew != before).sum() == int(nv.sum()) * hkv * hd
         np.testing.assert_allclose(tnew, jnew, **TOL)
+
+
+# (cache_pos, n_valid) per row: an idle row at cp 0 (writes nothing, sees
+# no key: the reference's uniform average of its gathered V), a dead row
+# at cp > 0 (sees only the keys it wrote before), a padded chunk tail
+# (its padded queries see the written keys only) and a live row.
+UNWRITTEN = {1: [(0, 0), (6, 0), (3, 1), (9, 1)],
+             4: [(0, 0), (6, 0), (3, 2), (2, 4)]}
+
+
+@pytest.mark.parametrize("T", sorted(UNWRITTEN))
+@pytest.mark.parametrize("branch", ["paged", "dense_ring"])
+def test_rows_that_write_nothing_match_reference(pair, branch, T):
+    """The masked-query repair: every query of an idle row, a dead row and
+    a padded tail equals the reference's attention output, through the
+    paged branch and the dense ring's [B] branch (identity pages)."""
+    cfg, _, jp, tm, tp = pair
+    ja, ta = _layer0(jp, tp, "attn")
+    rows = UNWRITTEN[T]
+    B, ps, P, L = len(rows), 4, 4, cfg.num_layers
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim_
+    rng = np.random.default_rng(7 + T)
+    x = rng.normal(size=(B, T, 64)).astype(np.float32)
+    cp = np.array([c for c, _ in rows], np.int32)
+    nv = np.array([n for _, n in rows], np.int32)
+    wm = np.arange(T)[None, :] < nv[:, None]
+    pos = cp[:, None] + np.arange(T)[None, :]
+    if branch == "paged":
+        n_pages = 3 * B * P
+        pk = rng.normal(size=(n_pages, ps, L, hkv, hd)).astype(np.float32)
+        pv = rng.normal(size=(n_pages, ps, L, hkv, hd)).astype(np.float32)
+        block = rng.permutation(n_pages)[:B * P].reshape(B, P).astype(
+            np.int32)
+        block[0] = 0                         # an idle slot's table
+        jcache = {"pages_k": jnp.asarray(pk), "pages_v": jnp.asarray(pv),
+                  "block": jnp.asarray(block), "layer": 1}
+        sink = np.zeros((1,) + pk.shape[1:], np.float32)
+        tcache = {"pages_k": torch.from_numpy(np.concatenate([pk, sink])),
+                  "pages_v": torch.from_numpy(np.concatenate([pv, sink])),
+                  "block": torch.from_numpy(block), "layer": 1}
+    else:
+        size = ps * P
+        shape = (B, size, hkv, hd)
+        rk = rng.normal(size=shape).astype(np.float32)
+        rv = rng.normal(size=shape).astype(np.float32)
+        jcache = {"k": jnp.asarray(rk), "v": jnp.asarray(rv)}
+        tcache = {"k": torch.from_numpy(rk.copy()),
+                  "v": torch.from_numpy(rv.copy()),
+                  "block": tm._ring_block(B, size)}
+    jo, _ = jl.attention(ja, cfg, jnp.asarray(x), jnp.asarray(pos),
+                         cache=jcache, cache_pos=jnp.asarray(cp),
+                         write_mask=jnp.asarray(wm))
+    to, _ = tl.attention(ta, tm.cfg, torch.from_numpy(x),
+                         torch.from_numpy(pos), cache=tcache,
+                         cache_pos=torch.from_numpy(cp),
+                         write_mask=torch.from_numpy(wm))
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
+    assert np.abs(to.numpy()[0]).max() > 0       # the idle row is filled
+
+
+def test_written_lens_is_the_written_count():
+    cp = torch.tensor([0, 6, 3], dtype=torch.int32)
+    wm = torch.tensor([[False, False], [False, False], [True, False]])
+    assert tl.written_lens(cp, wm).tolist() == [0, 6, 4]
+    assert tl.written_lens(cp, wm).dtype == torch.int32
+    assert tl.written_lens(cp, None) is None

@@ -115,10 +115,10 @@ def _drive(side, prompts, eos, C):
                                     eos_v)
         else:
             tok, blk = None, side.loop(cur, pos_v, rem, eos_v)
-        # A row that carried no chunk gets a garbage next token that
-        # nobody reads (the packages compute different garbage): drop it.
-        trace.append((None if tok is None else
-                      [int(x) if n else None for x, n in zip(tok, nval)],
+        # A row that carried no chunk gets a next token that nobody
+        # reads; its queries see the keys the reference lets them see,
+        # so it is compared too.
+        trace.append((None if tok is None else [int(x) for x in tok],
                       blk.tolist()))
         decoding = [b for b in range(B)
                     if not done[b] and gen[b] > 0]

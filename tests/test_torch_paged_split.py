@@ -99,6 +99,59 @@ def test_split_ref_equals_plain_version():
 
 
 # ---------------------------------------------------------------------------
+# kv_lens: the written-key bound of both plain versions
+# ---------------------------------------------------------------------------
+# (case, kv_lens per row): rows with kv_lens 0 (no key: zeros), below
+# lens (a dead row, a padded tail) and equal to lens.
+KV_LENS = {
+    "decode_b8_ps16": [0, 0, 3, 16, 9, 64, 50, 128],
+    "chunk_t8_gqa_9_3_ps16": [5, 0, 125],
+    "past_the_table": [10, 5],
+}
+
+
+def _per_query_jax(inputs, kv_lens, softcap=0.0):
+    """The JAX oracle one query at a time: query t of row b, alone (T=1),
+    at a length of min(lens - T + t + 1, kv_lens): it sees exactly the
+    keys below that."""
+    q, kp, vp, block, lens = inputs
+    T = q.shape[1]
+    outs = []
+    for t in range(T):
+        lt = np.minimum(lens - T + t + 1, kv_lens).clip(min=0)
+        outs.append(np.asarray(jref.paged_attention_ref(
+            jnp.asarray(q[:, t:t + 1]), jnp.asarray(kp), jnp.asarray(vp),
+            jnp.asarray(block), jnp.asarray(lt.astype(np.int32)),
+            softcap=softcap)))
+    return np.concatenate(outs, axis=1)
+
+
+@pytest.mark.parametrize("name", sorted(KV_LENS))
+def test_kv_lens_bounds_both_plain_versions(name):
+    inputs = _setup(**CASES[name])
+    kv = np.asarray(KV_LENS[name], np.int32)
+    want = _per_query_jax(inputs, kv, softcap=5.0)
+    targs = [torch.from_numpy(a) for a in inputs]
+    kv_t = torch.from_numpy(kv)
+    got = tref.paged_attention_ref(*targs, softcap=5.0, kv_lens=kv_t)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    for split_keys in (16, 64):
+        got = tref.paged_attention_split_ref(*targs, split_keys=split_keys,
+                                             softcap=5.0, kv_lens=kv_t)
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert np.count_nonzero(got.numpy()[kv == 0]) == 0
+
+
+def test_kv_lens_at_or_past_lens_changes_nothing():
+    inputs = _setup(**CASES["decode_b8_ps16"])
+    targs = [torch.from_numpy(a) for a in inputs]
+    kv = torch.from_numpy(inputs[4] + np.arange(8, dtype=np.int32) % 2)
+    torch.testing.assert_close(
+        tref.paged_attention_ref(*targs, kv_lens=kv),
+        tref.paged_attention_ref(*targs), rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
 # The split plan and the route
 # ---------------------------------------------------------------------------
 def test_split_plan_takes_static_shapes_only():

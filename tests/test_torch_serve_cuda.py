@@ -4,8 +4,9 @@ sequence swapped out to the host and swapped back in onto DIFFERENT
 physical pages gives the kernel bit-identical output for its row — the
 T=1 split-KV decode and the T=64 tensor-core chunk — and leaves the sink
 page untouched; a pool imaged by ``snapshot_state`` and rebuilt by
-``restore_state`` in a fresh pool does the same.  Imports no JAX;
-skipped without a card."""
+``restore_state`` in a fresh pool does the same.  And olmoe-1b-7b's
+SMOKE config served under slot_paged gives the CPU's greedy tokens.
+Imports no JAX; skipped without a card."""
 import numpy as np
 import pytest
 
@@ -105,3 +106,53 @@ def test_snapshot_restore_is_bit_identical_on_card(cuda_device, dtype):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert torch.equal(other.store_k[-1], sink[0])
     assert torch.equal(other.store_v[-1], sink[1])
+
+
+def _serve_tokens(model, params, device):
+    """slot_paged over ``WORK`` with a small pool; token lists in
+    submission order."""
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(model, params, max_batch=2, max_len=48, n_clients=1,
+                      pool_pages=64, page_size=4, chunk_tokens=4, k_max=4,
+                      scheduler="slot_paged", device=device)
+    rng = np.random.default_rng(5)
+    work = [(rng.integers(0, model.cfg.vocab_size, n), m)
+            for n, m in ((5, 3), (9, 12), (3, 8), (14, 2), (6, 10), (4, 5))]
+    rids = [eng.submit(0, p, max_tokens=m).req_id for p, m in work]
+    while eng.stats["served"] + eng.stats["rejected"] < len(work):
+        eng.step()
+    assert eng.fault_report()["tick_failures"] == 0
+    got = {}
+    for _ in work:
+        r = eng.get_response(0, timeout_s=30)
+        assert r, "response timed out"
+        got[r.req_id] = list(map(int, r.tokens_out))
+    return [got[r] for r in rids]
+
+
+@pytest.mark.cuda
+def test_olmoe_smoke_slot_paged_tokens_equal_the_cpu_on_card(cuda_device):
+    """olmoe-1b-7b's SMOKE config (8 experts, top-4) at float32, weights
+    x3 so streams vary: the card's greedy tokens under slot_paged, where
+    expert capacity binds behind idle rows, equal the CPU's."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(get_smoke_config("olmoe-1b-7b"),
+                              dtype="float32")
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+
+    def scaled(tree, dev):
+        if isinstance(tree, dict):
+            return {k: scaled(v, dev) for k, v in tree.items()}
+        return (tree * 3 if tree.dim() >= 2 else tree).to(dev)
+
+    want = _serve_tokens(cpu, scaled(params, "cpu"), "cpu")
+    before = (pa_mod.launches, pa_mod.simt_launches)
+    got = _serve_tokens(build_model(cfg, device=cuda_device),
+                        scaled(params, cuda_device), cuda_device)
+    assert got == want
+    assert pa_mod.launches > before[0]
+    assert pa_mod.simt_launches == before[1]
