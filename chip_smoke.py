@@ -18,7 +18,14 @@ each of which fails the run hard:
    and tensor-core T=64 chunk (with softcap), each twice, bit-identical,
    then both at olmoe-1b-7b's shapes (hd 128, 16 kv heads, g 1) without
    and with the written-key bound ``kv_lens`` (rows of 0, below and equal
-   to lens) against both plain versions;
+   to lens) against both plain versions; then the ring bound (a
+   sliding-window ring read with wrap-around) on every route (split +
+   combine and simt in f32, split + combine and the tensor-core chunk in
+   bf16) at gemma3-27b's local-layer shapes (B=4, ring 1024 as 16 pages of
+   64, 16 kv heads of 128, g 2, rows at n = 700/1024/1500/2047, T=1 and
+   T=64, with and without ``kv_lens``, windows 1024 and 200) against both
+   plain versions (f32 2e-5, bf16 3e-2), queries with no key exactly 0,
+   and ring = P * ps over unwrapped rows bit-identical to no ring;
    flash
    attention at the reference test shapes, ragged T and S, and the dense
    main path's (B=1 causal prefills of 64/256/512 tokens over a ring
@@ -79,30 +86,54 @@ each of which fails the run hard:
    stream complete and exactly-once, paged launches = 16 x forwards,
    combines = 16 x one-token forwards, no CUDA-core route, no watchdog
    catch; then where a decode block's and a chunk's time goes;
+3g. the local:global family at full width: ``gemma3-27b`` (62 layers: 10
+   superblocks of 5 local layers with a 1024-token window and 1 global,
+   then 2 local; d=5376, 32/16 heads of 128, vocab 262144, bf16, seed-0
+   weights drawn on the card a layer at a time, 54.0 GB; no cut), after
+   olmoe's weights are freed: ``slot_chunked`` (``max_batch=4``,
+   ``max_len=4096``, ``chunk_tokens=64``, ``k_max=8``) on 4 requests, two
+   with prompts of 1100 and 1500 tokens so every local ring wraps in
+   prefill and in decode, two of 480 and 40, 32 new tokens each: every
+   stream complete and exactly-once, paged launches = 62 x forwards, ring
+   launches = 52 x forwards, combines = 62 x one-token forwards, no
+   CUDA-core route, no watchdog catch; ``slot_fused`` on 2 requests (1100
+   and 300 tokens): flash on the 10 global layers of the wrapped prefill
+   and all 62 of the other, the ring bound on its 52 local layers and on
+   every decode step's; then where a decode block's and a chunk's time
+   goes (rows past the window), and the peak device memory;
 5. CPU/CUDA parity: the SMOKE configs at float32, same weights on both
    devices, identical greedy tokens: smollm under ``slot_paged``,
    ``slot_fused`` and ``wave``, olmoe (weights x3) under ``slot_paged``
-   and ``slot_fused``;
+   and ``slot_fused``, gemma (weights x3) under ``slot_chunked`` and
+   ``slot_fused`` with prompts of up to 30 tokens past its window of 8;
 6. kernel timing at the main paths' shapes (CUDA events around windows
    enqueued behind a device-side spin, so they time the card's work and
    not the host's launch rate; paged: slot_paged's T=1 decode and T=64
    chunk, slot_fused's dense-ring decode, olmoe's T=1 and T=64 with
-   ``kv_lens``), beside each kernel's bound,
+   ``kv_lens``; the ring bound at gemma's T=1 and T=64), beside each
+   kernel's bound,
    its plain version and the one PyTorch call that computes the same
    function
    where there is one (``scaled_dot_product_attention`` forward, backward,
    and forward + backward for the trainable flash; ``torch.matmul`` for
-   the NBB matmul: yardsticks the port never calls);
+   the NBB matmul, a gather into position order + masked SDPA for the
+   ring bound: yardsticks the port never calls);
 7. training at full width: ``smollm-135m`` through
    ``repro_torch.launch.train`` (batch 4 x 1024 tokens, remat "nothing",
    20 steps, 2 producer threads, async checkpoints every 10), the flash
    forward launched exactly 60 times a step (30 layers, forward and remat
    recompute) and the flash backward 30 times, the loss falling; a resume
    from its checkpoint for 5 more steps; where one step's time goes;
-   CPU/CUDA parity of 3 SMOKE steps' losses at float32.
+   CPU/CUDA parity of 3 SMOKE steps' losses at float32;
+8. the interleaving checker on the host, over the port's core: every
+   scenario explored at its budget capped at 1500 executions (each
+   verdict must be the scenario's ``expect``), the six schedules of
+   ``tests/schedules/`` replayed, and the functional bit set on a CUDA
+   tensor against ``HostBitset``.
 
 Phase 7 runs before the timing of phase 6, which reports its launch
-count; the paged row's launches add phases 3c-3f's to phase 3's.  Every
+count; the paged row's launches add phases 3c-3g's to phase 3's, and the
+ring row's are 3g's launches under the ring bound.  Every
 kernel counter is set to 0 just before a served or trained run (or the
 NBB matmul's entry-point call) and read just after it; launches made to
 compare or time a kernel (or to serve a request alone for comparison)
@@ -556,6 +587,133 @@ def phase_compare_olmoe():
     return worst
 
 
+# gemma3-27b's local layers (phase 3g): a [4, 1024] ring per layer of 16
+# kv heads of 128, 32 query heads (g 2), read as 16 identity pages of 64
+# slots, window 1024.
+GEMMA = dict(B=4, size=1024, ps=64, Hkv=16, H=32, hd=128, window=1024,
+             chunk=64)
+# Row counts n (keys written once the dispatch's writes land): below the
+# ring, at it, past it and one short of two rings.
+GEMMA_N = [700, 1024, 1500, 2047]
+# (label, T, n_valid per row or None): T=1 decode; T=64 chunks; with
+# kv_lens (a write mask) rows that wrote all, part or none of the chunk,
+# and a dead decode row.
+RING_CASES = [
+    ("decode", 1, None),
+    ("decode kv_lens", 1, [1, 0, 1, 0]),
+    ("chunk", 64, None),
+    ("chunk kv_lens", 64, [64, 10, 0, 37]),
+]
+
+
+def gemma_ring(torch, seed: int, dt=None):
+    """K and V of one gemma local layer's [4, 1024, 16, 128] ring (bf16
+    by default), viewed as 64 identity pages of 64 slots, and its block
+    table."""
+    d = GEMMA
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (d["B"] * d["size"] // d["ps"], d["ps"], d["Hkv"], d["hd"])
+    k, v = (torch.randn(shape, generator=g, device="cuda").to(
+        dt or torch.bfloat16) for _ in range(2))
+    block = torch.arange(shape[0], dtype=torch.int32, device="cuda").view(
+        d["B"], d["size"] // d["ps"])
+    return k, v, block
+
+
+def ring_inputs(torch, T: int, n_valid, seed: int, dt):
+    """(q, lens, kv_lens or None) of a ring read at GEMMA_N: lens = cp +
+    T; with n_valid, kv_lens = cp + n_valid = n."""
+    d = GEMMA
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((d["B"], T, d["H"], d["hd"]), generator=g,
+                    device="cuda").to(dt)
+    n = torch.tensor(GEMMA_N, dtype=torch.int32, device="cuda")
+    if n_valid is None:
+        return q, n, None
+    cp = n - torch.tensor(n_valid, dtype=torch.int32, device="cuda")
+    return q, (cp + T).to(torch.int32), n
+
+
+def phase_compare_ring():
+    """The ring bound (a sliding-window ring read with wrap-around) on
+    every route at gemma3-27b's local-layer shapes: T=1 (split + combine,
+    f32 and bf16), T=64 (``chunk_tc`` in bf16, ``simt`` in f32), with and
+    without ``kv_lens``, window 1024 and a window of 200 inside it; each
+    against both plain versions, queries that see no key exactly 0, two
+    calls bit-identical; and ring = P * ps with window 0 over rows that
+    never wrapped bit-identical to the call without the new arguments.
+    Returns the max bf16 error."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    d = GEMMA
+    tols = {"float32": 2e-5, "bfloat16": 3e-2}
+    worst, lines = {}, []
+    for dt_name, tol in tols.items():
+        dt = getattr(torch, dt_name)
+        k, v, block = gemma_ring(torch, 60, dt)
+        for label, T, n_valid in RING_CASES:
+            for window in (d["window"], 200):
+                if window != d["window"] and dt_name == "float32":
+                    continue
+                q, lens, kv_lens = ring_inputs(torch, T, n_valid, 61 + T, dt)
+                kw = dict(kv_lens=kv_lens, ring=d["size"], window=window)
+                way = pa.route(q, k, v)
+                want_way = ("split" if T == 1 else
+                            "chunk_tc" if dt_name == "bfloat16" else "simt")
+                check(way == want_way, f"ring {label} {dt_name}: route {way}")
+                before = (pa.launches, pa.combine_launches,
+                          pa.simt_launches, pa.ring_launches)
+                out = pa.paged_attention(q, k, v, block, lens, **kw)
+                again = pa.paged_attention(q, k, v, block, lens, **kw)
+                torch.cuda.synchronize()
+                # simt splits a long chunk along T: several passes a call.
+                n = pa.launches - before[0]
+                check(n >= 2 and (pa.combine_launches - before[1],
+                                  pa.simt_launches - before[2],
+                                  pa.ring_launches - before[3])
+                      == (n * (way == "split"), n * (way == "simt"), n),
+                      f"ring {label} {dt_name}: launches")
+                check(torch.equal(out, again),
+                      f"ring {label} {dt_name}: two calls differ")
+                split_keys = pa.split_plan(d["B"], d["Hkv"],
+                                           block.shape[1], d["ps"])[1]
+                wants = (ref.paged_attention_ref(q, k, v, block, lens, **kw),
+                         ref.paged_attention_split_ref(
+                             q, k, v, block, lens, split_keys, **kw))
+                err = max((out.float() - w.float()).abs().max().item()
+                          for w in wants)
+                check(err <= tol, f"ring {label} window {window} {dt_name}: "
+                                  f"err {err}")
+                empty = wants[0].float().abs().amax((2, 3)) == 0   # [B, T]
+                check(torch.count_nonzero(out[empty]) == 0,
+                      f"ring {label} {dt_name}: a query with no key is "
+                      "not zero")
+                worst[dt_name] = max(worst.get(dt_name, 0.0), err)
+                lines.append(f"{label} T={T} window {window} {dt_name} "
+                             f"({way}) {err:.3g}")
+        # Rows that never wrapped: the ring bound at ring = P * ps, window
+        # 0, is the bound without it, bit for bit.
+        for T, n_valid in ((1, [1, 1, 0, 1]), (64, [64, 5, 0, 64])):
+            q, _, _ = ring_inputs(torch, T, None, 70 + T, dt)
+            n = torch.tensor([64, 700, 1000, 1024], dtype=torch.int32,
+                             device="cuda")
+            cp = n - torch.tensor(n_valid, dtype=torch.int32, device="cuda")
+            lens = (cp + T).to(torch.int32)
+            plain = pa.paged_attention(q, k, v, block, lens, kv_lens=n)
+            ringed = pa.paged_attention(q, k, v, block, lens, kv_lens=n,
+                                        ring=d["size"])
+            torch.cuda.synchronize()
+            check(torch.equal(plain, ringed), f"ring = P * ps, T={T} "
+                                              f"{dt_name}: not bit-identical")
+    print("paged ring bound at gemma3-27b's local shapes (B=4, ring 1024 = "
+          "16 pages of 64, Hkv 16, H 32, hd 128; n " + str(GEMMA_N)
+          + ") vs both plain versions (tol f32 2e-5, bf16 3e-2; two calls "
+          "bit-identical; ring = P * ps on unwrapped rows bit-identical to "
+          "no ring): " + "; ".join(lines))
+    return worst["bfloat16"]
+
+
 # (B, T, S, H, Hkv, hd, kwargs): tests/test_kernels.py and
 # tests/test_kernels_decode.py, then ragged T and S.
 FLASH_CASES = [
@@ -975,6 +1133,7 @@ def serve_run(eng, prompts, max_tokens: int, forwards, smi: str,
 
     fa.launches = fa.simt_launches = 0
     pa.launches = pa.combine_launches = pa.simt_launches = 0
+    pa.ring_launches = 0
     forwards[0] = forwards[1] = 0
     thread = eng.start()
     t0 = time.monotonic()
@@ -987,7 +1146,8 @@ def serve_run(eng, prompts, max_tokens: int, forwards, smi: str,
     dt = time.monotonic() - t0
     launches = {"flash_attention": fa.launches,
                 "paged_attention": pa.launches,
-                "paged_combine": pa.combine_launches}
+                "paged_combine": pa.combine_launches,
+                "paged_ring": pa.ring_launches}
     simt = fa.simt_launches
     paged_simt = pa.simt_launches
     n_fwd = forwards[0]
@@ -1108,6 +1268,155 @@ def phase_serve_olmoe(smi: str):
     del eng
     phase_split(model, params, smi, m=OLMOE)
     return launches["paged_attention"]
+
+
+# gemma3-27b at full width (3g).  max_len 4096, not 2048: a prompt of
+# 1100-1500 tokens is bucketed to 2048 positions, and 2048 + 32 new
+# tokens would fail the engine's oversize check at max_len 2048.  The
+# dense schedulers still account each admitted sequence's bucketed
+# prompt and budget in the page pool (as the reference's do): 320 pages
+# of 16 cover the 4800 tokens of 3g's four requests (2.6 GB).
+GEMMA_SERVE = dict(max_batch=4, max_len=4096, chunk_tokens=64, k_max=8,
+                   pool_pages=320, page_size=16)
+
+
+def gemma_workload(vocab: int, lengths):
+    """One request per client: a random prompt of each length."""
+    import numpy as np
+    rng = np.random.default_rng(4321)
+    return {(c, 0): rng.integers(0, vocab, n)
+            for c, n in enumerate(lengths)}
+
+
+def phase_serve_gemma(smi: str):
+    """3g: ``gemma3-27b`` at full width (62 layers: 10 superblocks of 5
+    local layers with a 1024-token window and one global layer, then 2
+    local; d=5376, 32/16 heads of 128, vocab 262144, bf16, seed-0 weights
+    drawn on the card a layer at a time; no cut).  ``slot_chunked`` (its
+    launcher's fallback: not pageable) serves 4 requests, two with
+    prompts of 1100-1500 tokens so every local ring wraps in prefill and
+    decode, two of 40-480: every stream complete and exactly-once, paged
+    launches = 62 x forwards, combines = 62 x one-token forwards, no
+    CUDA-core route, no watchdog catch.  ``slot_fused`` serves 2
+    requests, one prompt past 1024: flash carries the unwrapped prefill
+    layers, the paged ring bound the wrapped ones.  Then where a decode
+    block's and a chunk's time goes, and the peak device memory.
+    Returns (paged launches, of them under the ring bound)."""
+    import gc
+
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    model, params, forwards = full_width_model("gemma3-27b")
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    per, nsb, tail = model._gemma_plan()
+    check((per, nsb, tail) == (5, 10, 2), f"gemma plan {(per, nsb, tail)}")
+    n_params = sum(t.numel() for t in tree.flatten(params)[0])
+    L, d, hd = cfg.num_layers, cfg.d_model, cfg.head_dim_
+    want = cfg.param_count() + (2 * L + 1) * d + 2 * L * hd   # norms
+    check(n_params == want, f"gemma params {n_params} != {want}")
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"gemma main path: gemma3-27b ({L} layers = {nsb} x ({per} local "
+          f"+ 1 global) + {tail} local, window {cfg.sliding_window}, "
+          f"d={d}, {cfg.num_heads}/{cfg.num_kv_heads} heads of {hd}, vocab "
+          f"{cfg.vocab_size}, bf16; {n_params} params drawn in "
+          f"{time.monotonic() - t0:.1f} s, {weights_gb:.2f} GB on the card; "
+          f"{before / 1e9:.2f} GB held before) [{smi}]")
+    long_short = gemma_workload(cfg.vocab_size, (1100, 480, 1500, 40))
+    G = L - L // (per + 1)                  # windowed (local) layers
+    paged_launches = ring_launches = 0
+    for sched, work in (("slot_chunked", long_short),
+                        ("slot_fused", gemma_workload(cfg.vocab_size,
+                                                      (1100, 300)))):
+        eng = ServeEngine(model, params, n_clients=len(work),
+                          scheduler=sched, **GEMMA_SERVE)
+        check(eng.dense_cache_bytes() == 2 * GEMMA_SERVE["max_batch"]
+              * cfg.num_kv_heads * hd * 2
+              * (G * cfg.sliding_window + (L - G) * GEMMA_SERVE["max_len"]),
+              f"gemma {sched}: dense_cache_bytes {eng.dense_cache_bytes()}")
+        torch.cuda.reset_peak_memory_stats()
+        launches, n_fwd, *_ = serve_run(eng, work, 32, forwards, smi,
+                                        f"gemma {sched}")
+        st = eng.stats
+        pl, fl = launches["paged_attention"], launches["flash_attention"]
+        check(launches["paged_combine"] == L * forwards[1]
+              and forwards[1] > 0,
+              f"gemma {sched}: combines {launches['paged_combine']} != {L} "
+              f"x {forwards[1]} one-token forwards")
+        rl = launches["paged_ring"]
+        ring_launches += rl
+        if sched == "slot_chunked":
+            check(fl == 0 and n_fwd > 0 and pl == L * n_fwd
+                  and rl == G * n_fwd,
+                  f"gemma slot_chunked: paged launches {pl} != {L} x "
+                  f"{n_fwd} forwards, or ring launches {rl} != {G} x "
+                  f"{n_fwd} (flash {fl})")
+        else:
+            # A prefill bucketed past the window wraps the local rings:
+            # those layers read through the ring bound, the global ones
+            # through flash; an unwrapped prefill is flash throughout.
+            wrapped = sum(eng._bucket(len(p)) > cfg.sliding_window
+                          for p in work.values())
+            check(st["prefills"] == len(work) and wrapped == 1
+                  and fl == L * st["prefills"] - G * wrapped
+                  and pl == G * wrapped + L * st["decode_steps"]
+                  and rl == G * (wrapped + st["decode_steps"]),
+                  f"gemma slot_fused: flash {fl}, paged {pl}, prefills "
+                  f"{st['prefills']}, decode steps {st['decode_steps']}")
+        paged_launches += pl
+        print(f"  gemma {sched}: forwards {n_fwd} ({forwards[1]} one-token), "
+              f"ring launches {rl}, "
+              f"dense cache {eng.dense_cache_bytes() / 1e9:.2f} GB, peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+              f"GB")
+        del eng
+        gc.collect()        # the engine's sessions hold it in a cycle
+        torch.cuda.empty_cache()
+    phase_split_gemma(model, params, smi)
+    return paged_launches, ring_launches
+
+
+def phase_split_gemma(model, params, smi: str):
+    """gemma3-27b's dense rings (slot_chunked): one K=8 decode block and
+    one T=64 chunk at B=4, every row past the window (positions
+    1100-2000), so every local layer reads its ring with wrap-around."""
+    import torch
+    vocab, B, C = model.cfg.vocab_size, GEMMA_SERVE["max_batch"], 64
+    g = torch.Generator(device="cuda").manual_seed(6)
+    caches = model.init_cache(B, GEMMA_SERVE["max_len"])
+    for t in _leaves(caches):
+        t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+    i32 = dict(dtype=torch.int32, device="cuda")
+    pos = torch.randint(1100, 2001, (B,), generator=g, device="cuda").to(
+        torch.int32)
+    cur = torch.randint(0, vocab, (B,), generator=g, device="cuda").to(
+        torch.int32)
+    rem, eos = torch.full((B,), 1000, **i32), torch.full((B,), -1, **i32)
+    chunk = torch.randint(0, vocab, (B, C), generator=g, device="cuda").to(
+        torch.int32)
+    nval = torch.full((B,), C, **i32)
+    torch.cuda.reset_peak_memory_stats()
+    profile_split((
+        ("gemma3-27b slot_chunked decode block K=8 B=4", 8,
+         lambda: model.decode_loop(params, caches, cur, pos, rem, eos, k=8,
+                                   max_len=GEMMA_SERVE["max_len"])),
+        ("gemma3-27b slot_chunked prefill chunk T=64 B=4", 1,
+         lambda: model.prefill_chunk_into(params, caches, chunk, pos,
+                                          nval))), smi)
+    print(f"  gemma time split: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
 
 
 def phase_serve_dense(model, params, forwards, smi: str):
@@ -1660,14 +1969,19 @@ def phase_parity():
     tokens identical on the CPU and the card; smollm under slot_paged,
     slot_fused and wave, olmoe (weights x3, so its streams vary and its
     expert capacity binds behind idle rows) under slot_paged and
-    slot_fused."""
+    slot_fused; gemma (weights x3) under slot_chunked and slot_fused
+    with prompts of up to 30 tokens and 16-token chunks, so its 8-slot
+    local rings wrap in prefill, in chunks and in decode."""
     for arch, scheds, scale in (
             ("smollm-135m", ("slot_paged", "slot_fused", "wave"), 1.0),
             ("olmoe-1b-7b", ("slot_paged", "slot_fused"), 3.0)):
         parity(arch, scheds, scale)
+    parity("gemma3-27b", ("slot_chunked", "slot_fused"), 3.0,
+           prompt_extra=(0, 12, 23), chunk_tokens=16)
 
 
-def parity(arch: str, scheds, scale: float):
+def parity(arch: str, scheds, scale: float, prompt_extra=(0,),
+           chunk_tokens: int = 4):
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke_config
@@ -1684,10 +1998,11 @@ def parity(arch: str, scheds, scale: float):
             model = build_model(cfg, device=dev)
             eng = ServeEngine(model, _to_device(params, dev), max_batch=2,
                               max_len=64, n_clients=1, pool_pages=64,
-                              page_size=4, chunk_tokens=4, scheduler=sched,
-                              device=dev)
+                              page_size=4, chunk_tokens=chunk_tokens,
+                              scheduler=sched, device=dev)
             for i, n in enumerate(lengths):
-                check(eng.submit(0, (np.arange(5 + i % 3) + 3 * i)
+                plen = 5 + i % 3 + prompt_extra[i % len(prompt_extra)]
+                check(eng.submit(0, (np.arange(plen) + 3 * i)
                                  % cfg.vocab_size, max_tokens=n)
                       is not None, "intake full")
             while (eng.stats["served"] + eng.stats["rejected"]
@@ -1707,6 +2022,67 @@ def parity(arch: str, scheds, scale: float):
         print(f"cpu/cuda parity, {arch} {sched}: "
               f"{sum(map(len, seqs['cuda']))} greedy tokens identical "
               f"(SMOKE, float32, weights x{scale:g})")
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the interleaving checker on the card machine's host
+# ---------------------------------------------------------------------------
+CHECK_BUDGET = 1500     # benchmarks/bench_check.py --quick
+
+
+def phase_checker():
+    """The port's checker over the port's core: every scenario explored
+    at its own budget (at most 1500 executions, as bench_check's quick
+    mode), one line each; a verdict other than the scenario's ``expect``
+    fails.  The six schedules of ``tests/schedules/`` replayed in place,
+    each failing exactly when it expects a violation.  Then the
+    functional bit set on a CUDA tensor against ``HostBitset`` for a
+    fixed claim/release sequence."""
+    from repro_torch.checker import scenarios
+    from repro_torch.core import bitset
+    from repro_torch.core import interleave as il
+    t0 = time.monotonic()
+    for name, scen in scenarios.SCENARIOS.items():
+        budget = min(scen.explore_budget, CHECK_BUDGET)
+        r = scenarios.explore_scenario(name, max_executions=budget)
+        verdict = "pass" if r.ok else "violation"
+        cx = r.counterexample
+        print(f"  checker {name}: expect {scen.expect}, got {verdict} "
+              f"({r.executions} executions, {r.distinct_states} distinct "
+              f"states, exhausted {r.exhausted}"
+              + ("" if cx is None else f", {cx.error_type} at schedule "
+                 f"{list(cx.schedule)}") + ")")
+        check(verdict == scen.expect, f"checker {name}: {verdict}, expected "
+                                      f"{scen.expect}")
+    corpus = sorted((ROOT / "tests" / "schedules").glob("*.json"))
+    check(len(corpus) == 6, f"schedule corpus: {len(corpus)} files")
+    for path in corpus:
+        rec = il.load_schedule(str(path))
+        scen = scenarios.get(rec["scenario"])
+        res = il.run_schedule(scen.make_world, rec["schedule"],
+                              max_steps=scen.max_steps, strict=False)
+        check(res.failed == (rec["expect"] == "violation"),
+              f"schedule {path.name}: failed={res.failed}, expected "
+              f"{rec['expect']} ({res.error!r})")
+    print(f"checker: {len(scenarios.SCENARIOS)} scenarios as expected, "
+          f"{len(corpus)} schedules replayed as recorded "
+          f"({time.monotonic() - t0:.1f} s on the host)")
+    host, bits = bitset.HostBitset(40), bitset.init(40, device="cuda")
+    ops = [None] * 42 + [3, 33, None, None, 0, None]   # None: claim
+    for op in ops:
+        if op is None:
+            bits, slot = bitset.claim_first_free(bits, 40)
+            want = host.try_claim(owner=object())
+            check(int(slot) == (-1 if want is None else want),
+                  f"bitset claim: cuda {int(slot)}, host {want}")
+        else:
+            bits = bitset.release(bits, op)
+            host.release(op)
+            check(not bool(bitset.is_claimed(bits, op)), "bitset release")
+        check(int(bitset.count(bits)) == host.count(), "bitset count")
+    check(bits.is_cuda, "bitset words left the card")
+    print(f"bitset: {len(ops)} claims and releases on a CUDA tensor equal "
+          f"HostBitset's (slots, -1 when full, counts)")
 
 
 # ---------------------------------------------------------------------------
@@ -1841,6 +2217,102 @@ def phase_timing_paged(launches: int, max_err: float, smi: str):
             "launches": launches, "max_abs_err": max_err, "ms": t_kern,
             "plain_ms": t_plain, "bound_ms": bound, "bound_by": by,
             "library_ms": None}
+
+
+def ring_work(q, block, lens, kv_lens, ring: int, window: int, hkv: int,
+              itemsize: int):
+    """(bytes, flops) a ring read needs on these inputs: q, out, the
+    block table, lens and kv_lens once each, and the K/V of the row's
+    keys (the positions [max(0, n - ring), n) it still holds, n =
+    kv_lens or lens) once per kv head; two hd-long dot products per
+    (query head, visible key), query q seeing the positions in [max(lo,
+    q - window + 1), min(q, n - 1)]."""
+    B, T, H, hd = q.shape
+    lens_l = [int(x) for x in lens.tolist()]
+    n_l = lens_l if kv_lens is None else [int(x) for x in kv_lens.tolist()]
+    held = [min(n, ring) for n in n_l]
+    nbytes = (2 * q.numel() * itemsize + sum(held) * hkv * hd * 2 * itemsize
+              + block.numel() * 4 + B * 4 * (1 if kv_lens is None else 2))
+    visible = 0
+    for ln, n in zip(lens_l, n_l):
+        lo = max(0, n - ring)
+        for t in range(T):
+            qp = ln - T + t
+            first = max(lo, qp - window + 1) if window else lo
+            visible += max(0, min(qp, n - 1) - first + 1)
+    return nbytes, 4 * hd * H * visible
+
+
+def ring_timing_row(label: str, q, views, block, lens, kv_lens, smi: str):
+    """Device ms of the paged kernel under the ring bound at gemma's
+    local-layer shapes (cycling ``views``, one layer's ring each), its
+    bound, its plain version, and the yardstick the port never calls: a
+    gather of the ring into position order plus masked SDPA.  Returns
+    (ms, plain, bound, by, gather + SDPA ms)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    d = GEMMA
+    B, T, H, hd = q.shape
+    ring, window, Hkv, n = d["size"], d["window"], d["Hkv"], len(views)
+    kw = dict(kv_lens=kv_lens, ring=ring, window=window)
+    kern = lambda i: pa.paged_attention(  # noqa: E731
+        q, *views[i % n], block, lens, **kw)
+    plain = lambda i: ref.paged_attention_ref(  # noqa: E731
+        q, *views[i % n], block, lens, **kw)
+    gather = lambda i: ref._ring_keys(  # noqa: E731
+        q, *views[i % n], block, lens, kv_lens, ring, window)
+    kg, vg, mask = gather(0)
+    g = H // Hkv
+    qt, kt, vt = (x.transpose(1, 2) for x in (
+        q, kg.repeat_interleave(g, dim=2), vg.repeat_interleave(g, dim=2)))
+    sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask[:, None])
+    before = (pa.launches, pa.combine_launches, pa.ring_launches)
+    t_kern = timed(kern)
+    t_plain = timed(plain, inner=10)
+    t_gather = timed(gather, inner=10)
+    t_sdpa = timed(sdpa, inner=10)
+    pa.launches, pa.combine_launches, pa.ring_launches = before
+    nbytes, flops = ring_work(q, block, lens, kv_lens, ring, window, Hkv, 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    bound = max(t_bytes, t_ops)
+    way = pa.route(q, *views[0])
+    kv = "" if kv_lens is None else f", kv_lens {kv_lens.tolist()}"
+    print(f"paged_attention ring bound {label} (ring {ring}, window "
+          f"{window}, H={H}, Hkv={Hkv}, hd={hd}, ps={d['ps']}, bf16, lens "
+          f"{lens.tolist()}{kv}; route {way}): kernel {t_kern:.4f} ms, "
+          f"bound {bound:.5f} ms ({by}: {nbytes / 1e6:.2f} MB, "
+          f"{flops / 1e9:.3f} GFLOP), plain {t_plain:.4f} ms; yardstick "
+          f"(not used by the port): gather into position order "
+          f"{t_gather:.4f} ms + masked SDPA {t_sdpa:.4f} ms [{smi}]")
+    return t_kern, t_plain, bound, by, t_gather + t_sdpa
+
+
+def phase_timing_ring(launches: int, max_err: float, smi: str):
+    """The ring bound at gemma3-27b's local-layer shapes: the T=1 decode
+    (the dense decode loop passes no kv_lens) and the T=64 chunk (kv_lens
+    = lens, as a chunk's write mask gives), B=4, rows at n = 700, 1024,
+    1500 and 2047, over 8 layers' rings.  The JSON row carries T=1."""
+    import torch
+    rows = {}
+    for T, with_kv in ((1, False), (GEMMA["chunk"], True)):
+        views = [gemma_ring(torch, 200 + i)[:2] for i in range(8)]
+        block = gemma_ring(torch, 0)[2]
+        q, lens, _ = ring_inputs(torch, T, None, 210 + T, torch.bfloat16)
+        rows[T] = ring_timing_row(f"T={T} B={GEMMA['B']}", q, views, block,
+                                  lens, lens.clone() if with_kv else None,
+                                  smi)
+        del views
+    t_kern, t_plain, bound, by, lib = rows[1]
+    return {"name": "paged_attention_ring", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:152",
+            "launches": launches, "max_abs_err": max_err, "ms": t_kern,
+            "plain_ms": t_plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib}
 
 
 def flash_work(B: int, T: int, S: int, H: int, Hkv: int, hd: int,
@@ -2300,6 +2772,7 @@ def main() -> int:
     print(f"nvidia-smi: {smi}")
     phase_build()
     paged_err = phase_compare()
+    ring_err = phase_compare_ring()
     flash_err = phase_compare_flash()
     phase_compare_dense_decode()
     nbb_err, nbb_launches = phase_compare_nbb()
@@ -2314,10 +2787,14 @@ def main() -> int:
     paged_launches += phase_recovery(model, params, forwards, smi)
     del model, params
     paged_launches += phase_serve_olmoe(smi)
+    gemma_paged, ring_launches = phase_serve_gemma(smi)
+    paged_launches += gemma_paged
     phase_parity()
     train_launches, train_bwd_launches = phase_train(smi)
     phase_train_parity()
+    phase_checker()
     kernels = [phase_timing_paged(paged_launches, paged_err, smi),
+               phase_timing_ring(ring_launches, ring_err, smi),
                phase_timing_flash(fused["flash_attention"], flash_err, smi),
                phase_timing_trainable(
                    train_launches,

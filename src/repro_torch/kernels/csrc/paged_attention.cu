@@ -12,8 +12,23 @@
 // cp + sum(write_mask)`, src/repro/models/layers.py:214-233): keys at or
 // past min(lens, P*ps, kv_lens[b]) are never read or summed, so query t
 // sees keys < min(lens-T+t+1, kv_lens[b]).  A row that sees no key
-// (lens<=0 or kv_lens[b]<=0) returns exact zeros; the caller fills it.  The pool is read through its strides: the caller hands one
-// layer's non-contiguous view pool[:, :, li] and nothing is copied.
+// (lens<=0 or kv_lens[b]<=0) returns exact zeros; the caller fills it.
+// The pool is read through its strides: the caller hands one layer's
+// non-contiguous view pool[:, :, li] and nothing is copied.
+//
+// The ring bound (optional; ring = window = 0 leaves every route as it
+// was).  A sliding-window layer keeps a ring of `ring` slots that wraps:
+// the reference's local layers of gemma_local_global
+// (src/repro/models/layers.py:234-298, the window mask at :316-327).
+// With ring > 0 the row's count is n = kv_lens[b] (the wrapper always
+// passes it then), its keys are the logical positions [max(0, n - ring),
+// n), and position p lives in slot p % ring of the row's pages.  With
+// window > 0, query q also sees no key at or below q - window.  So query
+// q sees the contiguous range [max(key_lo, q - window + 1), min(q, n -
+// 1)]; an empty range gives zeros, which the caller fills.  Every route
+// walks logical keys from the row's key_lo and maps each key to its slot
+// when it loads it; split-KV plans its splits from key_lo on the device,
+// so the plan stays one of static shapes.
 //
 // What bounds it on an H100: decode (T=1) is memory-bound.  Each query row
 // does ~4*hd flops per key against 2*hd*sizeof(T) bytes of K/V, far below
@@ -113,16 +128,32 @@ struct Params {
   float softcap, scale;
   int tile_pages, row_chunk;   // simt
   int n_split, split_keys;     // split
+  int ring, window;            // the ring bound (0: none)
 };
 
 int tile_pages_for(int ps) { return ps >= kTileKeys ? 1 : kTileKeys / ps; }
 
-// Keys row b may read at all: [0, min(lens, P*ps, kv_lens)).  Every route
-// bounds its key walk and its mask by it; the causal bound is per query.
+// Keys row b may read at all: logical positions [key_lo, key_end), which
+// are [0, min(lens, P*ps, kv_lens)) without a ring and [max(0, n - ring),
+// n) with one.  Every route bounds its key walk and its mask by them; the
+// causal and window bounds are per query.
 __device__ __forceinline__ int key_end(const Params& p, int b) {
+  if (p.ring > 0) return max(0, p.kv_lens[b]);
   int k = min(p.lens[b], p.P * p.ps);
   if (p.kv_lens != nullptr) k = min(k, p.kv_lens[b]);
   return max(0, k);
+}
+__device__ __forceinline__ int key_lo(const Params& p, int b) {
+  return p.ring > 0 ? max(0, key_end(p, b) - p.ring) : 0;
+}
+// Lowest key the query at position qp sees, of a row whose keys start at
+// klo.
+__device__ __forceinline__ int query_lo(const Params& p, int klo, int qp) {
+  return p.window > 0 ? max(klo, qp - p.window + 1) : klo;
+}
+// The slot of the row's pages that holds logical key `key`.
+__device__ __forceinline__ int slot_of(const Params& p, int key) {
+  return p.ring > 0 ? key % p.ring : key;
 }
 
 // Floats of shared memory one simt block needs for R query rows.
@@ -168,6 +199,7 @@ paged_simt(const Params p) {
   const T* vp = static_cast<const T*>(p.v);
   const int len = p.lens[b];
   const int kend = key_end(p, b);
+  const int klo = key_lo(p, b);
 
   // Row r = t*g + gi is query token t of head kvh*g + gi.
   for (int i = threadIdx.x; i < R * hd; i += kThreads) {
@@ -183,14 +215,14 @@ paged_simt(const Params p) {
   }
 
   // Never walk past the table, never touch a page at or past kend.
-  const int n_pages = (kend + p.ps - 1) / p.ps;
+  // Without a ring, tiles are whole pages from key 0; with one, runs of
+  // KT logical keys from klo, each key loaded from its own slot.
+  const int kcap = p.ring > 0 ? kend : (kend + p.ps - 1) / p.ps * p.ps;
   const int* brow = p.block + b * p.blk_sb;
 
-  for (int j0 = 0; j0 < n_pages; j0 += p.tile_pages) {
+  for (int kbase = klo; kbase < kcap; kbase += KT) {
     __syncthreads();                    // previous tile fully consumed
-    const int pages = min(p.tile_pages, n_pages - j0);
-    const int keys = pages * p.ps;
-    const int kbase = j0 * p.ps;
+    const int keys = min(KT, kcap - kbase);
     // Load this tile's K and V once, for every query row of the kv head.
     // Slots past `keys` are zero-filled: they are masked, and a masked
     // probability of exactly 0 must not meet stale shared memory.
@@ -198,8 +230,9 @@ paged_simt(const Params p) {
       const int c = i / hd, d = i % hd;
       float kv = 0.f, vv = 0.f;
       if (c < keys) {
-        const long long page = brow[j0 + c / p.ps];
-        const int off = c % p.ps;
+        const int slot = slot_of(p, kbase + c);
+        const long long page = brow[slot / p.ps];
+        const int off = slot % p.ps;
         kv = to_f32(kp[page * p.k_sp + off * p.k_st + kvh * p.k_sh + d]);
         vv = to_f32(vp[page * p.v_sp + off * p.v_st + kvh * p.v_sh + d]);
       }
@@ -216,7 +249,8 @@ paged_simt(const Params p) {
         const int r = r0 + rr;
         const int q_pos = len - p.T + r / g;
         float s = kNegInf;
-        if (c < keys && kbase + c < kend && kbase + c <= q_pos) {
+        if (c < keys && kbase + c < kend && kbase + c <= q_pos &&
+            kbase + c >= query_lo(p, klo, q_pos)) {
           const float* qr = q_s + r * ldh;
           const float* kr = k_s + c * ldh;
           float dot = 0.f;
@@ -231,16 +265,18 @@ paged_simt(const Params p) {
       for (int rr = threadIdx.x; rr < rows; rr += kThreads) {
         const int r = r0 + rr;
         const int q_pos = len - p.T + r / g;
-        // Keys of this tile the row may see: causal AND below kend.
+        // Keys of this tile the row may see, [vlo, valid): causal AND
+        // below kend AND within the window.
         int valid = min(q_pos + 1, kend) - kbase;
         if (valid > keys) valid = keys;
+        const int vlo = max(0, query_lo(p, klo, q_pos) - kbase);
         float* sr = s_s + rr * ldk;
         const float m_prev = m_s[r];
         float m_new = m_prev;
-        for (int c = 0; c < valid; ++c) m_new = fmaxf(m_new, sr[c]);
+        for (int c = vlo; c < valid; ++c) m_new = fmaxf(m_new, sr[c]);
         float sum = 0.f;
         for (int c = 0; c < KT; ++c) {
-          const float pr = c < valid ? expf(sr[c] - m_new) : 0.f;
+          const float pr = c >= vlo && c < valid ? expf(sr[c] - m_new) : 0.f;
           sr[c] = pr;
           sum += pr;
         }
@@ -331,7 +367,8 @@ __global__ void __launch_bounds__(kSplitThreads) paged_split(const Params p) {
   const int g = p.H / p.Hkv, R = g * p.T;
   const int len = p.lens[b];
   const int kmax = key_end(p, b);               // keys any row may see
-  const int k0 = split * p.split_keys;
+  const int klo = key_lo(p, b);
+  const int k0 = klo + split * p.split_keys;
   const int k1 = min(k0 + p.split_keys, kmax);
   // A split with no key writes nothing: the combine reads only splits
   // below kmax.
@@ -363,8 +400,9 @@ __global__ void __launch_bounds__(kSplitThreads) paged_split(const Params p) {
       const bool valid = key < k1;
       long long ko = 0, vo = 0;
       if (valid) {
-        const long long page = brow[key / p.ps];
-        const long long off = key % p.ps;
+        const int slot = slot_of(p, key);
+        const long long page = brow[slot / p.ps];
+        const long long off = slot % p.ps;
         ko = page * p.k_sp + off * p.k_st;
         vo = page * p.v_sp + off * p.v_st;
       }
@@ -435,7 +473,8 @@ __global__ void __launch_bounds__(kSplitThreads) paged_split(const Params p) {
           if (p.softcap > 0.f) sc = tanhf(sc / p.softcap) * p.softcap;
           sc *= flash::kLog2e;
           const int qp = len - p.T + r / g;
-          if (key >= k1 || key > qp) sc = -CUDART_INF_F;
+          if (key >= k1 || key > qp || key < query_lo(p, klo, qp))
+            sc = -CUDART_INF_F;
           s_s[r * kSplitKeys + c] = sc;
         }
       }
@@ -520,7 +559,7 @@ __global__ void __launch_bounds__(128) paged_combine(const Params p) {
   const int kvh = blockIdx.x, b = blockIdx.y;
   const int g = p.H / p.Hkv, R = g * p.T;
   const int kmax = key_end(p, b);
-  const int used = (kmax + p.split_keys - 1) / p.split_keys;
+  const int used = (kmax - key_lo(p, b) + p.split_keys - 1) / p.split_keys;
   const long long base = (long long)(b * p.Hkv + kvh) * p.n_split * R;
   const float* pm = p.part;
   const float* pl = pm + p.part_rows;
@@ -553,20 +592,24 @@ constexpr int chunk_smem_bytes() {
 
 // Keys kb .. kb+63 of kv head base (one 16-byte column per thread, every
 // (blockDim / (HD / 8))-th row) into the padded tile dst, each row found
-// through the block table; keys at or past `end` are zero-filled, unread.
+// through the block table (logical key -> slot_of); keys at or past `end`
+// are zero-filled, unread.
 template <int HD>
 __device__ __forceinline__ void load_page_rows(bf16* dst, const bf16* base,
                                                long long sp, long long st,
-                                               const int* brow, int ps,
-                                               int kb, int end) {
+                                               const int* brow,
+                                               const Params& p, int kb,
+                                               int end) {
   constexpr int LD = HD + 8, CH = HD / 8;
   const int c = threadIdx.x % CH, dr = blockDim.x / CH;
   for (int r = threadIdx.x / CH; r < kChunkKeys; r += dr) {
     const int key = kb + r;
     const bool valid = key < end;
     const bf16* src = base + c * 8;
-    if (valid)
-      src += (long long)brow[key / ps] * sp + (long long)(key % ps) * st;
+    if (valid) {
+      const int slot = slot_of(p, key);
+      src += (long long)brow[slot / p.ps] * sp + (long long)(slot % p.ps) * st;
+    }
     flash::cp_async16(dst + r * LD + c * 8, src, valid);
   }
 }
@@ -585,6 +628,7 @@ __global__ void __launch_bounds__(128) paged_chunk_tc(const Params p) {
   const int len = p.lens[b];
   const int off = len - p.T;                 // query t sits at t + off
   const int kmax = key_end(p, b);
+  const int klo = key_lo(p, b);
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [64][LD]
@@ -597,17 +641,20 @@ __global__ void __launch_bounds__(128) paged_chunk_tc(const Params p) {
   const bf16* vg = static_cast<const bf16*>(p.v) + kvh * p.v_sh;
   const int* brow = p.block + b * p.blk_sb;
 
-  // Keys any row of this tile can see: [0, k_end).
+  // Keys any row of this tile can see: [k_start, k_end) (the lowest
+  // query's lower bound is the lowest), in tiles of 64 from k_start.
   const int q_last = t0 + tq - 1 + off;
+  const int k_start = query_lo(p, klo, t0 + off);
   const int k_end = max(0, min(kmax, q_last + 1));
-  const int n_kt = (k_end + kChunkKeys - 1) / kChunkKeys;
+  const int n_kt =
+      k_end > k_start ? (k_end - k_start + kChunkKeys - 1) / kChunkKeys : 0;
 
   auto load_kv = [&](int j) {
-    const int kb = j * kChunkKeys, st = j % NS;
+    const int kb = k_start + j * kChunkKeys, st = j % NS;
     load_page_rows<HD>(k_s + st * kChunkKeys * LD, kg, p.k_sp, p.k_st, brow,
-                       p.ps, kb, k_end);
+                       p, kb, k_end);
     load_page_rows<HD>(v_s + st * kChunkKeys * LD, vg, p.v_sp, p.v_st, brow,
-                       p.ps, kb, k_end);
+                       p, kb, k_end);
   };
 
   // Q and the first NS - 1 tiles, one commit group each (Q with tile 0).
@@ -623,6 +670,10 @@ __global__ void __launch_bounds__(128) paged_chunk_tc(const Params p) {
   const int w0 = warp * 16;
   const bool active = w0 < tq;
   const int wq_first = t0 + w0 + off, wq_last = wq_first + 15;
+  // The warp's rows see no key below lo_first; all of them see every key
+  // from lo_last up to their causal and key_end bounds.
+  const int lo_first = query_lo(p, klo, wq_first);
+  const int lo_last = query_lo(p, klo, wq_last);
   const float sc_l2 = p.scale * flash::kLog2e;
   uint32_t qf[KT][4];
   float o[NT][4];
@@ -637,16 +688,16 @@ __global__ void __launch_bounds__(128) paged_chunk_tc(const Params p) {
     __syncthreads();
     if (j + NS - 1 < n_kt) load_kv(j + NS - 1);
     flash::cp_async_commit();
-    const int kb = j * kChunkKeys;
-    // A warp whose rows all precede the tile's first key skips it.  Tile
-    // 0 holds key 0, which every row that sees a key sees, so the Q
-    // fragments are loaded there once.
+    const int kb = k_start + j * kChunkKeys;
+    // A warp whose rows all precede the tile's first key, or all follow
+    // its last one by a window, skips it.  The Q fragments are loaded at
+    // tile 0, once.
     if (j == 0 && active) {
 #pragma unroll
       for (int kk = 0; kk < KT; ++kk)
         flash::load_a(qf[kk], q_s, LD, w0, kk * 16);
     }
-    if (active && kb <= wq_last) {
+    if (active && kb <= wq_last && kb + kChunkKeys > lo_first) {
       const bf16* ks = k_s + (j % NS) * kChunkKeys * LD;
       const bf16* vs = v_s + (j % NS) * kChunkKeys * LD;
       // S = Q K^T: 16 rows x 64 keys as KN n-tiles of 8 keys.
@@ -681,7 +732,7 @@ __global__ void __launch_bounds__(128) paged_chunk_tc(const Params p) {
           for (int e = 0; e < 4; ++e) s[n][e] *= sc_l2;
       }
       const bool full = kb + kChunkKeys <= kmax &&
-                        kb + kChunkKeys - 1 <= wq_first;
+                        kb + kChunkKeys - 1 <= wq_first && kb >= lo_last;
       if (!full) {
 #pragma unroll
         for (int n = 0; n < KN; ++n) {
@@ -689,7 +740,8 @@ __global__ void __launch_bounds__(128) paged_chunk_tc(const Params p) {
           for (int e = 0; e < 4; ++e) {
             const int kp = kb + n * 8 + 2 * gc + (e & 1);
             const int qp = wq_first + gr + (e >> 1) * 8;
-            if (kp >= kmax || kp > qp) s[n][e] = -CUDART_INF_F;
+            if (kp >= kmax || kp > qp || kp < query_lo(p, klo, qp))
+              s[n][e] = -CUDART_INF_F;
           }
         }
       }
@@ -847,6 +899,8 @@ int paged_attention_max_rows(int hd, int ps) {
 }
 
 // kv_lens: nullptr, or [B] int32 bounds of each row's written keys.
+// ring, window: the ring bound (0, 0: none); ring > 0 needs kv_lens and
+// ring <= P * ps.
 // dtype: 0 = float32, 1 = bfloat16.  route: 0 = simt, 1 = split (n_split
 // splits of split_keys keys, then the combine; `part` holds
 // B*Hkv*n_split*g*T*(hd+2) floats), 2 = chunk_tc (bfloat16).  Strides are in elements;
@@ -857,7 +911,7 @@ int paged_attention_launch(
     const int* lens, const int* kv_lens, void* out, float* part, int dtype,
     int route, int B,
     int T, int H, int Hkv, int hd, int ps, int P, int n_split,
-    int split_keys, long long q_sb, long long q_st, long long q_sh,
+    int split_keys, int ring, int window, long long q_sb, long long q_st, long long q_sh,
     long long k_sp, long long k_st, long long k_sh, long long v_sp,
     long long v_st, long long v_sh, long long o_sb, long long o_st,
     long long o_sh, long long blk_sb, float softcap, float scale,
@@ -876,11 +930,15 @@ int paged_attention_launch(
   const int rows = (H / Hkv) * T;
   p.row_chunk = rows < kRowChunk ? rows : kRowChunk;
   p.n_split = n_split; p.split_keys = split_keys;
+  p.ring = ring; p.window = window;
   p.part = part;
   p.part_rows = (long long)B * Hkv * n_split * rows;
   if (B <= 0 || T <= 0 || rows <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 1 && part == nullptr) return cudaErrorInvalidValue;
+  if (ring < 0 || window < 0 || ring > P * ps ||
+      (ring > 0 && kv_lens == nullptr))
+    return cudaErrorInvalidValue;
   if (dtype == 0) {
     if (route == 0) return launch_simt<float>(p, B, s);
     if (route == 1) return launch_split_hd<float>(p, B, s);

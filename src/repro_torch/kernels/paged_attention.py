@@ -14,7 +14,9 @@ version (``ref.paged_attention_ref``); a CUDA ``q`` launches the kernel on
 card :func:`route` picks one of the kernel's three routes: ``split``
 (decode: flash-decoding over :func:`split_plan`'s runs of keys, then a
 combine launch), ``chunk_tc`` (bf16 chunks on the tensor cores) or
-``simt`` (everything else, on the CUDA cores).
+``simt`` (everything else, on the CUDA cores).  Every route takes the
+optional ring bound (``ring``, ``window``): a sliding-window ring read
+with wrap-around.
 """
 from __future__ import annotations
 
@@ -32,12 +34,14 @@ SOURCE = kbuild.CSRC / "paged_attention.cu"
 # ``launches`` counts the attention passes (one per call, or one per
 # T-piece of a chunk split along T), ``combine_launches`` the launches
 # that merge a split-KV pass's splits (one per split-route pass),
-# ``simt_launches`` the passes that took the CUDA-core ``simt`` route.
-# Callers reset them to 0 and read them to show a run went through the
-# kernel, and through which route.
+# ``simt_launches`` the passes that took the CUDA-core ``simt`` route,
+# ``ring_launches`` the passes under the ring bound.  Callers reset them
+# to 0 and read them to show a run went through the kernel, and through
+# which route.
 launches = 0
 combine_launches = 0
 simt_launches = 0
+ring_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("simt", "split", "chunk_tc")
@@ -58,7 +62,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
     lib.paged_attention_launch.argtypes = (
-        [ptr] * 8 + [i32] * 11 + [i64] * 13 + [f32, f32, ptr])
+        [ptr] * 8 + [i32] * 13 + [i64] * 13 + [f32, f32, ptr])
     lib.paged_attention_launch.restype = ctypes.c_int
     limits = (lib.paged_attention_split_limit(0),
               lib.paged_attention_split_limit(1))
@@ -106,7 +110,8 @@ def route(q: torch.Tensor, k_pages: torch.Tensor,
     return "chunk_tc" if q.dtype == torch.bfloat16 else "simt"
 
 
-def _check(q, k_pages, v_pages, block, lens, kv_lens) -> None:
+def _check(q, k_pages, v_pages, block, lens, kv_lens, ring: int,
+           window: int) -> None:
     dev = q.device
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
                     ("block", block), ("lens", lens), ("kv_lens", kv_lens)):
@@ -144,13 +149,16 @@ def _check(q, k_pages, v_pages, block, lens, kv_lens) -> None:
         raise ValueError("paged_attention: the last dimension of q, k/v "
                          "pages and block, lens and kv_lens, must be "
                          "unit-stride")
+    if window < 0:
+        raise ValueError(f"paged_attention: window {window} < 0")
+    ref._check_ring(block, k_pages, ring)
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block: torch.Tensor,
                     lens: torch.Tensor, softcap: float = 0.0,
-                    kv_lens: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    kv_lens: Optional[torch.Tensor] = None,
+                    ring: int = 0, window: int = 0) -> torch.Tensor:
     """Attend q over page-scattered KV via a block table.
 
     q:        [B, T, H, hd] — the T newest tokens of each row (their KV
@@ -163,17 +171,28 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     lens:     [B] int32 — kv extent per row including the T queries.
     kv_lens:  optional [B] int32 — keys each row has written: query t of
               row b sees keys < min(lens[b] - T + t + 1, kv_lens[b]).
+    ring:     0, or the slots of a ring read with wrap-around (at most P *
+              page_size): the row's count is n = kv_lens (lens without
+              it), its keys the positions [max(0, n - ring), n), and
+              position p lives at slot p % ring of the row's pages.
+    window:   0, or the keys a query sees at most: query q sees no key at
+              or below q - window.
 
-    Returns [B, T, H, hd] in q.dtype; exact zeros for a row that sees no
-    key.
+    Returns [B, T, H, hd] in q.dtype; exact zeros for a query that sees
+    no key.
     """
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_pages, v_pages, block, lens,
-                                       softcap=softcap, kv_lens=kv_lens)
+                                       softcap=softcap, kv_lens=kv_lens,
+                                       ring=ring, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
-    _check(q, k_pages, v_pages, block, lens, kv_lens)
-    global launches, combine_launches, simt_launches
+    _check(q, k_pages, v_pages, block, lens, kv_lens, ring, window)
+    if ring and kv_lens is None:
+        # The kernel reads a ring row's count from kv_lens: lens here, and
+        # it stays lens when a simt chunk is split along T below.
+        kv_lens = lens
+    global launches, combine_launches, simt_launches, ring_launches
     lib = kbuild.load(SOURCE, _declare)
     B, T, H, hd = q.shape
     ps, Hkv = k_pages.shape[1], k_pages.shape[2]
@@ -207,7 +226,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             None if kv_lens is None else kv_lens.data_ptr(), os_.data_ptr(),
             None if part is None else part.data_ptr(), _DTYPES[q.dtype],
             ROUTES.index(way), B, t1 - t0, H, Hkv, hd, ps, P, n_split,
-            split_keys, qs.stride(0), qs.stride(1), qs.stride(2),
+            split_keys, ring, window, qs.stride(0), qs.stride(1), qs.stride(2),
             k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
             v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
             os_.stride(0), os_.stride(1), os_.stride(2),
@@ -218,4 +237,5 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         launches += 1
         combine_launches += way == "split"
         simt_launches += way == "simt"
+        ring_launches += ring > 0
     return out

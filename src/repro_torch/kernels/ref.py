@@ -107,12 +107,12 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
 
 
 def _paged_mask(q: torch.Tensor, lens: torch.Tensor, S: int,
-                kv_lens) -> torch.Tensor:
+                kv_lens, window: int = 0) -> torch.Tensor:
     """[B, T, S] keys each query may see: query t of row b sits at
     ``lens[b] - T + t`` and sees the keys at or before it (one comparison
     for causality and the row's extent; ``kv_pos < S`` bounds it by the
     table), and below ``kv_lens[b]`` when given: the keys the row has
-    written."""
+    written; with a ``window``, only the last ``window`` of them."""
     T = q.shape[1]
     q_pos = (lens.long()[:, None] - T
              + torch.arange(T, device=q.device)[None, :])        # [B, T]
@@ -120,13 +120,69 @@ def _paged_mask(q: torch.Tensor, lens: torch.Tensor, S: int,
     mask = kv_pos[None, None, :] <= q_pos[:, :, None]           # [B, T, S]
     if kv_lens is not None:
         mask &= kv_pos[None, None, :] < kv_lens.long()[:, None, None]
+    if window:
+        mask &= kv_pos[None, None, :] > q_pos[:, :, None] - window
     return mask
+
+
+def _ring_keys(q, k_pages, v_pages, block, lens, kv_lens, ring: int,
+               window: int):
+    """A ring of ``ring`` slots read with wrap-around, in logical order.
+
+    The row's count ``n`` is ``kv_lens`` (or ``lens`` without it); the
+    ring holds its positions ``[max(0, n - ring), n)``, position p at
+    slot ``p % ring`` of the row's pages.  Returns (k, v [B, ring, Hkv,
+    hd] with key j of row b the position ``max(0, n - ring) + j``, the
+    [B, T, ring] mask: below n, at or before the query, and within its
+    ``window``)."""
+    B, T = q.shape[:2]
+    ps = k_pages.shape[1]
+    n = (lens if kv_lens is None else kv_lens).long()
+    lo = torch.clamp(n - ring, min=0)
+    pos = lo[:, None] + torch.arange(ring, device=q.device)       # [B, ring]
+    slot = pos % ring
+    page = torch.gather(block.long(), 1, slot // ps)
+    off = slot % ps
+    k, v = k_pages[page, off], v_pages[page, off]
+    q_pos = (lens.long()[:, None] - T
+             + torch.arange(T, device=q.device)[None, :])        # [B, T]
+    mask = ((pos[:, None, :] < n[:, None, None])
+            & (pos[:, None, :] <= q_pos[:, :, None]))
+    if window:
+        mask &= pos[:, None, :] > q_pos[:, :, None] - window
+    return k, v, mask
+
+
+def _check_ring(block, k_pages, ring: int) -> None:
+    if ring < 0 or ring > block.shape[1] * k_pages.shape[1]:
+        raise ValueError(f"paged_attention: ring {ring} is not within the "
+                         f"table's {block.shape[1] * k_pages.shape[1]} "
+                         "slots")
+
+
+def _paged_keys(q, k_pages, v_pages, block, lens, kv_lens, ring: int,
+                window: int):
+    """(k, v [B, S, Hkv, hd], mask [B, T, S]) of a paged read: the dense
+    gather of each row's pages in table order, or, with a ``ring``, the
+    ring's slots in logical order (:func:`_ring_keys`)."""
+    if ring:
+        _check_ring(block, k_pages, ring)
+        return _ring_keys(q, k_pages, v_pages, block, lens, kv_lens, ring,
+                          window)
+    B, _, _, hd = q.shape
+    page_size, Hkv = k_pages.shape[1], k_pages.shape[2]
+    S = block.shape[1] * page_size
+    blk = block.long()
+    k = k_pages[blk].reshape(B, S, Hkv, hd)        # the dense gather
+    v = v_pages[blk].reshape(B, S, Hkv, hd)
+    return k, v, _paged_mask(q, lens, S, kv_lens, window)
 
 
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, block: torch.Tensor,
                         lens: torch.Tensor, softcap: float = 0.0,
-                        kv_lens=None) -> torch.Tensor:
+                        kv_lens=None, ring: int = 0,
+                        window: int = 0) -> torch.Tensor:
     """Reference paged attention: dense gather through the block table.
 
     q: [B, T, H, hd] — the T newest tokens per row (KV already written;
@@ -135,23 +191,25 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     view, any strides); block: [B, P] int32 position-ordered page ids;
     lens: [B] int32 true kv extent per row; kv_lens: optional [B] int32
     count of keys each row has written (keys at or past it are masked).
+    ring: 0, or the slots of a ring read with wrap-around: the row's
+    count is n = kv_lens (lens without it), its keys the positions
+    ``[max(0, n - ring), n)``, position p at slot ``p % ring`` of its
+    pages.  window: 0, or the keys a query sees at most, its own
+    included (a key at p is seen from q when ``q - window < p <= q``).
     This is the copy-in path the kernel deletes: materialize each row's
     pages contiguously, then attend.  Returns [B, T, H, hd] in q.dtype,
-    zeros for a row that sees no key.
+    zeros for a query that sees no key.
     """
     B, T, H, hd = q.shape
-    page_size, Hkv = k_pages.shape[1], k_pages.shape[2]
-    S = block.shape[1] * page_size
-    blk = block.long()
-    k = k_pages[blk].reshape(B, S, Hkv, hd)        # the dense gather
-    v = v_pages[blk].reshape(B, S, Hkv, hd)
+    Hkv = k_pages.shape[2]
+    k, v, mask = _paged_keys(q, k_pages, v_pages, block, lens, kv_lens,
+                             ring, window)
     g = H // Hkv
     qg = q.reshape(B, T, Hkv, g, hd)
     scores = torch.einsum("btkgh,bskh->bkgts", qg.float(),
                           k.float()) * (hd ** -0.5)
     if softcap:
         scores = torch.tanh(scores / softcap) * softcap
-    mask = _paged_mask(q, lens, S, kv_lens)
     scores = torch.where(mask[:, None, None], scores,
                          torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1)
@@ -167,28 +225,30 @@ def paged_attention_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
                               v_pages: torch.Tensor, block: torch.Tensor,
                               lens: torch.Tensor, split_keys: int,
                               softcap: float = 0.0,
-                              kv_lens=None) -> torch.Tensor:
+                              kv_lens=None, ring: int = 0,
+                              window: int = 0) -> torch.Tensor:
     """:func:`paged_attention_ref` in the split-KV form the kernel's split
-    route computes: the P * page_size positions cut into runs of
-    ``split_keys`` keys; for each run and row, the max m of its visible
-    scores (-1e30 where it has none), l = sum exp(s - m) and the
-    unnormalised accumulator; then the runs merged in split order, M =
-    max m, out = sum acc exp(m - M) / sum l exp(m - M), or 0 where that
-    sum is 0 (a row that sees no key).  Used by nothing on the main
-    path: it is the plain version of the kernel's arithmetic, tested on
-    the CPU against the JAX reference."""
+    route computes: the row's keys (the P * page_size positions, or a
+    ring's ``ring`` in logical order) cut into runs of ``split_keys``
+    keys; for each run and row, the max m of its visible scores (-1e30
+    where it has none), l = sum exp(s - m) and the unnormalised
+    accumulator; then the runs merged in split order, M = max m, out =
+    sum acc exp(m - M) / sum l exp(m - M), or 0 where that sum is 0 (a
+    query that sees no key).  Used by nothing on the main path: it is the
+    plain version of the kernel's arithmetic, tested on the CPU against
+    the JAX reference."""
     B, T, H, hd = q.shape
-    page_size, Hkv = k_pages.shape[1], k_pages.shape[2]
-    S = block.shape[1] * page_size
+    Hkv = k_pages.shape[2]
     g = H // Hkv
-    blk = block.long()
-    k = k_pages[blk].reshape(B, S, Hkv, hd).float()
-    v = v_pages[blk].reshape(B, S, Hkv, hd).float()
+    k, v, mask = _paged_keys(q, k_pages, v_pages, block, lens, kv_lens,
+                             ring, window)
+    S = k.shape[1]
+    k, v = k.float(), v.float()
     qg = q.reshape(B, T, Hkv, g, hd).float()
     scores = torch.einsum("btkgh,bskh->bkgts", qg, k) * (hd ** -0.5)
     if softcap:
         scores = torch.tanh(scores / softcap) * softcap
-    mask = _paged_mask(q, lens, S, kv_lens)[:, None, None]
+    mask = mask[:, None, None]
     parts = []
     for k0 in range(0, S, split_keys):
         sl = slice(k0, min(S, k0 + split_keys))

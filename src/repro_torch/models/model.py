@@ -1,5 +1,6 @@
-"""Model assembly for the uniform-attention (``smollm-135m``) and
-mixture-of-experts (``olmoe-1b-7b``, ``arctic-480b``) families.
+"""Model assembly for the uniform-attention (``smollm-135m``),
+mixture-of-experts (``olmoe-1b-7b``, ``arctic-480b``) and local:global
+(``gemma3-27b``) families.
 
 ``build_model(cfg, remat_policy="nothing", device=None)`` returns a
 :class:`Model` exposing the JAX package's training and serving surface
@@ -7,7 +8,7 @@ over plain parameter dicts of tensors:
 
   init(generator) -> params
   loss(params, batch) -> (total, {"xent", "aux"})       [training]
-  init_cache(batch, max_len) -> dense ring cache {"k", "v"}
+  init_cache(batch, max_len) -> dense ring cache
   forward(params, tokens, caches=, cache_pos=, start_pos=, write_mask=)
       -> (hidden, caches, aux)
   prefill(params, tokens, max_len) -> (next_tok [B], fresh dense cache)
@@ -20,7 +21,9 @@ over plain parameter dicts of tensors:
       -> (next_tok, block, cache)  [one dispatch: chunk + K decode steps]
 
 Caches are paged (``layers.is_paged``: the pool's page arrays) or dense
-rings (``init_cache``: ``[L, B, size, Hkv, hd]`` per K and V).  Both are
+rings (``init_cache``: ``{"k", "v"}`` of ``[L, B, size, Hkv, hd]``, or
+for the local:global family the JAX package's tree of local rings of
+``min(W, max_len)`` slots and global rings of ``max_len``).  Both are
 updated in place, so the returned cache is the one passed in.  A scalar
 position (prefill, lockstep wave decode) is a Python int; per-row
 positions are a [B] tensor.  The layer stack is a Python loop (the JAX
@@ -33,6 +36,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import hashlib
+import operator
 from typing import Any, Dict, Union
 
 import numpy as np
@@ -60,18 +64,20 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
     return dev
 
 
-def _layer(tree: Any, li: int) -> Any:
-    """Layer ``li``'s slice of a layer-stacked parameter subtree."""
+def _layer(tree: Any, *idx: int) -> Any:
+    """The slice ``idx`` (a layer, or a superblock and its layer) of a
+    layer-stacked subtree."""
     if isinstance(tree, dict):
-        return {k: _layer(v, li) for k, v in tree.items()}
-    return tree[li]
+        return {k: _layer(v, *idx) for k, v in tree.items()}
+    return tree[idx]
 
 
-def attn_block(p: Params, cfg: ModelConfig, x, positions, cache=None,
-               cache_pos=None, write_mask=None):
+def attn_block(p: Params, cfg: ModelConfig, x, positions, window=0,
+               cache=None, cache_pos=None, write_mask=None):
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
-    a, cache = attention(p["attn"], cfg, h, positions, cache=cache,
-                         cache_pos=cache_pos, write_mask=write_mask)
+    a, cache = attention(p["attn"], cfg, h, positions, window=window,
+                         cache=cache, cache_pos=cache_pos,
+                         write_mask=write_mask)
     x = x + a
     x = x + mlp(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps))
     return x, cache
@@ -92,13 +98,13 @@ def moe_layer(p: Params, cfg: ModelConfig, x, positions, cache=None,
     return x + y, cache, aux
 
 
-def _block(p: Params, cfg: ModelConfig, x, positions, cache=None,
+def _block(p: Params, cfg: ModelConfig, x, positions, window=0, cache=None,
            cache_pos=None, write_mask=None):
-    """One layer of either family: (x, cache, aux); aux is None for the
-    uniform family."""
+    """One layer of any family: (x, cache, aux); aux is None but under
+    MoE.  ``window`` is the layer's sliding window (0: global)."""
     if "moe" in p:
         return moe_layer(p, cfg, x, positions, cache, cache_pos, write_mask)
-    x, cache = attn_block(p, cfg, x, positions, cache, cache_pos,
+    x, cache = attn_block(p, cfg, x, positions, window, cache, cache_pos,
                           write_mask)
     return x, cache, None
 
@@ -148,17 +154,28 @@ class Model:
             return "gemma_local_global"
         return "uniform_attn"
 
+    def _gemma_plan(self):
+        """(local layers per superblock, superblocks, trailing local
+        layers), as the JAX package's ``_gemma_plan`` (``model.py:277-282``
+        there): (5, 10, 2) for gemma3-27b."""
+        per = self.cfg.local_global_ratio
+        nsb = self.cfg.num_layers // (per + 1)
+        return per, nsb, self.cfg.num_layers - nsb * (per + 1)
+
     # -- parameters ----------------------------------------------------------
     def init(self, generator: torch.Generator) -> Params:
         """Random weights with the JAX package's distribution
         (``ParamBuilder``): fan-in-scaled normal for projections, unit
         normal for the embedding, ones for norms.  Drawn in float32 on the
         generator's device, then cast to the compute dtype on the model's
-        device; the expert weights one layer at a time, so the float32
-        transient is one layer's (olmoe's whole ``wi_gate`` would be 8.6
-        GB).  The numbers differ from ``jax.random``'s."""
+        device: every layer-stacked leaf one layer at a time, and an
+        embedding table of more than 2^28 entries in pieces of rows, so
+        the float32 transient is one layer's (olmoe's whole expert
+        ``wi_gate`` would be 8.6 GB, gemma3-27b's ``wi_gate`` stack 28.7
+        GB and its table 5.6 GB).  The numbers differ from
+        ``jax.random``'s."""
         cfg = self.cfg
-        d, L, f = cfg.d_model, cfg.num_layers, cfg.d_ff
+        d, f = cfg.d_model, cfg.d_ff
         nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
         dt = cfg.compute_dtype
 
@@ -168,54 +185,100 @@ class Model:
                             device=generator.device) * s
             return x.to(device=self.device, dtype=dt)
 
-        def per_layer(shape, fan_in):
-            out = torch.empty((L,) + shape, dtype=dt, device=self.device)
-            for li in range(L):
-                out[li] = normal(shape, fan_in)
+        def stacked(lead, shape, fan_in):
+            out = torch.empty(lead + shape, dtype=dt, device=self.device)
+            for one in out.view((-1,) + shape):
+                one.copy_(normal(shape, fan_in))
             return out
 
         def ones(*shape):
             return torch.ones(shape, dtype=dt, device=self.device)
 
-        attn = {"wq": normal((L, d, nh, hd), d),
-                "wk": normal((L, d, nkv, hd), d),
-                "wv": normal((L, d, nkv, hd), d),
-                "wo": normal((L, nh, hd, d), nh * hd)}
-        if cfg.qk_norm:
-            attn["q_norm"] = ones(L, hd)
-            attn["k_norm"] = ones(L, hd)
-        emb = {"table": normal((cfg.vocab_size, d), 1, scale=1.0)}
+        def table():
+            V = cfg.vocab_size
+            rows = max(1, (1 << 28) // d)
+            out = torch.empty((V, d), dtype=dt, device=self.device)
+            for r0 in range(0, V, rows):
+                out[r0:r0 + rows] = normal((min(rows, V - r0), d), 1,
+                                           scale=1.0)
+            return out
+
+        def attn_layers(*lead):
+            attn = {"wq": stacked(lead, (d, nh, hd), d),
+                    "wk": stacked(lead, (d, nkv, hd), d),
+                    "wv": stacked(lead, (d, nkv, hd), d),
+                    "wo": stacked(lead, (nh, hd, d), nh * hd)}
+            if cfg.qk_norm:
+                attn["q_norm"] = ones(*lead, hd)
+                attn["k_norm"] = ones(*lead, hd)
+            return {"ln1": ones(*lead, d), "attn": attn,
+                    "ln2": ones(*lead, d)}
+
+        def dense_mlp(*lead):
+            return {"wi_gate": stacked(lead, (d, f), d),
+                    "wi_up": stacked(lead, (d, f), d),
+                    "wo": stacked(lead, (f, d), f)}
+
+        emb = {"table": table()}
         if not cfg.tie_embeddings:
             emb["unembed"] = normal((d, cfg.vocab_size), d)
-
-        def dense_mlp():
-            return {"wi_gate": normal((L, d, f), d),
-                    "wi_up": normal((L, d, f), d),
-                    "wo": normal((L, f, d), f)}
-
-        layers = {"ln1": ones(L, d), "attn": attn, "ln2": ones(L, d)}
-        mo = cfg.moe
-        if mo is None:
-            layers["mlp"] = dense_mlp()
+        out = {"embed": emb}
+        if self._structure() == "gemma_local_global":
+            per, nsb, tail = self._gemma_plan()
+            out["super"] = {
+                "local": {**attn_layers(nsb, per),
+                          "mlp": dense_mlp(nsb, per)},
+                "global": {**attn_layers(nsb), "mlp": dense_mlp(nsb)}}
+            if tail:
+                out["tail"] = {**attn_layers(tail), "mlp": dense_mlp(tail)}
         else:
-            E, fe = mo.num_experts, mo.d_ff_expert
-            layers["moe"] = {"router": normal((L, d, E), d),
-                             "wi_gate": per_layer((E, d, fe), d),
-                             "wi_up": per_layer((E, d, fe), d),
-                             "wo": per_layer((E, fe, d), fe)}
-            if mo.dense_residual:
-                layers["dense"] = dense_mlp()
-        return {"embed": emb, "layers": layers, "final_norm": ones(d)}
+            L = cfg.num_layers
+            layers = attn_layers(L)
+            mo = cfg.moe
+            if mo is None:
+                layers["mlp"] = dense_mlp(L)
+            else:
+                E, fe = mo.num_experts, mo.d_ff_expert
+                layers["moe"] = {"router": stacked((L,), (d, E), d),
+                                 "wi_gate": stacked((L,), (E, d, fe), d),
+                                 "wi_up": stacked((L,), (E, d, fe), d),
+                                 "wo": stacked((L,), (E, fe, d), fe)}
+                if mo.dense_residual:
+                    layers["dense"] = dense_mlp(L)
+            out["layers"] = layers
+        out["final_norm"] = ones(d)
+        return out
 
     # -- forward -------------------------------------------------------------
-    def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
-        """Dense ring cache of the whole stack: ``{"k", "v"}`` zeros of
-        ``[L, batch, size, Hkv, hd]`` in the compute dtype."""
-        one = init_kv_cache(self.cfg, batch, max_len,
-                            window=self.cfg.sliding_window,
-                            device=self.device)
-        L = self.cfg.num_layers
-        return {n: a.new_zeros((L,) + tuple(a.shape)) for n, a in one.items()}
+    def init_cache(self, batch: int, max_len: int,
+                   device: Union[str, torch.device, None] = None
+                   ) -> Dict[str, Any]:
+        """Dense ring cache of the whole stack, zeros in the compute
+        dtype on ``device`` (the model's by default; "meta" gives the
+        shapes alone): ``{"k", "v"}`` of ``[L, batch, size, Hkv, hd]``,
+        or for the local:global family the JAX package's tree
+        (``model.py:600-606`` there), ``{"super": {"local": [nsb, per,
+        ...], "global": [nsb, ...]}, "tail": [tail, ...]}`` of ``{"k",
+        "v"}`` rings, local ones of ``min(W, max_len)`` slots and global
+        ones of ``max_len``."""
+        cfg = self.cfg
+        dev = self.device if device is None else device
+
+        def rings(lead, window=0):
+            one = init_kv_cache(cfg, batch, max_len, window=window,
+                                device=dev)
+            return {n: a.new_zeros(lead + tuple(a.shape))
+                    for n, a in one.items()}
+
+        if self._structure() != "gemma_local_global":
+            return rings((cfg.num_layers,), cfg.sliding_window)
+        per, nsb, tail = self._gemma_plan()
+        W = cfg.sliding_window
+        out = {"super": {"local": rings((nsb, per), W),
+                         "global": rings((nsb,))}}
+        if tail:
+            out["tail"] = rings((tail,), W)
+        return out
 
     def _ring_block(self, batch: int, size: int) -> torch.Tensor:
         """The constant identity block table ``arange(B * P).view(B, P)``
@@ -229,11 +292,42 @@ class Model:
             self._rings[batch, P] = blk
         return blk
 
-    def _remat_block(self, lp: Params, x, positions):
+    def _order(self):
+        """The layers in order, as (parameter path, cache path, index,
+        window): the local:global family runs each superblock's ``per``
+        windowed layers, then its global layer with window 0, then the
+        windowed tail (``model.py:393-432`` there)."""
+        cfg = self.cfg
+        if self._structure() != "gemma_local_global":
+            return [(("layers",), (), (li,), cfg.sliding_window)
+                    for li in range(cfg.num_layers)]
+        per, nsb, tail = self._gemma_plan()
+        W, local, glob = cfg.sliding_window, ("super", "local"), (
+            "super", "global")
+        order = []
+        for s in range(nsb):
+            order += [(local, local, (s, i), W) for i in range(per)]
+            order.append((glob, glob, (s,), 0))
+        return order + [(("tail",), ("tail",), (i,), W)
+                        for i in range(tail)]
+
+    def _stack(self, params: Params, caches):
+        """(layer params, its dense ring cache with its identity block
+        table or None, its window) for each layer in order."""
+        for ppath, cpath, idx, window in self._order():
+            c = None
+            if caches is not None:
+                c = _layer(functools.reduce(operator.getitem, cpath,
+                                            caches), *idx)
+                c["block"] = self._ring_block(*c["k"].shape[:2])
+            yield (_layer(functools.reduce(operator.getitem, ppath, params),
+                          *idx), c, window)
+
+    def _remat_block(self, lp: Params, x, positions, window: int):
         """One cache-less layer under the remat policy: (x, aux or
         None)."""
         def block(lp, x, positions):
-            x, _, aux = _block(lp, self.cfg, x, positions)
+            x, _, aux = _block(lp, self.cfg, x, positions, window)
             return x, aux
 
         pol = self.remat_policy
@@ -249,24 +343,21 @@ class Model:
     def _run_stack(self, params: Params, x, positions, caches, cache_pos,
                    write_mask=None):
         """-> (hidden, caches, aux): aux sums the layers' load-balance
-        losses (0 for the uniform family)."""
-        layers = params["layers"]
+        losses (0 but under MoE)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        paged = caches is not None and is_paged(caches)
-        block = None
-        if caches is not None and not paged and torch.is_tensor(cache_pos):
-            block = self._ring_block(*caches["k"].shape[1:3])
-        for li in range(self.cfg.num_layers):
-            lp = _layer(layers, li)
-            if caches is None:
-                x, a = self._remat_block(lp, x, positions)
+        if caches is not None and is_paged(caches):
+            for li in range(self.cfg.num_layers):
+                x, _, a = _block(_layer(params["layers"], li), self.cfg, x,
+                                 positions, cache={**caches, "layer": li},
+                                 cache_pos=cache_pos, write_mask=write_mask)
+                if a is not None:
+                    aux = aux + a
+            return x, caches, aux
+        for lp, c, window in self._stack(params, caches):
+            if c is None:
+                x, a = self._remat_block(lp, x, positions, window)
             else:
-                if paged:
-                    c = {**caches, "layer": li}
-                else:
-                    c = {"k": caches["k"][li], "v": caches["v"][li],
-                         "block": block}
-                x, _, a = _block(lp, self.cfg, x, positions, cache=c,
+                x, _, a = _block(lp, self.cfg, x, positions, window, cache=c,
                                  cache_pos=cache_pos, write_mask=write_mask)
             if a is not None:
                 aux = aux + a
@@ -445,9 +536,9 @@ def build_model(cfg: ModelConfig, remat_policy: str = "nothing",
                          f"{REMAT_POLICIES}")
     model = Model(cfg, resolve_device(device), remat_policy=remat_policy)
     fam = model._structure()
-    if fam not in ("uniform_attn", "uniform_moe"):
+    if fam not in ("uniform_attn", "uniform_moe", "gemma_local_global"):
         raise NotImplementedError(
             f"{cfg.name}: the {fam} family is not ported yet (ROADMAP, "
-            "'Still to port': gemma_local_global, vlm_cross, enc_dec, "
-            "zamba_hybrid and uniform_rwkv)")
+            "'Still to port': vlm_cross, enc_dec, zamba_hybrid and "
+            "uniform_rwkv)")
     return model

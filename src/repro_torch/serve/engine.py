@@ -100,7 +100,7 @@ import os
 import threading
 import time
 from collections import deque
-from typing import Dict, Iterator, List, Optional, Tuple, Union
+from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -694,13 +694,32 @@ class ParkedSeq:
     bypassed: int = 0
 
 
-def _write_slot_caches(full: Dict[str, torch.Tensor],
-                       one: Dict[str, torch.Tensor], slot: int) -> None:
+def _cache_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a (nested) dense cache tree."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _cache_leaves(v)]
+    return [tree]
+
+
+def _write_slot_caches(full, one, slot: int) -> None:
     """Copy a B=1 prefilled dense cache into row ``slot`` of the batch
-    cache, in place: the batch axis is axis 1 of the layer-stacked
-    ``[L, B, size, Hkv, hd]`` rings."""
-    for name, f in full.items():
-        f[:, slot].copy_(one[name][:, 0])
+    cache, in place, leaf by leaf over the cache tree.  The batch axis of
+    a leaf is the one where the two shapes differ (axis 1 of a uniform
+    ``[L, B, size, Hkv, hd]`` ring, axis 2 of gemma's ``[nsb, per, B,
+    ...]`` local rings); equal shapes (``max_batch`` 1) copy whole, as
+    the JAX package's ``put`` does (``engine.py:725-735`` there)."""
+    if isinstance(full, dict):
+        for name, f in full.items():
+            _write_slot_caches(f, one[name], slot)
+        return
+    diff = [i for i in range(full.dim()) if full.shape[i] != one.shape[i]]
+    if not diff:
+        full.copy_(one)
+        return
+    if len(diff) != 1 or one.shape[diff[0]] != 1:
+        raise ValueError(f"cache leaf {tuple(one.shape)} does not fit "
+                         f"{tuple(full.shape)}")
+    full.select(diff[0], slot).copy_(one.select(diff[0], 0))
 
 
 class ServeEngine:
@@ -1241,7 +1260,7 @@ class ServeEngine:
             return prompt_len
         return self._bucket(prompt_len)
 
-    def _dense_caches(self) -> Dict[str, torch.Tensor]:
+    def _dense_caches(self) -> Dict[str, Any]:
         """The persistent dense batch cache, allocated at first use."""
         if self._caches is None:
             self._caches = self.model.init_cache(self.max_batch,
@@ -1250,14 +1269,14 @@ class ServeEngine:
 
     def dense_cache_bytes(self) -> int:
         """Footprint the dense [max_batch, max_len] batch cache occupies
-        or WOULD occupy (computed from shapes; nothing is allocated): the
+        or WOULD occupy: the leaves of ``init_cache`` on the meta device
+        (shapes alone; nothing is allocated), summed as the JAX package
+        sums its abstract cache (``engine.py:1300-1308`` there).  The
         baseline ``kv_resident_bytes`` is compared against."""
-        cfg = self.model.cfg
-        itemsize = torch.empty((), dtype=cfg.compute_dtype).element_size()
-        W = cfg.sliding_window
-        size = min(W, self.max_len) if W else self.max_len
-        return (2 * cfg.num_layers * self.max_batch * size
-                * max(cfg.num_kv_heads, 1) * (cfg.head_dim_ or 1) * itemsize)
+        shapes = self.model.init_cache(self.max_batch, self.max_len,
+                                       device="meta")
+        return sum(t.numel() * t.element_size()
+                   for t in _cache_leaves(shapes))
 
     def _block_table(self) -> np.ndarray:
         """Assemble this dispatch's [max_batch, max_pages] block table
@@ -1851,7 +1870,7 @@ class ServeEngine:
         # Honest copy accounting: the B=1 side cache is KV traffic this
         # scheduler pays to establish residency.
         self.pool.kv_copy_bytes += sum(t.numel() * t.element_size()
-                                       for t in one.values())
+                                       for t in _cache_leaves(one))
         # ... -> ALLOCATED (KV materialized in this slot's cache rows).
         slot.fsm.transition(states.BUFFER_RESERVED, states.BUFFER_ALLOCATED)
         padded = len(slot.prompt)

@@ -114,16 +114,41 @@ def test_attention_vector_cache_pos(pair, name, masked):
 
 
 def test_sliding_window_ring_is_refused(pair):
-    import dataclasses
-    cfg, _, _, tm, tp = pair
-    _, ta = _layer0(pair[2], tp)
-    wcfg = dataclasses.replace(tm.cfg, sliding_window=8)
-    cache = {k: torch.zeros(1, 8, cfg.num_kv_heads, cfg.head_dim_)
-             for k in ("k", "v")}
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        tl.attention(ta, wcfg, torch.zeros(1, 1, 64),
-                     torch.zeros(1, 1, dtype=torch.long), cache=cache,
-                     cache_pos=0)
+    """Named for the refusal it pinned before the ring bound: a windowed
+    ring (the smollm layer under window 8 over an 8-slot ring) now reads
+    with wrap-around as the reference does, lockstep past the ring and
+    per row with a chunk longer than the ring."""
+    cfg, _, jp, tm, tp = pair
+    ja, ta = _layer0(jp, tp)
+    for T, cp, wm in ((12, 0, None), (1, 9, None),
+                      (10, [0, 6], np.arange(10)[None] < np.array([[10],
+                                                                   [4]]))):
+        B = 2
+        rng = np.random.default_rng(T)
+        x = rng.normal(size=(B, T, 64)).astype(np.float32)
+        pos = (np.asarray(cp).reshape(-1, 1) + np.arange(T)).astype(
+            np.int32) * np.ones((B, 1), np.int32)
+        rk, rv = _ring(cfg, B, 8, T)
+        jcp = (jnp.int32(cp) if isinstance(cp, int)
+               else jnp.asarray(cp, jnp.int32))
+        jo, jc = jl.attention(
+            ja, cfg, jnp.asarray(x), jnp.asarray(pos), window=8,
+            cache={"k": jnp.asarray(rk), "v": jnp.asarray(rv)},
+            cache_pos=jcp, write_mask=None if wm is None
+            else jnp.asarray(wm))
+        cache = {"k": torch.from_numpy(rk.copy()),
+                 "v": torch.from_numpy(rv.copy()),
+                 "block": tm._ring_block(B, 8)}
+        to, _ = tl.attention(
+            ta, tm.cfg, torch.from_numpy(x), torch.from_numpy(pos),
+            window=8, cache=cache,
+            cache_pos=cp if isinstance(cp, int)
+            else torch.tensor(cp, dtype=torch.int32),
+            write_mask=None if wm is None else torch.from_numpy(wm))
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
+        for n in ("k", "v"):
+            np.testing.assert_allclose(cache[n].numpy(), np.asarray(jc[n]),
+                                       **TOL)
 
 
 def _t2n(c):

@@ -8,7 +8,9 @@ ps=64 identity pages of a dense ring), the T=64 tensor-core chunk with
 softcap, bit-identical repeats.  Flash: the cases of the JAX package's
 flash tests, ragged T and S, a strided ring slice, rows that see no key,
 the forward's log-sum-exp; paged attention's written-key bound
-(``kv_lens``) at olmoe-1b-7b's shapes on all three routes; the flash
+(``kv_lens``) at olmoe-1b-7b's shapes on all three routes, and its ring
+bound (a sliding-window ring read with wrap-around) at gemma3-27b's
+local-layer shapes on all three; the flash
 backward kernel against
 ``ref.flash_attention_bwd_ref`` on every case with T <= S and at
 smollm's training shape, bit-identical from call to call; and
@@ -328,6 +330,93 @@ def test_kv_lens_at_olmoe_shapes_on_card(cuda_device, T, dtype, atol):
     assert torch.equal(
         pa_mod.paged_attention(q, kv_w, vv_w, block, ln, kv_lens=full),
         pa_mod.paged_attention(q, kv_w, vv_w, block, ln))
+
+
+# gemma3-27b's local layers: a [4, 1024] ring of 16 kv heads of 128 (32
+# query heads, g 2) read as 16 identity pages of 64 slots, with
+# wrap-around.  Per T: (cache_pos, n_valid) per row, n = cp + n_valid the
+# row's count: below the ring, at it, past it, and one short of two
+# rings; n_valid None: no kv_lens (every token written).
+RING = dict(B=4, size=1024, ps=64, Hkv=16, H=32, hd=128)
+RING_CASES = {
+    "decode": (1, [699, 1023, 1499, 2046], None),
+    "decode_kv_lens": (1, [699, 1023, 1500, 2046], [1, 1, 0, 1]),
+    "chunk": (64, [636, 960, 1436, 1983], None),
+    "chunk_kv_lens": (64, [636, 1014, 1500, 2010], [64, 10, 0, 37]),
+}
+
+
+def _ring_setup(seed, T, cps, n_valid, dtype, device):
+    r = RING
+    g = torch.Generator(device=device).manual_seed(seed)
+    n_pages = r["B"] * r["size"] // r["ps"]
+    k, v = (torch.randn((n_pages, r["ps"], r["Hkv"], r["hd"]), generator=g,
+                        device=device).to(dtype) for _ in range(2))
+    q = torch.randn((r["B"], T, r["H"], r["hd"]), generator=g,
+                    device=device).to(dtype)
+    block = torch.arange(n_pages, dtype=torch.int32,
+                         device=device).view(r["B"], -1)
+    cp = torch.tensor(cps, dtype=torch.int32, device=device)
+    kv = None if n_valid is None else cp + torch.tensor(
+        n_valid, dtype=torch.int32, device=device)
+    return q, k, v, block, cp + T, kv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(RING_CASES))
+@pytest.mark.parametrize("window", [1024, 200])
+@pytest.mark.parametrize("dtype,atol", [("float32", 2e-5),
+                                        ("bfloat16", 3e-2)])
+def test_ring_bound_on_card(cuda_device, name, window, dtype, atol):
+    """The ring bound on every route (split + combine at T=1, the bf16
+    tensor-core chunk and the f32 CUDA-core chunk, split along T, at
+    T=64) at gemma's local-layer shapes, against both plain versions;
+    queries that see no key are exact zeros; two calls bit-identical."""
+    T, cps, n_valid = RING_CASES[name]
+    dt = getattr(torch, dtype)
+    q, k, v, block, lens, kv = _ring_setup(80 + T, T, cps, n_valid, dt,
+                                           cuda_device)
+    kw = dict(kv_lens=kv, ring=RING["size"], window=window)
+    way = pa_mod.route(q, k, v)
+    assert way == ("split" if T == 1 else
+                   "chunk_tc" if dtype == "bfloat16" else "simt")
+    before = pa_mod.ring_launches
+    out = pa_mod.paged_attention(q, k, v, block, lens, **kw)
+    again = pa_mod.paged_attention(q, k, v, block, lens, **kw)
+    torch.cuda.synchronize()
+    assert pa_mod.ring_launches > before
+    assert torch.equal(out, again)
+    want = tref.paged_attention_ref(q, k, v, block, lens, **kw)
+    torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                               rtol=atol)
+    split_keys = pa_mod.split_plan(RING["B"], RING["Hkv"], block.shape[1],
+                                   RING["ps"])[1]
+    split = tref.paged_attention_split_ref(q, k, v, block, lens, split_keys,
+                                           **kw)
+    torch.testing.assert_close(out.float(), split.float(), atol=atol,
+                               rtol=atol)
+    empty = want.float().abs().amax((2, 3)) == 0
+    assert torch.count_nonzero(out[empty]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_bound_unwrapped_is_the_plain_bound_on_card(cuda_device, T,
+                                                         dtype):
+    """Over rows that never wrapped, ring = P * ps with window 0 changes
+    no bit of any route's output."""
+    q, k, v, block, _, _ = _ring_setup(90, T, [0] * 4, None,
+                                       getattr(torch, dtype), cuda_device)
+    n = torch.tensor([64, 700, 1000, 1024], dtype=torch.int32,
+                     device=cuda_device)
+    lens = n - torch.tensor([T, 5 if T > 1 else 1, 0, T], dtype=torch.int32,
+                            device=cuda_device) + T
+    plain = pa_mod.paged_attention(q, k, v, block, lens, kv_lens=n)
+    ringed = pa_mod.paged_attention(q, k, v, block, lens, kv_lens=n,
+                                    ring=RING["size"])
+    torch.cuda.synchronize()
+    assert torch.equal(plain, ringed)
 
 
 # ---------------------------------------------------------------------------
