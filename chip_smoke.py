@@ -42,7 +42,16 @@ each of which fails the run hard:
    element, at the reference test's f32 case, a window + softcap GQA case
    in f32 and bf16, a bf16 window + softcap case over 16 key tiles and
    smollm's bf16 training shape, where the gradient bound must also
-   reject the kernel's gradients with one 64 x 64 tile left out;
+   reject the kernel's gradients with one 64 x 64 tile left out; (2e)
+   flash's non-causal route at the cross-attention families' shapes
+   (llama-3.2-vision-11b's cross read of 1600 image tokens at T=1 and
+   T=64, 32/8 heads of 128; whisper-tiny's encoder at T=S=1500 and its
+   cross decode, 6 heads of 64), K/V read in place from a stacked cross
+   cache, bf16 on the tensor-core instance (3e-2 x max |plain|, repeats
+   bit-identical) and f32 on the CUDA-core one (2e-5), where each bound
+   must also reject the kernel's output with a planted fault: the other
+   superblock's K/V, the last key tile dropped, the 1/sqrt(hd) scale
+   dropped;
 3. the paged main path at full width: ``smollm-135m`` (random weights
    from a seed) served by the ``slot_paged`` engine to 4 client sessions
    x 4 requests, every stream complete and exactly-once, the paged kernel
@@ -101,17 +110,45 @@ each of which fails the run hard:
    and all 62 of the other, the ring bound on its 52 local layers and on
    every decode step's; then where a decode block's and a chunk's time
    goes (rows past the window), and the peak device memory;
+3h. the vlm_cross family at full width: ``llama-3.2-vision-11b`` (8
+   superblocks of 4 self layers and a cross layer at index 3, d=4096,
+   32/8 heads of 128, d_ff 14336, vocab 128256 untied, 1600 image
+   tokens, bf16, seed-0 weights, 19.55 GB; no cut), after gemma's
+   weights are freed: (a) ``prefill`` of 2 prompts of 256 tokens with
+   seeded image embeddings at ``max_len`` 1024, then 16 ``decode_step``s:
+   two plumbing checks of the port against itself (every cross cache
+   equal to ``cross_kv`` of the images; the last position's logits over
+   the filled caches within 2^-8 x max |logit| of the cache-less
+   ``forward(tokens, extras)``'s), tokens that differ from those with zero
+   images, non-causal flash launches = 8 x forwards and the self
+   layers' (flash prefill, paged decode) = 32 x forwards; (b)
+   ``slot_chunked`` (``max_batch=4``, ``max_len=2048``,
+   ``chunk_tokens=64``, ``k_max=8``) on 4 requests of 100-1000 tokens,
+   32 new each: every stream exactly-once, non-causal flash = 8 x
+   forwards, paged = 32 x forwards, no causal flash, no CUDA-core route,
+   no watchdog catch, ``dense_cache_bytes`` and peak memory printed; then
+   where a decode block's and a chunk's time goes;
+3i. the enc_dec family at full width: ``whisper-tiny`` (4 encoder and 4
+   decoder layers, d=384, 6 heads of 64, vocab 51865 tied, 1500 frames,
+   bf16): ``prefill`` with seeded frames [4, 1500, 384] (the encoder on
+   the non-causal route, 4 launches a prefill) and 16 decode steps at
+   ``max_len`` 448, every cross cache equal to ``cross_kv`` of the
+   encoder's output; ``slot_chunked`` on 4 requests; the engine refusing
+   ``slot_fused``;
 5. CPU/CUDA parity: the SMOKE configs at float32, same weights on both
    devices, identical greedy tokens: smollm under ``slot_paged``,
    ``slot_fused`` and ``wave``, olmoe (weights x3) under ``slot_paged``
    and ``slot_fused``, gemma (weights x3) under ``slot_chunked`` and
-   ``slot_fused`` with prompts of up to 30 tokens past its window of 8;
+   ``slot_fused`` with prompts of up to 30 tokens past its window of 8,
+   llama-vision and whisper (weights x3) through ``prefill`` with an
+   image or frame source + 4 decode steps and under ``slot_chunked``;
 6. kernel timing at the main paths' shapes (CUDA events around windows
    enqueued behind a device-side spin, so they time the card's work and
    not the host's launch rate; paged: slot_paged's T=1 decode and T=64
    chunk, slot_fused's dense-ring decode, olmoe's T=1 and T=64 with
-   ``kv_lens``; the ring bound at gemma's T=1 and T=64), beside each
-   kernel's bound,
+   ``kv_lens``; the ring bound at gemma's T=1 and T=64; non-causal
+   flash at llama-vision's cross decode and chunk and whisper's
+   encoder), beside each kernel's bound,
    its plain version and the one PyTorch call that computes the same
    function
    where there is one (``scaled_dot_product_attention`` forward, backward,
@@ -132,12 +169,14 @@ each of which fails the run hard:
    tensor against ``HostBitset``.
 
 Phase 7 runs before the timing of phase 6, which reports its launch
-count; the paged row's launches add phases 3c-3g's to phase 3's, and the
-ring row's are 3g's launches under the ring bound.  Every
+count; the paged row's launches add phases 3c-3g's to phase 3's, the
+ring row's are 3g's launches under the ring bound, and the non-causal
+flash row's are 3h's and 3i's non-causal launches.  Every
 kernel counter is set to 0 just before a served or trained run (or the
 NBB matmul's entry-point call) and read just after it; launches made to
 compare or time a kernel (or to serve a request alone for comparison)
-are not counted.  Prints one
+are not counted.  A "phase time:" line gives each group of phases'
+seconds.  Prints one
 JSON line of kernel results, then the device line ``{"ok": true,
 "device": {...}}`` last.  Exits non-zero, printing no result, without a
 card or outside a checkout of the repository.
@@ -178,6 +217,18 @@ def _to_device(tree, dev):
     if isinstance(tree, dict):
         return {k: _to_device(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+_LAP = [0.0]
+
+
+def lap(label: str) -> None:
+    """Print the seconds since the previous lap, so the script's time can
+    be read phase by phase; ``lap("")`` only starts the clock."""
+    now = time.monotonic()
+    if label:
+        print(f"phase time: {label} {now - _LAP[0]:.1f} s")
+    _LAP[0] = now
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1131,10 +1182,7 @@ def serve_run(eng, prompts, max_tokens: int, forwards, smi: str,
         except Exception as exc:        # noqa: BLE001 — reported below
             errors.append(repr(exc))
 
-    fa.launches = fa.simt_launches = 0
-    pa.launches = pa.combine_launches = pa.simt_launches = 0
-    pa.ring_launches = 0
-    forwards[0] = forwards[1] = 0
+    zero_counts(forwards)
     thread = eng.start()
     t0 = time.monotonic()
     threads = [threading.Thread(target=client, args=(c,)) for c in clients]
@@ -1145,6 +1193,7 @@ def serve_run(eng, prompts, max_tokens: int, forwards, smi: str,
     torch.cuda.synchronize()
     dt = time.monotonic() - t0
     launches = {"flash_attention": fa.launches,
+                "flash_noncausal": fa.noncausal_launches,
                 "paged_attention": pa.launches,
                 "paged_combine": pa.combine_launches,
                 "paged_ring": pa.ring_launches}
@@ -1419,6 +1468,495 @@ def _leaves(tree):
     return [tree]
 
 
+# ---------------------------------------------------------------------------
+# Phases 2e, 3h and 3i: the cross-attention families
+# ---------------------------------------------------------------------------
+# Non-causal flash at the cross-attention families' shapes (B, T, S, H,
+# Hkv, hd): llama-3.2-vision-11b's cross layers at a decode step and a
+# 64-token chunk over 1600 image tokens, whisper-tiny's encoder over 1500
+# frames and its decoder's cross read of them (ragged: 1500 is no
+# multiple of the 64-key tile).
+NONCAUSAL = {"llama cross decode": (4, 1, 1600, 32, 8, 128),
+             "llama cross chunk": (4, 64, 1600, 32, 8, 128),
+             "whisper encoder": (4, 1500, 1500, 6, 6, 64),
+             "whisper cross decode": (4, 1, 1500, 6, 6, 64)}
+# f32 is held to 2e-5 absolute.  bf16 to 3e-2 of the output's own scale
+# (max |plain|): these outputs are means over >= 1500 keys, about 0.2-0.4
+# at most, so an absolute 3e-2 would be as large as a typical value.
+NONCAUSAL_TOLS = {"float32": 2e-5, "bfloat16": 3e-2}
+KEY_TILE = 64
+
+
+def noncausal_bound(dt_name: str, want) -> float:
+    tol = NONCAUSAL_TOLS[dt_name]
+    return tol if dt_name == "float32" else tol * want.abs().max().item()
+
+
+def noncausal_inputs(torch, B, T, S, H, Hkv, hd, seed: int, nsb: int = 2):
+    """q [B, T, H, hd] and a stacked cross cache kv [2 (K, V), nsb, B, S,
+    Hkv, hd]; superblock s reads ``kv[0][s]``, ``kv[1][s]`` in place, as
+    the model does."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, T, H, hd), generator=g, device="cuda")
+    kv = torch.randn((2, nsb, B, S, Hkv, hd), generator=g, device="cuda")
+    return q, kv
+
+
+def planted_faults(q, kv):
+    """The kernel run with a fault planted in what it reads, each as
+    (name, out): the other superblock's K/V, the last key tile dropped
+    (the ragged one where S is no multiple of the tile), and the
+    1/sqrt(hd) scale dropped."""
+    from repro_torch.kernels import flash_attention as fa
+    k, v = kv[0][1], kv[1][1]
+    S, hd = k.shape[1], q.shape[-1]
+    cut = S - (S % KEY_TILE or KEY_TILE)
+    return (("other superblock's K/V",
+             fa.flash_attention(q, kv[0][0], kv[1][0], causal=False)),
+            (f"last key tile dropped ({S} -> {cut} keys)",
+             fa.flash_attention(q, k[:, :cut], v[:, :cut], causal=False)),
+            ("1/sqrt(hd) scale dropped",
+             fa.flash_attention(q * hd ** 0.5, k, v, causal=False)))
+
+
+def phase_compare_noncausal():
+    """2e: flash's non-causal route against its plain version at the
+    cross and encoder shapes, in bf16 on the tensor-core instance and in
+    f32 on the CUDA-core one (TF32 off), K/V read in place from a stacked
+    cross cache; each bf16 call twice, bit-identical.  Each bound must
+    also reject the kernel's output under every planted fault.  Returns
+    the bf16 max error."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = {}
+    for i, (name, shape) in enumerate(NONCAUSAL.items()):
+        base = noncausal_inputs(torch, *shape, seed=300 + i)
+        for dt_name in NONCAUSAL_TOLS:
+            q, kv = (t.to(getattr(torch, dt_name)) for t in base)
+            k, v = kv[0][1], kv[1][1]
+            tc = fa.tensor_core_route(q, k, v)
+            check(tc == (dt_name == "bfloat16"),
+                  f"non-causal {name} {dt_name}: tensor-core route {tc}")
+            out = fa.flash_attention(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            if tc:
+                again = fa.flash_attention(q, k, v, causal=False)
+                check(torch.equal(out, again),
+                      f"non-causal {name}: repeat not bit-identical")
+            want = ref.flash_attention_ref(q, k, v, causal=False).float()
+            bound = noncausal_bound(dt_name, want)
+            err = (out.float() - want).abs().max().item()
+            check(err <= bound, f"non-causal {name} {dt_name}: err {err} > "
+                                f"{bound}")
+            faults = []
+            for fault, bad in planted_faults(q, kv):
+                e = (bad.float() - want).abs().max().item()
+                check(e > bound, f"non-causal {name} {dt_name}: bound "
+                                 f"{bound} misses a planted fault, {fault} "
+                                 f"(err {e})")
+                faults.append(f"{fault} {e:.4g}")
+            worst[dt_name] = max(worst.get(dt_name, 0.0), err)
+            print(f"  non-causal flash {name} {shape} {dt_name}: err "
+                  f"{err:.4g} <= bound {bound:.4g}; planted faults exceed "
+                  f"it: {', '.join(faults)}")
+            del q, kv, k, v, out, want
+    print(f"non-causal flash vs plain (2e): max err f32 "
+          f"{worst['float32']:.3g} (tol 2e-5), bf16 "
+          f"{worst['bfloat16']:.3g} (tol 3e-2 x max |plain|); every "
+          "planted fault rejected")
+    return worst["bfloat16"]
+
+
+def _fresh_memory():
+    import gc
+
+    import torch
+    gc.collect()        # an engine's sessions hold it in a cycle
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _counts():
+    """{kernel: launches} of flash (causal and non-causal apart), paged
+    and its combine, and the CUDA-core launches of either."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    torch.cuda.synchronize()
+    return dict(causal=fa.launches - fa.noncausal_launches,
+                noncausal=fa.noncausal_launches, paged=pa.launches,
+                combine=pa.combine_launches,
+                simt=fa.simt_launches + pa.simt_launches)
+
+
+def _cross_leaf(model, caches):
+    return (caches["cross"] if model.cfg.encoder is not None
+            else caches["super"]["cross"])
+
+
+def check_cross_filled(model, params, caches, source, label: str) -> None:
+    """A plumbing check: every filled cross cache equals ``cross_kv`` of
+    the source (the encoder's output for enc_dec), computed again by the
+    same function on the same inputs.  It shows which leaf each layer's
+    K/V reached, not that ``cross_kv`` is right: that is held to the
+    reference by the CPU tests and by phase 5's CPU/CUDA parity."""
+    import torch
+    from repro_torch.models.layers import cross_kv
+    from repro_torch.models.model import _layer
+    with torch.no_grad():
+        if model.cfg.encoder is not None:
+            source = model._encode(params, source)
+            lp = params["layers"]["cross"]["attn"]
+        else:
+            lp = params["super"]["cross"]["attn"]
+        c = _cross_leaf(model, caches)
+        for i in range(c["k"].shape[0]):
+            kv = cross_kv(_layer(lp, i), model.cfg, source)
+            check(torch.equal(kv["k"], c["k"][i])
+                  and torch.equal(kv["v"], c["v"][i]),
+                  f"{label}: cross cache {i} != cross_kv of the source")
+
+
+def decode_run(model, params, tokens, source, max_len: int, steps: int):
+    """``prefill(tokens, max_len, extras=source)``, then ``steps``
+    ``decode_step``s at a [B] position: (tokens [B, steps + 1], cache)."""
+    import torch
+    B, T = tokens.shape
+    with torch.no_grad():
+        tok, caches = model.prefill(params, tokens, max_len, extras=source)
+        out = [tok]
+        for i in range(steps):
+            pos = torch.full((B,), T + i, dtype=torch.int32,
+                             device=tokens.device)
+            tok, caches = model.decode_step(params, caches, tok[:, None],
+                                            pos)
+            out.append(tok)
+    return torch.stack(out, 1), caches
+
+
+VLM_SERVE = dict(max_batch=4, max_len=2048, chunk_tokens=64, k_max=8,
+                 pool_pages=320, page_size=16)
+VLM_PARAMS = 9_775_157_248          # with its norms (the reference's init)
+WHISPER_PARAMS = 41_158_272
+
+
+def phase_serve_vlm(smi: str):
+    """3h: ``llama-3.2-vision-11b`` at full width (8 superblocks of 4
+    self layers and a cross layer at index 3; d=4096, 32/8 heads of 128,
+    d_ff 14336, vocab 128256 untied, 1600 image tokens; bf16, seed-0
+    weights drawn on the card a layer at a time, 19.55 GB; no cut).
+    (a) ``prefill`` of 2 prompts of 256 tokens with seeded image
+    embeddings [2, 1600, 4096] at ``max_len`` 1024, then 16
+    ``decode_step``s.  Two plumbing checks (the port against itself; its
+    values are held to the reference on the CPU and in phase 5): every
+    cross cache equals ``cross_kv`` of the images, and the last
+    position's logits of a forward over the filled caches (prefill's
+    computation, run again) lie within one bf16 ulp of the largest logit
+    of the cache-less ``forward(tokens, extras)``'s.  The tokens differ
+    from those with zero images, non-causal flash launches = 8 x forwards
+    and the self layers' (flash prefill, paged decode) = 32 x forwards.  (b)
+    ``slot_chunked`` (the launcher's fallback: not pageable) serves 4
+    requests of 100-1000 tokens, 32 new each: every stream exactly-once,
+    non-causal flash = 8 x forwards, paged = 32 x forwards, no causal
+    flash, no CUDA-core route, no watchdog catch.  Then where a decode
+    block's and a chunk's time goes.  Returns the non-causal launches of
+    (a) and (b)."""
+    import torch
+    from repro_torch.models.layers import unembed_matrix
+    from repro_torch.models.losses import full_logits
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import tree
+    _fresh_memory()
+    before = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    model, params, forwards = full_width_model("llama-3.2-vision-11b")
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    nsb, per, cross_at = model._vlm_plan()
+    check((nsb, per, cross_at) == (8, 5, 3), f"vlm plan {nsb, per, cross_at}")
+    n_params = sum(t.numel() for t in tree.flatten(params)[0])
+    check(n_params == VLM_PARAMS, f"vlm params {n_params} != {VLM_PARAMS}")
+    n_cross, n_self = nsb, nsb * (per - 1)
+    print(f"vlm main path: llama-3.2-vision-11b ({cfg.num_layers} layers = "
+          f"{nsb} x ({per - 1} self + 1 cross at {cross_at}), d="
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.num_image_tokens} image tokens, bf16; {n_params} params "
+          f"drawn in {time.monotonic() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card; "
+          f"{before / 1e9:.2f} GB held before) [{smi}]")
+    # (a) the model path, image-conditioned.
+    g = torch.Generator(device="cuda").manual_seed(8)
+    B, T, steps = 2, 256, 16
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=g,
+                           device="cuda")
+    images = torch.randn((B, cfg.num_image_tokens, cfg.d_model),
+                         generator=g, device="cuda").to(cfg.compute_dtype)
+    zero_counts(forwards)
+    toks, caches = decode_run(model, params, tokens, images, 1024, steps)
+    got = _counts()
+    n_fwd = forwards[0]
+    check(n_fwd == steps + 1 and got["noncausal"] == n_cross * n_fwd
+          and got["causal"] + got["paged"] == n_self * n_fwd
+          and got["causal"] == n_self and got["simt"] == 0,
+          f"vlm model path: launches {got}, forwards {n_fwd}")
+    check_cross_filled(model, params, caches, images, "vlm")
+    with torch.no_grad():
+        w = unembed_matrix(params["embed"], cfg).to(cfg.compute_dtype)
+        hidden, _, _ = model.forward(params, tokens, extras=images)
+        want = full_logits(hidden[:, -1:], w)
+        # Prefill's own computation, kept to its logits.
+        h_pre, _, _ = model.forward(
+            params, tokens,
+            caches=model.fill_cross_cache(
+                params, model.init_cache(B, 1024), images),
+            cache_pos=0, start_pos=0)
+        have = full_logits(h_pre[:, -1:], w)
+    err = (have - want).abs().max().item()
+    scale = want.abs().max().item()
+    check(math.isfinite(err) and err <= 2 ** -8 * scale,
+          f"vlm: prefill logits {err} from the cache-less forward's "
+          f"(bound 2^-8 x {scale:.3f})")
+    check(torch.equal(torch.argmax(have[:, -1], -1).to(toks.dtype),
+                      toks[:, 0]), "vlm: prefill's token is not the argmax "
+                                   "of its logits")
+    zeros, _ = decode_run(model, params, tokens, torch.zeros_like(images),
+                          1024, steps)
+    differ = int((zeros != toks).sum())
+    check(differ > 0, "vlm: tokens with images equal those with zero "
+                      "images")
+    print(f"  vlm model path: prefill B={B} T={T} + {steps} decode steps, "
+          f"launches {got} over {n_fwd} forwards; plumbing: cross caches "
+          f"= cross_kv of the images, last-position logits within "
+          f"{err:.4g} of the cache-less forward's (bound 2^-8 x max "
+          f"|logit| {scale:.3f}); "
+          f"{differ} of {toks.numel()} tokens differ from zero images'")
+    noncausal = got["noncausal"]
+    del caches, hidden
+    # (b) served.
+    work = gemma_workload(cfg.vocab_size, (1000, 100, 640, 300))
+    eng = ServeEngine(model, params, n_clients=len(work),
+                      scheduler="slot_chunked", **VLM_SERVE)
+    dense = eng.dense_cache_bytes()
+    self_b = 2 * n_self * VLM_SERVE["max_batch"] * VLM_SERVE["max_len"] \
+        * cfg.num_kv_heads * cfg.head_dim_ * 2
+    cross_b = 2 * n_cross * VLM_SERVE["max_batch"] * cfg.num_image_tokens \
+        * cfg.num_kv_heads * cfg.head_dim_ * 2
+    check(dense == self_b + cross_b, f"vlm dense_cache_bytes {dense}")
+    torch.cuda.reset_peak_memory_stats()
+    launches, n_fwd, *_ = serve_run(eng, work, 32, forwards, smi,
+                                    "vlm slot_chunked")
+    nc = launches["flash_noncausal"]
+    check(n_fwd > 0 and nc == n_cross * n_fwd
+          and launches["flash_attention"] == nc
+          and launches["paged_attention"] == n_self * n_fwd
+          and launches["paged_combine"] == n_self * forwards[1],
+          f"vlm slot_chunked: launches {launches}, forwards {n_fwd} "
+          f"({forwards[1]} one-token)")
+    noncausal += nc
+    print(f"  vlm slot_chunked: forwards {n_fwd} ({forwards[1]} one-token), "
+          f"non-causal flash {nc} = {n_cross} x {n_fwd}, dense cache "
+          f"{dense / 1e6:.1f} MB ({self_b / 1e6:.1f} MB of self rings, "
+          f"{cross_b / 1e6:.1f} MB of cross K/V), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del eng
+    _fresh_memory()
+    phase_split_vlm(model, params, smi)
+    return noncausal
+
+
+def phase_split_vlm(model, params, smi: str):
+    """llama-3.2-vision-11b's dense rings and cross K/V (slot_chunked):
+    one K=8 decode block and one T=64 chunk at B=4, rows at positions
+    300-1000, the cross caches random (as filled from images)."""
+    import torch
+    vocab, B, C = model.cfg.vocab_size, VLM_SERVE["max_batch"], 64
+    g = torch.Generator(device="cuda").manual_seed(9)
+    caches = model.init_cache(B, VLM_SERVE["max_len"])
+    for t in _leaves(caches):
+        t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+    i32 = dict(dtype=torch.int32, device="cuda")
+    pos = torch.randint(300, 1001, (B,), generator=g, device="cuda").to(
+        torch.int32)
+    cur = torch.randint(0, vocab, (B,), generator=g, device="cuda").to(
+        torch.int32)
+    rem, eos = torch.full((B,), 1000, **i32), torch.full((B,), -1, **i32)
+    chunk = torch.randint(0, vocab, (B, C), generator=g, device="cuda").to(
+        torch.int32)
+    nval = torch.full((B,), C, **i32)
+    torch.cuda.reset_peak_memory_stats()
+    profile_split((
+        ("llama-3.2-vision-11b slot_chunked decode block K=8 B=4", 8,
+         lambda: model.decode_loop(params, caches, cur, pos, rem, eos, k=8,
+                                   max_len=VLM_SERVE["max_len"])),
+        ("llama-3.2-vision-11b slot_chunked prefill chunk T=64 B=4", 1,
+         lambda: model.prefill_chunk_into(params, caches, chunk, pos,
+                                          nval))), smi)
+    print(f"  vlm time split: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
+WHISPER_SERVE = dict(max_batch=4, max_len=448, chunk_tokens=64, k_max=8,
+                     pool_pages=128, page_size=16)
+
+
+def phase_serve_whisper(smi: str):
+    """3i: ``whisper-tiny`` at full width (4 encoder and 4 decoder layers,
+    d=384, 6/6 heads of 64, vocab 51865 tied, 1500 frames; bf16, seed-0
+    weights; no cut).  ``prefill`` of 4 prompts of 64 tokens with seeded
+    frames [4, 1500, 384] at ``max_len`` 448 (Whisper's text context,
+    arXiv:2212.04356), then 16 ``decode_step``s: the encoder on flash's
+    non-causal route, 4 launches per prefill, and the decoder's cross
+    layers 4 per forward; every cross cache equals ``cross_kv`` of the
+    encoder's output.  Then ``slot_chunked`` serves 4 requests (40-256
+    tokens, 32 new each), and the engine refuses ``slot_fused``.  Returns
+    the non-causal launches."""
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import tree
+    _fresh_memory()
+    model, params, forwards = full_width_model("whisper-tiny")
+    cfg = model.cfg
+    n_params = sum(t.numel() for t in tree.flatten(params)[0])
+    check(n_params == WHISPER_PARAMS,
+          f"whisper params {n_params} != {WHISPER_PARAMS}")
+    L, Le = cfg.num_layers, cfg.encoder.num_layers
+    g = torch.Generator(device="cuda").manual_seed(10)
+    B, T, steps = 4, 64, 16
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=g,
+                           device="cuda")
+    frames = torch.randn((B, cfg.encoder.num_frames, cfg.d_model),
+                         generator=g, device="cuda").to(cfg.compute_dtype)
+    zero_counts(forwards)
+    toks, caches = decode_run(model, params, tokens, frames,
+                              WHISPER_SERVE["max_len"], steps)
+    got = _counts()
+    n_fwd = forwards[0]
+    check(n_fwd == steps + 1 and got["noncausal"] == Le + L * n_fwd
+          and got["causal"] == L and got["paged"] == L * steps
+          and got["simt"] == 0,
+          f"whisper model path: launches {got}, forwards {n_fwd}")
+    check_cross_filled(model, params, caches, frames, "whisper")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "whisper: token out of range")
+    noncausal = got["noncausal"]
+    print(f"whisper main path: whisper-tiny ({Le} encoder + {L} decoder "
+          f"layers, d={cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
+          f"heads of {cfg.head_dim_}, vocab {cfg.vocab_size}, "
+          f"{cfg.encoder.num_frames} frames, bf16, {n_params} params): "
+          f"prefill B={B} T={T} + {steps} decode steps at max_len "
+          f"{WHISPER_SERVE['max_len']}, launches {got} over {n_fwd} "
+          f"forwards (encoder {Le} per prefill) [{smi}]")
+    del caches
+    work = gemma_workload(cfg.vocab_size, (200, 40, 130, 256))
+    eng = ServeEngine(model, params, n_clients=len(work),
+                      scheduler="slot_chunked", **WHISPER_SERVE)
+    launches, n_fwd, *_ = serve_run(eng, work, 32, forwards, smi,
+                                    "whisper slot_chunked")
+    nc = launches["flash_noncausal"]
+    check(n_fwd > 0 and nc == L * n_fwd
+          and launches["flash_attention"] == nc
+          and launches["paged_attention"] == L * n_fwd,
+          f"whisper slot_chunked: launches {launches}, forwards {n_fwd}")
+    noncausal += nc
+    print(f"  whisper slot_chunked: forwards {n_fwd}, non-causal flash {nc}"
+          f", dense cache {eng.dense_cache_bytes() / 1e6:.1f} MB")
+    del eng
+    try:
+        ServeEngine(model, params, scheduler="slot_fused", **WHISPER_SERVE)
+    except ValueError as exc:
+        check("scheduler='slot_chunked'" in str(exc),
+              f"whisper slot_fused refused without naming slot_chunked: "
+              f"{exc}")
+        print(f"  whisper slot_fused refused: {exc}")
+    else:
+        check(False, "whisper: the engine accepted slot_fused")
+    _fresh_memory()
+    return noncausal
+
+
+def parity_cross(arch: str, scale: float = 3.0):
+    """A cross-attention family's SMOKE config at float32, weights x
+    ``scale``, same weights on both devices: ``prefill`` with a seeded
+    image or frame source + 4 decode steps gives the same greedy tokens
+    on the CPU and the card; then a ``slot_chunked`` served run (the
+    shared ``parity``)."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    params = _scaled(build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(7)), scale)
+    n_src = (cfg.encoder.num_frames if cfg.encoder is not None
+             else cfg.num_image_tokens)
+    g = torch.Generator().manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 13), generator=g)
+    source = torch.randn((2, n_src, cfg.d_model), generator=g)
+    seqs = {dev: decode_run(build_model(cfg, device=dev),
+                            _to_device(params, dev), tokens.to(dev),
+                            source.to(dev), 32, 4)[0].tolist()
+            for dev in ("cpu", "cuda")}
+    check(seqs["cpu"] == seqs["cuda"],
+          f"{arch}: CPU and CUDA prefill(extras) + decode tokens differ")
+    print(f"cpu/cuda parity, {arch} prefill(extras) + decode: "
+          f"{sum(map(len, seqs['cuda']))} greedy tokens identical (SMOKE, "
+          f"float32, weights x{scale:g})")
+    parity(arch, ("slot_chunked",), scale)
+
+
+def phase_timing_noncausal(launches: int, max_err: float, smi: str):
+    """Non-causal flash at the cross-attention families' shapes, bf16:
+    llama-3.2-vision-11b's cross read at a decode step (B=4, T=1, S=1600)
+    and a 64-token chunk, whisper-tiny's encoder (B=4, T=S=1500), beside
+    the byte or operation bound, the plain version and one
+    ``scaled_dot_product_attention`` call (non-causal, GQA) on the same
+    inputs.  The JSON row is the cross decode's, the commonest call (8
+    per llama decode forward)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    rows = {}
+    for i, name in enumerate(("llama cross decode", "llama cross chunk",
+                              "whisper encoder")):
+        B, T, S, H, Hkv, hd = NONCAUSAL[name]
+        q, kv = (t.to(torch.bfloat16) for t in noncausal_inputs(
+            torch, B, T, S, H, Hkv, hd, seed=400 + i))
+        k, v = kv[0][1], kv[1][1]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        before = (fa.launches, fa.noncausal_launches)
+        t_kern = timed(lambda _: fa.flash_attention(q, k, v, causal=False))
+        t_plain = timed(lambda _: ref.flash_attention_ref(q, k, v,
+                                                          causal=False),
+                        inner=10)
+        t_sdpa = timed(lambda _: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True), inner=10)
+        fa.launches, fa.noncausal_launches = before    # not counted
+        nbytes = (2 * B * T * H * hd + 2 * B * S * Hkv * hd) * 2
+        flops = 4 * hd * H * B * T * S
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        bound = max(t_bytes, t_ops)
+        print(f"flash_attention non-causal, {name}: B={B} T={T} S={S} "
+              f"(H={H}, Hkv={Hkv}, hd={hd}, bf16): kernel {t_kern:.4f} ms "
+              f"({flops / t_kern / 1e9:.1f} TFLOP/s), bound {bound:.5f} ms "
+              f"({by}: {nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP), "
+              f"plain {t_plain:.4f} ms, library (SDPA, not used by the "
+              f"port) {t_sdpa:.4f} ms [{smi}]")
+        rows[name] = (t_kern, t_plain, bound, by, t_sdpa)
+        del q, kv, k, v, qt, kt, vt
+    t_kern, t_plain, bound, by, t_sdpa = rows["llama cross decode"]
+    return {"name": "flash_attention_noncausal", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:137",
+            "launches": launches, "max_abs_err": max_err, "ms": t_kern,
+            "plain_ms": t_plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": t_sdpa}
+
+
 def phase_serve_dense(model, params, forwards, smi: str):
     """The dense main path: ``slot_fused`` on the same 16 requests (flash
     launches = 30 x prefills, paged = 30 x decode steps), then 4 requests
@@ -1606,10 +2144,12 @@ FAULT_SITES = ("engine.dispatch", "engine.sync", "pool.page_write",
 
 
 def zero_counts(forwards):
+    """Every kernel counter and the model's forward counts set to 0."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
-    fa.launches = fa.simt_launches = 0
+    fa.launches = fa.simt_launches = fa.noncausal_launches = 0
     pa.launches = pa.combine_launches = pa.simt_launches = 0
+    pa.ring_launches = 0
     forwards[0] = forwards[1] = 0
 
 
@@ -1617,12 +2157,9 @@ def read_counts(forwards, label: str, L: int):
     """The launches since ``zero_counts``; checks that the paged kernel
     ran 30 times per forward (one combine per layer of each one-token
     decode forward), flash never, and no CUDA-core route."""
-    import torch
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_attention as pa
-    torch.cuda.synchronize()
-    got = dict(paged=pa.launches, combine=pa.combine_launches,
-               flash=fa.launches, simt=pa.simt_launches + fa.simt_launches,
+    c = _counts()
+    got = dict(paged=c["paged"], combine=c["combine"],
+               flash=c["causal"] + c["noncausal"], simt=c["simt"],
                forwards=forwards[0], decode_forwards=forwards[1])
     check(got["forwards"] > 0 and got["paged"] == L * got["forwards"],
           f"{label}: paged launches {got['paged']} != {L} x "
@@ -1971,13 +2508,19 @@ def phase_parity():
     expert capacity binds behind idle rows) under slot_paged and
     slot_fused; gemma (weights x3) under slot_chunked and slot_fused
     with prompts of up to 30 tokens and 16-token chunks, so its 8-slot
-    local rings wrap in prefill, in chunks and in decode."""
+    local rings wrap in prefill, in chunks and in decode; llama-vision
+    and whisper (weights x3) through an image- or frame-conditioned
+    prefill + decode and under slot_chunked."""
     for arch, scheds, scale in (
             ("smollm-135m", ("slot_paged", "slot_fused", "wave"), 1.0),
             ("olmoe-1b-7b", ("slot_paged", "slot_fused"), 3.0)):
         parity(arch, scheds, scale)
     parity("gemma3-27b", ("slot_chunked", "slot_fused"), 3.0,
            prompt_extra=(0, 12, 23), chunk_tokens=16)
+    lap("5 parity (smollm, olmoe, gemma)")
+    for arch in ("llama-3.2-vision-11b", "whisper-tiny"):
+        parity_cross(arch)
+    lap("5 parity (llama-vision, whisper)")
 
 
 def parity(arch: str, scheds, scale: float, prompt_extra=(0,),
@@ -2768,15 +3311,20 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     t0 = time.monotonic()
+    lap("")
     smi = nvidia_smi_line()
     print(f"nvidia-smi: {smi}")
     phase_build()
+    lap("1 build")
     paged_err = phase_compare()
     ring_err = phase_compare_ring()
     flash_err = phase_compare_flash()
     phase_compare_dense_decode()
     nbb_err, nbb_launches = phase_compare_nbb()
     trainable_out_err, trainable_grad_err = phase_compare_trainable()
+    lap("2-2d kernels vs plain")
+    noncausal_err = phase_compare_noncausal()
+    lap("2e non-causal flash vs plain")
     model, params, forwards = full_width_model()
     paged_launches = phase_serve(model, params, forwards, smi)
     phase_split(model, params, smi)
@@ -2786,22 +3334,34 @@ def main() -> int:
     paged_launches += phase_faults(model, params, forwards, smi)
     paged_launches += phase_recovery(model, params, forwards, smi)
     del model, params
+    lap("3-4, 3c-3e smollm")
     paged_launches += phase_serve_olmoe(smi)
+    lap("3f olmoe")
     gemma_paged, ring_launches = phase_serve_gemma(smi)
     paged_launches += gemma_paged
+    lap("3g gemma")
+    noncausal_launches = phase_serve_vlm(smi)
+    lap("3h llama-vision")
+    noncausal_launches += phase_serve_whisper(smi)
+    lap("3i whisper")
     phase_parity()
     train_launches, train_bwd_launches = phase_train(smi)
     phase_train_parity()
+    lap("7 training")
     phase_checker()
+    lap("8 checker")
     kernels = [phase_timing_paged(paged_launches, paged_err, smi),
                phase_timing_ring(ring_launches, ring_err, smi),
                phase_timing_flash(fused["flash_attention"], flash_err, smi),
+               phase_timing_noncausal(noncausal_launches, noncausal_err,
+                                      smi),
                phase_timing_trainable(
                    train_launches,
                    max(trainable_out_err, trainable_grad_err), smi),
                phase_timing_flash_bwd(train_bwd_launches,
                                       trainable_grad_err, smi),
                phase_timing_nbb(nbb_launches, nbb_err, smi)]
+    lap("6 timing")
     print(f"chip smoke: {time.monotonic() - t0:.1f} s")
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -36,12 +36,15 @@ BWD_SOURCE = kbuild.CSRC / "flash_attention_bwd.cu"
 
 # Kernel launches made by the forward (:func:`flash_attention` and the
 # trainable forward) and by the backward (:func:`flash_attention_bwd`: one
-# per call, which runs its passes in turn), CUDA tensors only, and those of
-# either that took the CUDA-core instance.  Callers reset them to 0 and
-# read them to show a run went through the kernels, and through which.
+# per call, which runs its passes in turn), CUDA tensors only, those of
+# either that took the CUDA-core instance, and the forward launches that
+# were non-causal (cross-attention, the bidirectional encoder).  Callers
+# reset them to 0 and read them to show a run went through the kernels,
+# and through which.
 launches = 0
 bwd_launches = 0
 simt_launches = 0
+noncausal_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TC_HEAD_DIMS = (16, 32, 64, 128)
@@ -160,7 +163,7 @@ def _forward(q, k, v, causal: bool, window: int, softcap: float,
              lse: torch.Tensor | None) -> torch.Tensor:
     """Launch the forward kernel; ``lse`` ([B, H, T] f32) receives each
     row's log-sum-exp when given."""
-    global launches, simt_launches
+    global launches, simt_launches, noncausal_launches
     _cuda(q, "flash_attention")
     _check(q, k, v, window)
     lib = kbuild.load(SOURCE, _declare)
@@ -192,6 +195,7 @@ def _forward(q, k, v, causal: bool, window: int, softcap: float,
                            f"(cudaError {err})")
     launches += 1
     simt_launches += 0 if route else 1
+    noncausal_launches += 0 if causal else 1
     return out
 
 

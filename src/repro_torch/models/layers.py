@@ -7,7 +7,10 @@ here: no cache (training); the paged branch; and the dense ring, a
 private ``[B, size, Hkv, hd]`` cache per layer.  Every read goes through
 a kernel (``ops`` — the Hopper kernel on CUDA, its plain version on the
 CPU): ``ops.flash_attention_trainable`` over the tokens themselves
-without a cache, ``ops.flash_attention`` over the written ring prefix for
+without a cache (non-causal over a cross-attention source, without RoPE),
+``ops.flash_attention`` non-causal over static cross K/V
+(:func:`attend_static`), ``ops.flash_attention`` over the written ring
+prefix for
 a scalar ``cache_pos`` (prefill, lockstep wave decode),
 ``ops.paged_attention`` over the ring viewed as identity-mapped pages for
 a ``[B]`` one.  A sliding-window ring (gemma's local layers) wraps: once a
@@ -70,7 +73,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA self-attention, optional paged KV cache)
+# Attention (GQA self / cross, optional paged KV cache)
 # ---------------------------------------------------------------------------
 def is_paged(cache) -> bool:
     """A *paged* cache view: the KV pool's page arrays plus a per-row
@@ -106,11 +109,18 @@ def attention(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
               cache: Optional[Dict[str, Any]] = None,
               cache_pos=None,
               write_mask: Optional[torch.Tensor] = None,
+              kv_source: Optional[torch.Tensor] = None,
               ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """GQA self-attention.
+    """GQA self- or cross-attention.
 
     x: [B, T, D]; positions: [B, T] absolute positions of x tokens.
     window: sliding-window size (0 = global causal).
+    kv_source: cross-attention source [B, S, D] (no cache): K/V are
+        projected from it, neither q nor k takes RoPE and no key is
+        masked, the JAX package's ``kv_source`` (``layers.py:143-175,
+        314-329`` there).  The whisper encoder passes its own normed
+        input, which makes its self-attention bidirectional.  It runs
+        through ``ops.flash_attention_trainable(..., causal=False)``.
     cache/cache_pos: None for no cache; a paged cache (:func:`is_paged`,
         with ``layer`` set) and the [B] write position of each row; or a
         dense ring ``{"k", "v"}`` of one layer with either a Python int
@@ -125,12 +135,21 @@ def attention(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     Returns (out [B,T,D], the cache (updated in place) or None).
     """
     T = x.shape[1]
+    cross = kv_source is not None
+    kv_in = kv_source if cross else x
     q = torch.einsum("btd,dhk->bthk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    k = torch.einsum("bsd,dhk->bshk", kv_in, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", kv_in, p["wv"])
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_norm(p["k_norm"], k, cfg.norm_eps)
+    if cross:
+        if cache is not None:
+            raise ValueError("cross-attention reads a static cache "
+                             "(attend_static), not a ring")
+        out = ops.flash_attention_trainable(
+            q, k, v, causal=False, softcap=cfg.attn_logit_softcap)
+        return torch.einsum("bthk,hkd->btd", out, p["wo"]), None
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
@@ -356,6 +375,32 @@ def _dense_ring(cfg: ModelConfig, q, k, v, cache, cache_pos, write_mask,
                               softcap=cfg.attn_logit_softcap, kv_lens=kv_lens,
                               ring=ring, window=window)
     return _fill_unseen(out, vpages, block, unseen)
+
+
+def attend_static(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
+                  kv_cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Cross-attention of x [B, T, D] against precomputed K/V ``{"k",
+    "v"}`` [B, S, Hkv, hd] (:func:`cross_kv`): no RoPE, no mask and no
+    softcap, as the JAX package's ``_attend_static`` (``model.py:106-120``
+    there).  Any T against any S, through ``ops.flash_attention(...,
+    causal=False)``."""
+    q = torch.einsum("btd,dhk->bthk", x, p["wq"])
+    if cfg.qk_norm:
+        q = rms_norm(p["q_norm"], q, cfg.norm_eps)
+    out = ops.flash_attention(q, kv_cache["k"], kv_cache["v"], causal=False)
+    return torch.einsum("bthk,hkd->btd", out, p["wo"])
+
+
+def cross_kv(p: Dict[str, Any], cfg: ModelConfig,
+             source: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Cross-attention K/V [B, S, Hkv, hd] of an image or encoder source
+    [B, S, D] (``model.py:123-129`` there): ``k_norm`` under
+    ``qk_norm``, no RoPE."""
+    k = torch.einsum("bsd,dhk->bshk", source, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", source, p["wv"])
+    if cfg.qk_norm:
+        k = rms_norm(p["k_norm"], k, cfg.norm_eps)
+    return {"k": k, "v": v}
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Model assembly for the uniform-attention (``smollm-135m``),
-mixture-of-experts (``olmoe-1b-7b``, ``arctic-480b``) and local:global
-(``gemma3-27b``) families.
+mixture-of-experts (``olmoe-1b-7b``, ``arctic-480b``), local:global
+(``gemma3-27b``) and cross-attention (``llama-3.2-vision-11b``: vlm_cross;
+``whisper-tiny``: enc_dec) families.
 
 ``build_model(cfg, remat_policy="nothing", device=None)`` returns a
 :class:`Model` exposing the JAX package's training and serving surface
@@ -8,10 +9,12 @@ over plain parameter dicts of tensors:
 
   init(generator) -> params
   loss(params, batch) -> (total, {"xent", "aux"})       [training]
-  init_cache(batch, max_len) -> dense ring cache
-  forward(params, tokens, caches=, cache_pos=, start_pos=, write_mask=)
-      -> (hidden, caches, aux)
-  prefill(params, tokens, max_len) -> (next_tok [B], fresh dense cache)
+  init_cache(batch, max_len, extras_len=0) -> dense ring cache
+  fill_cross_cache(params, cache, source) -> cache with cross K/V
+  forward(params, tokens, extras=, caches=, cache_pos=, start_pos=,
+          write_mask=) -> (hidden, caches, aux)
+  prefill(params, tokens, max_len, extras=None)
+      -> (next_tok [B], fresh dense cache)
   decode_step(params, cache, tokens, pos) -> (next_tok, cache)
   decode_loop(params, cache, cur, pos, rem, eos, k=, max_len=)
       -> (token block [B, k], cache)        [fused packet-mode decode]
@@ -23,7 +26,9 @@ over plain parameter dicts of tensors:
 Caches are paged (``layers.is_paged``: the pool's page arrays) or dense
 rings (``init_cache``: ``{"k", "v"}`` of ``[L, B, size, Hkv, hd]``, or
 for the local:global family the JAX package's tree of local rings of
-``min(W, max_len)`` slots and global rings of ``max_len``).  Both are
+``min(W, max_len)`` slots and global rings of ``max_len``; for the
+cross-attention families self rings beside static cross K/V of the
+source's length, which ``fill_cross_cache`` writes).  Both are
 updated in place, so the returned cache is the one passed in.  A scalar
 position (prefill, lockstep wave decode) is a Python int; per-row
 positions are a [B] tensor.  The layer stack is a Python loop (the JAX
@@ -45,9 +50,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (attention, embed, init_kv_cache,
-                                       is_paged, mlp, ring_page_size,
-                                       rms_norm, unembed_matrix)
+from repro_torch.models.layers import (attend_static, attention, cross_kv,
+                                       embed, init_kv_cache, is_paged, mlp,
+                                       ring_page_size, rms_norm,
+                                       unembed_matrix)
 from repro_torch.models.losses import chunked_softmax_xent, full_logits
 from repro_torch.models.moe import moe_block
 
@@ -73,14 +79,22 @@ def _layer(tree: Any, *idx: int) -> Any:
 
 
 def attn_block(p: Params, cfg: ModelConfig, x, positions, window=0,
-               cache=None, cache_pos=None, write_mask=None):
+               cache=None, cache_pos=None, write_mask=None, kv_source=None):
+    """Pre-norm attention (self, or cross over ``kv_source``), then the
+    MLP when the block has one."""
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
     a, cache = attention(p["attn"], cfg, h, positions, window=window,
                          cache=cache, cache_pos=cache_pos,
-                         write_mask=write_mask)
-    x = x + a
-    x = x + mlp(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps))
-    return x, cache
+                         write_mask=write_mask, kv_source=kv_source)
+    return _mlp_residual(p, cfg, x + a), cache
+
+
+def _mlp_residual(p: Params, cfg: ModelConfig, x):
+    """``x`` plus the MLP of its norm, where the block has an MLP (the
+    enc_dec decoder's self block has none)."""
+    if "mlp" in p:
+        x = x + mlp(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps))
+    return x
 
 
 def moe_layer(p: Params, cfg: ModelConfig, x, positions, cache=None,
@@ -99,13 +113,19 @@ def moe_layer(p: Params, cfg: ModelConfig, x, positions, cache=None,
 
 
 def _block(p: Params, cfg: ModelConfig, x, positions, window=0, cache=None,
-           cache_pos=None, write_mask=None):
+           cache_pos=None, write_mask=None, kv_source=None, cross=False):
     """One layer of any family: (x, cache, aux); aux is None but under
-    MoE.  ``window`` is the layer's sliding window (0: global)."""
+    MoE.  ``window`` is the layer's sliding window (0: global).  A
+    ``cross`` layer attends over ``kv_source`` without a cache and over
+    its static K/V with one."""
     if "moe" in p:
         return moe_layer(p, cfg, x, positions, cache, cache_pos, write_mask)
+    if cross and cache is not None:
+        h = rms_norm(p["ln1"], x, cfg.norm_eps)
+        x = x + attend_static(p["attn"], cfg, h, cache)
+        return _mlp_residual(p, cfg, x), cache, None
     x, cache = attn_block(p, cfg, x, positions, window, cache, cache_pos,
-                          write_mask)
+                          write_mask, kv_source=kv_source)
     return x, cache, None
 
 
@@ -153,6 +173,18 @@ class Model:
         if cfg.local_global_ratio:
             return "gemma_local_global"
         return "uniform_attn"
+
+    def _vlm_plan(self):
+        """(superblocks, layers per superblock, index of its cross layer),
+        as the JAX package's ``_vlm_plan`` (``model.py:290-294`` there):
+        (8, 5, 3) for llama-3.2-vision-11b, whose superblocks run self
+        layers 0-2, the cross layer, then self layer 4."""
+        per = self.cfg.cross_attn_every
+        nsb = self.cfg.num_layers // per
+        if nsb * per != self.cfg.num_layers:
+            raise ValueError(f"{self.cfg.name}: {self.cfg.num_layers} layers "
+                             f"are not superblocks of {per}")
+        return nsb, per, per - 2
 
     def _gemma_plan(self):
         """(local layers per superblock, superblocks, trailing local
@@ -219,18 +251,28 @@ class Model:
                     "wi_up": stacked(lead, (d, f), d),
                     "wo": stacked(lead, (f, d), f)}
 
+        def block(*lead):
+            return {**attn_layers(*lead), "mlp": dense_mlp(*lead)}
+
         emb = {"table": table()}
         if not cfg.tie_embeddings:
             emb["unembed"] = normal((d, cfg.vocab_size), d)
         out = {"embed": emb}
-        if self._structure() == "gemma_local_global":
+        fam = self._structure()
+        if fam == "vlm_cross":
+            nsb, per, _ = self._vlm_plan()
+            out["super"] = {"selfs": block(nsb, per - 1), "cross": block(nsb)}
+        elif fam == "enc_dec":
+            out["encoder"] = block(cfg.encoder.num_layers)
+            out["enc_norm"] = ones(d)
+            selfs = attn_layers(cfg.num_layers)
+            del selfs["ln2"]                    # no MLP: ``with_mlp=False``
+            out["layers"] = {"self": selfs, "cross": block(cfg.num_layers)}
+        elif fam == "gemma_local_global":
             per, nsb, tail = self._gemma_plan()
-            out["super"] = {
-                "local": {**attn_layers(nsb, per),
-                          "mlp": dense_mlp(nsb, per)},
-                "global": {**attn_layers(nsb), "mlp": dense_mlp(nsb)}}
+            out["super"] = {"local": block(nsb, per), "global": block(nsb)}
             if tail:
-                out["tail"] = {**attn_layers(tail), "mlp": dense_mlp(tail)}
+                out["tail"] = block(tail)
         else:
             L = cfg.num_layers
             layers = attn_layers(L)
@@ -250,35 +292,71 @@ class Model:
         return out
 
     # -- forward -------------------------------------------------------------
-    def init_cache(self, batch: int, max_len: int,
+    def init_cache(self, batch: int, max_len: int, extras_len: int = 0,
                    device: Union[str, torch.device, None] = None
                    ) -> Dict[str, Any]:
         """Dense ring cache of the whole stack, zeros in the compute
         dtype on ``device`` (the model's by default; "meta" gives the
         shapes alone): ``{"k", "v"}`` of ``[L, batch, size, Hkv, hd]``,
-        or for the local:global family the JAX package's tree
-        (``model.py:600-606`` there), ``{"super": {"local": [nsb, per,
-        ...], "global": [nsb, ...]}, "tail": [tail, ...]}`` of ``{"k",
-        "v"}`` rings, local ones of ``min(W, max_len)`` slots and global
-        ones of ``max_len``."""
+        or the JAX package's tree (``model.py:579-623`` there): for the
+        local:global family ``{"super": {"local": [nsb, per, ...],
+        "global": [nsb, ...]}, "tail": [tail, ...]}``, local rings of
+        ``min(W, max_len)`` slots and global ones of ``max_len``; for the
+        cross-attention families the self rings beside static cross K/V
+        of ``extras_len`` source positions (the image tokens or encoder
+        frames by default), ``{"super": {"selfs": [nsb, per - 1, ...],
+        "cross": [nsb, ...]}}`` (vlm_cross) or ``{"self": [L, ...],
+        "cross": [L, ...]}`` (enc_dec)."""
         cfg = self.cfg
         dev = self.device if device is None else device
+        W = cfg.sliding_window
 
-        def rings(lead, window=0):
-            one = init_kv_cache(cfg, batch, max_len, window=window,
-                                device=dev)
+        def rings(lead, window=0, size=max_len):
+            one = init_kv_cache(cfg, batch, size, window=window, device=dev)
             return {n: a.new_zeros(lead + tuple(a.shape))
                     for n, a in one.items()}
 
-        if self._structure() != "gemma_local_global":
-            return rings((cfg.num_layers,), cfg.sliding_window)
+        fam = self._structure()
+        if fam == "vlm_cross":
+            nsb, per, _ = self._vlm_plan()
+            src = extras_len or cfg.num_image_tokens
+            return {"super": {"selfs": rings((nsb, per - 1), W),
+                              "cross": rings((nsb,), size=src)}}
+        if fam == "enc_dec":
+            src = extras_len or cfg.encoder.num_frames
+            return {"self": rings((cfg.num_layers,)),
+                    "cross": rings((cfg.num_layers,), size=src)}
+        if fam != "gemma_local_global":
+            return rings((cfg.num_layers,), W)
         per, nsb, tail = self._gemma_plan()
-        W = cfg.sliding_window
         out = {"super": {"local": rings((nsb, per), W),
                          "global": rings((nsb,))}}
         if tail:
             out["tail"] = rings((tail,), W)
         return out
+
+    def fill_cross_cache(self, params: Params, caches, source):
+        """Write the cross layers' K/V of ``source`` into ``caches`` in
+        place and return them (``model.py:625-644`` there): the image
+        embeddings [B, n_img, D] (vlm_cross), or the encoder's output of
+        the frames [B, n_frames, D] (enc_dec; the encoder runs once).
+        Other families' caches come back unchanged."""
+        cfg = self.cfg
+        fam = self._structure()
+        if fam == "enc_dec":
+            source = self._encode(params, source)
+            lp, c, n = params["layers"]["cross"], caches["cross"], \
+                cfg.num_layers
+        elif fam == "vlm_cross":
+            lp, c, n = (params["super"]["cross"], caches["super"]["cross"],
+                        self._vlm_plan()[0])
+        else:
+            return caches
+        for i in range(n):
+            kv = cross_kv(_layer(lp["attn"], i), cfg, source)
+            for name in ("k", "v"):
+                c[name][i].copy_(kv[name])
+        return caches
 
     def _ring_block(self, batch: int, size: int) -> torch.Tensor:
         """The constant identity block table ``arange(B * P).view(B, P)``
@@ -294,56 +372,111 @@ class Model:
 
     def _order(self):
         """The layers in order, as (parameter path, cache path, index,
-        window): the local:global family runs each superblock's ``per``
-        windowed layers, then its global layer with window 0, then the
-        windowed tail (``model.py:393-432`` there)."""
+        window, cross): the local:global family runs each superblock's
+        ``per`` windowed layers, then its global layer with window 0, then
+        the windowed tail (``model.py:393-432`` there); vlm_cross each
+        superblock's self layers with its cross layer at ``cross_at``
+        (``:457-492``); enc_dec each decoder layer's self block, then its
+        cross block (``:494-513``)."""
         cfg = self.cfg
-        if self._structure() != "gemma_local_global":
-            return [(("layers",), (), (li,), cfg.sliding_window)
+        fam = self._structure()
+        if fam == "vlm_cross":
+            nsb, per, cross_at = self._vlm_plan()
+            selfs, cross = ("super", "selfs"), ("super", "cross")
+            order = []
+            for s in range(nsb):
+                order += [(selfs, selfs, (s, i), 0, False)
+                          for i in range(cross_at)]
+                order.append((cross, cross, (s,), 0, True))
+                order += [(selfs, selfs, (s, i), 0, False)
+                          for i in range(cross_at, per - 1)]
+            return order
+        if fam == "enc_dec":
+            order = []
+            for li in range(cfg.num_layers):
+                order += [(("layers", "self"), ("self",), (li,), 0, False),
+                          (("layers", "cross"), ("cross",), (li,), 0, True)]
+            return order
+        if fam != "gemma_local_global":
+            return [(("layers",), (), (li,), cfg.sliding_window, False)
                     for li in range(cfg.num_layers)]
         per, nsb, tail = self._gemma_plan()
         W, local, glob = cfg.sliding_window, ("super", "local"), (
             "super", "global")
         order = []
         for s in range(nsb):
-            order += [(local, local, (s, i), W) for i in range(per)]
-            order.append((glob, glob, (s,), 0))
-        return order + [(("tail",), ("tail",), (i,), W)
+            order += [(local, local, (s, i), W, False) for i in range(per)]
+            order.append((glob, glob, (s,), 0, False))
+        return order + [(("tail",), ("tail",), (i,), W, False)
                         for i in range(tail)]
 
     def _stack(self, params: Params, caches):
-        """(layer params, its dense ring cache with its identity block
-        table or None, its window) for each layer in order."""
-        for ppath, cpath, idx, window in self._order():
+        """(layer params, its cache or None, its window, cross) for each
+        layer in order: a self layer's dense ring comes with its identity
+        block table, a cross layer's static K/V with none (the paged view
+        never sees a cross cache)."""
+        for ppath, cpath, idx, window, cross in self._order():
             c = None
             if caches is not None:
                 c = _layer(functools.reduce(operator.getitem, cpath,
                                             caches), *idx)
-                c["block"] = self._ring_block(*c["k"].shape[:2])
+                if not cross:
+                    c["block"] = self._ring_block(*c["k"].shape[:2])
             yield (_layer(functools.reduce(operator.getitem, ppath, params),
-                          *idx), c, window)
+                          *idx), c, window, cross)
 
-    def _remat_block(self, lp: Params, x, positions, window: int):
-        """One cache-less layer under the remat policy: (x, aux or
-        None)."""
-        def block(lp, x, positions):
-            x, _, aux = _block(lp, self.cfg, x, positions, window)
-            return x, aux
-
+    def _remat(self, fn, *args):
+        """``fn(*args)`` under the remat policy when gradients are on."""
         pol = self.remat_policy
         if pol == "none" or not torch.is_grad_enabled():
-            return block(lp, x, positions)
+            return fn(*args)
         if pol == "dots":
             ctx = functools.partial(create_selective_checkpoint_contexts,
                                     _dots_policy)
-            return checkpoint(block, lp, x, positions, use_reentrant=False,
+            return checkpoint(fn, *args, use_reentrant=False,
                               context_fn=ctx)
-        return checkpoint(block, lp, x, positions, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    def _remat_block(self, lp: Params, x, positions, window: int,
+                     kv_source=None, cross: bool = False):
+        """One cache-less layer under the remat policy: (x, aux or
+        None)."""
+        def block(lp, x, positions, kv_source):
+            x, _, aux = _block(lp, self.cfg, x, positions, window,
+                               kv_source=kv_source, cross=cross)
+            return x, aux
+
+        return self._remat(block, lp, x, positions, kv_source)
+
+    def _encode(self, params: Params, frame_embeds):
+        """The whisper encoder (``model.py:519-534`` there): bidirectional
+        self-attention over the frames (``kv_source`` is the layer's own
+        normed input), each layer under the remat policy, then
+        ``enc_norm``."""
+        cfg = self.cfg
+        if frame_embeds is None:
+            raise ValueError(f"{cfg.name}: the encoder needs frame "
+                             "embeddings [B, n_frames, d_model]")
+        B, S, _ = frame_embeds.shape
+        positions = torch.arange(S, device=frame_embeds.device).expand(B, S)
+
+        def body(lp, x):
+            h = rms_norm(lp["ln1"], x, cfg.norm_eps)
+            a, _ = attention(lp["attn"], cfg, h, positions, kv_source=h)
+            x = x + a
+            return x + mlp(lp["mlp"], rms_norm(lp["ln2"], x, cfg.norm_eps))
+
+        x = frame_embeds.to(cfg.compute_dtype)
+        for li in range(cfg.encoder.num_layers):
+            x = self._remat(body, _layer(params["encoder"], li), x)
+        return rms_norm(params["enc_norm"], x, cfg.norm_eps)
 
     def _run_stack(self, params: Params, x, positions, caches, cache_pos,
-                   write_mask=None):
+                   write_mask=None, extras=None):
         """-> (hidden, caches, aux): aux sums the layers' load-balance
-        losses (0 but under MoE)."""
+        losses (0 but under MoE).  ``extras`` is what a cache-less cross
+        layer attends over (image embeddings, the encoder's output); with
+        a cache it reads its static K/V instead."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if caches is not None and is_paged(caches):
             for li in range(self.cfg.num_layers):
@@ -353,19 +486,26 @@ class Model:
                 if a is not None:
                     aux = aux + a
             return x, caches, aux
-        for lp, c, window in self._stack(params, caches):
+        for lp, c, window, cross in self._stack(params, caches):
             if c is None:
-                x, a = self._remat_block(lp, x, positions, window)
+                x, a = self._remat_block(lp, x, positions, window,
+                                         extras if cross else None, cross)
             else:
                 x, _, a = _block(lp, self.cfg, x, positions, window, cache=c,
-                                 cache_pos=cache_pos, write_mask=write_mask)
+                                 cache_pos=cache_pos, write_mask=write_mask,
+                                 cross=cross)
             if a is not None:
                 aux = aux + a
         return x, caches, aux
 
-    def forward(self, params: Params, tokens: torch.Tensor, caches=None,
-                cache_pos=None, start_pos=None, write_mask=None):
-        """tokens [B, T] -> (final hidden [B, T, D], caches, aux)."""
+    def forward(self, params: Params, tokens: torch.Tensor, extras=None,
+                caches=None, cache_pos=None, start_pos=None,
+                write_mask=None):
+        """tokens [B, T] -> (final hidden [B, T, D], caches, aux).
+        ``extras``: image embeddings (vlm_cross) or audio frame
+        embeddings, which the encoder runs over first (enc_dec), for the
+        cache-less cross layers; without them such a layer attends over
+        its own input, as in the JAX package."""
         cfg = self.cfg
         B, T = tokens.shape
         ar = torch.arange(T, device=tokens.device)
@@ -374,12 +514,16 @@ class Model:
         else:
             positions = torch.broadcast_to(start_pos + ar, (B, T))
         x = embed(params["embed"], tokens, cfg)
+        if cfg.encoder is not None and extras is not None:
+            extras = self._encode(params, extras)
         x, caches, aux = self._run_stack(params, x, positions, caches,
-                                         cache_pos, write_mask=write_mask)
+                                         cache_pos, write_mask=write_mask,
+                                         extras=extras)
         return rms_norm(params["final_norm"], x, cfg.norm_eps), caches, aux
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]):
-        """batch {"tokens": [B, T]} -> (total, {"xent", "aux"}).
+        """batch {"tokens": [B, T]} (+ "image_embeds" / "frame_embeds")
+        -> (total, {"xent", "aux"}).
 
         As ``model.py:556-576`` of the JAX package: the forward runs on
         all T tokens with the labels rolled left and the last position
@@ -391,7 +535,8 @@ class Model:
         """
         cfg = self.cfg
         tokens = batch["tokens"]
-        hidden, _, aux = self.forward(params, tokens)
+        extras = batch.get("image_embeds", batch.get("frame_embeds"))
+        hidden, _, aux = self.forward(params, tokens, extras=extras)
         w_out = unembed_matrix(params["embed"], cfg).to(cfg.compute_dtype)
         labels = torch.roll(tokens, -1, 1)
         weights = torch.ones(tokens.shape, dtype=torch.float32,
@@ -423,11 +568,19 @@ class Model:
             write_mask=write_mask)
         return self._greedy(params, hidden[:, -1:]), caches
 
-    def prefill(self, params: Params, tokens: torch.Tensor, max_len: int):
+    def prefill(self, params: Params, tokens: torch.Tensor, max_len: int,
+                extras=None):
         """Process whole prompts [B, T] into a fresh dense ring cache of
         ``max_len`` positions; returns (greedy next token [B], cache).
-        Attention is the flash kernel's causal prefill on CUDA."""
-        caches = self.init_cache(tokens.shape[0], max_len)
+        Attention is the flash kernel's causal prefill on CUDA.  The
+        cross caches are filled first from ``extras`` [B, S, D] when
+        given (their length S), and always for enc_dec, whose encoder
+        needs its frames (``model.py:819-833`` there); otherwise they stay
+        zeros, over which cross-attention gives 0."""
+        n_src = 0 if extras is None else extras.shape[1]
+        caches = self.init_cache(tokens.shape[0], max_len, extras_len=n_src)
+        if extras is not None or self.cfg.encoder is not None:
+            self.fill_cross_cache(params, caches, extras)
         hidden, caches, _ = self.forward(params, tokens, caches=caches,
                                          cache_pos=0, start_pos=0)
         return self._greedy(params, hidden[:, -1:]), caches
@@ -536,9 +689,8 @@ def build_model(cfg: ModelConfig, remat_policy: str = "nothing",
                          f"{REMAT_POLICIES}")
     model = Model(cfg, resolve_device(device), remat_policy=remat_policy)
     fam = model._structure()
-    if fam not in ("uniform_attn", "uniform_moe", "gemma_local_global"):
+    if fam in ("zamba_hybrid", "uniform_rwkv"):
         raise NotImplementedError(
             f"{cfg.name}: the {fam} family is not ported yet (ROADMAP, "
-            "'Still to port': vlm_cross, enc_dec, zamba_hybrid and "
-            "uniform_rwkv)")
+            "'Still to port': zamba_hybrid and uniform_rwkv)")
     return model

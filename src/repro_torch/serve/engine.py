@@ -706,8 +706,10 @@ def _write_slot_caches(full, one, slot: int) -> None:
     cache, in place, leaf by leaf over the cache tree.  The batch axis of
     a leaf is the one where the two shapes differ (axis 1 of a uniform
     ``[L, B, size, Hkv, hd]`` ring, axis 2 of gemma's ``[nsb, per, B,
-    ...]`` local rings); equal shapes (``max_batch`` 1) copy whole, as
-    the JAX package's ``put`` does (``engine.py:725-735`` there)."""
+    ...]`` local rings; a static cross cache's sequence axis is its
+    source length in both, so it differs on the batch axis alone); equal
+    shapes (``max_batch`` 1) copy whole, as the JAX package's ``put``
+    does (``engine.py:721-735`` there)."""
     if isinstance(full, dict):
         for name, f in full.items():
             _write_slot_caches(f, one[name], slot)
@@ -753,6 +755,17 @@ class ServeEngine:
                 f"{model.cfg.name}: slot_paged needs one uniform position-"
                 "indexed KV shape per layer (no sliding window, no "
                 "recurrent/cross state); use scheduler='slot_chunked'")
+        if (model.cfg.encoder is not None
+                and scheduler in ("slot", "slot_fused", "wave")):
+            # The JAX engine prefills through ``Model.prefill`` with no
+            # frames: its encoder raises there, and the tick watchdog
+            # swallows the error (``slot``, ``slot_fused``: the request
+            # completes with a first token never computed) or the engine
+            # dies (``wave``).  Refused here, on purpose.
+            raise ValueError(
+                f"{model.cfg.name}: {scheduler} prefills through the "
+                "encoder, which needs frame embeddings the engine does not "
+                "carry; use scheduler='slot_chunked'")
         if (overload is not None and overload.preemption
                 and scheduler != "slot_paged"):
             raise ValueError(

@@ -7,7 +7,8 @@ split along T; the split-KV decode and its combine (B=8, ps=16; the
 ps=64 identity pages of a dense ring), the T=64 tensor-core chunk with
 softcap, bit-identical repeats.  Flash: the cases of the JAX package's
 flash tests, ragged T and S, a strided ring slice, rows that see no key,
-the forward's log-sum-exp; paged attention's written-key bound
+the forward's log-sum-exp, the non-causal route at the cross and encoder
+shapes of llama-3.2-vision-11b and whisper-tiny; paged attention's written-key bound
 (``kv_lens``) at olmoe-1b-7b's shapes on all three routes, and its ring
 bound (a sliding-window ring read with wrap-around) at gemma3-27b's
 local-layer shapes on all three; the flash
@@ -491,6 +492,104 @@ def test_flash_large_grids_on_card(cuda_device, name):
     torch.testing.assert_close(out.float(), want.float(), atol=3e-2,
                                rtol=3e-2)
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+
+
+# The non-causal route at the cross-attention families' shapes: llama-
+# 3.2-vision-11b's cross layers (32/8 heads of 128, 1600 image tokens) at
+# a decode step and a 64-token chunk, whisper-tiny's encoder (6/6 heads
+# of 64, 1500 frames; ragged against every tile) and its SMOKE decoder's
+# cross read with more queries than frames (head_dim 8: CUDA cores).
+FLASH_CROSS_CASES = {
+    "llama_cross_decode": (4, 1, 1600, 32, 8, 128),
+    "llama_cross_chunk": (4, 64, 1600, 32, 8, 128),
+    "whisper_encoder": (2, 1500, 1500, 6, 6, 64),
+    "whisper_smoke_t_gt_s": (1, 40, 24, 4, 4, 8),
+}
+
+
+def _noncausal_bound(dtype, atol, want):
+    """f32: ``atol``.  bf16: ``atol`` of the output's own scale; these
+    outputs are means over many keys, so an absolute 3e-2 would be as
+    large as a typical value and pass a wrong kernel."""
+    return atol if dtype == "float32" else atol * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FLASH_CROSS_CASES))
+@pytest.mark.parametrize("dtype,atol", [("float32", 2e-5),
+                                        ("bfloat16", 3e-2)])
+def test_flash_noncausal_cross_shapes_on_card(cuda_device, name, dtype,
+                                              atol):
+    B, T, S, H, Hkv, hd = FLASH_CROSS_CASES[name]
+    q, k, v = (t.to(getattr(torch, dtype)) for t in _torch(
+        *_flash_inputs(len(name), B, T, S, H, Hkv, hd), device=cuda_device))
+    before = (fa_mod.launches, fa_mod.noncausal_launches)
+    out = fa_mod.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert (fa_mod.launches, fa_mod.noncausal_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = tref.flash_attention_ref(q, k, v, causal=False).float()
+    err = (out.float() - want).abs().max().item()
+    assert err <= _noncausal_bound(dtype, atol, want), err
+
+
+# Faults planted in what the kernel reads, each of which the bound above
+# must reject: K/V of the other superblock of a stacked cross cache, the
+# last 64-key tile dropped (the ragged one at S=1500), the 1/sqrt(hd)
+# scale dropped.
+PLANTED = ("other_superblock", "last_key_tile", "no_scale")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", PLANTED)
+@pytest.mark.parametrize("name", ["llama_cross_decode", "llama_cross_chunk",
+                                  "whisper_encoder"])
+@pytest.mark.parametrize("dtype,atol", [("float32", 2e-5),
+                                        ("bfloat16", 3e-2)])
+def test_flash_noncausal_bound_rejects_planted_faults(cuda_device, name,
+                                                      fault, dtype, atol):
+    B, T, S, H, Hkv, hd = FLASH_CROSS_CASES[name]
+    rng = np.random.default_rng(len(name))
+    q, kv = (t.to(getattr(torch, dtype)) for t in _torch(
+        rng.normal(size=(B, T, H, hd)).astype(np.float32),
+        rng.normal(size=(2, 2, B, S, Hkv, hd)).astype(np.float32),
+        device=cuda_device))
+    k, v = kv[0][1], kv[1][1]
+    want = tref.flash_attention_ref(q, k, v, causal=False).float()
+    bound = _noncausal_bound(dtype, atol, want)
+    ok = fa_mod.flash_attention(q, k, v, causal=False)
+    assert (ok.float() - want).abs().max().item() <= bound
+    cut = S - (S % 64 or 64)
+    bad = {"other_superblock": lambda: fa_mod.flash_attention(
+               q, kv[0][0], kv[1][0], causal=False),
+           "last_key_tile": lambda: fa_mod.flash_attention(
+               q, k[:, :cut], v[:, :cut], causal=False),
+           "no_scale": lambda: fa_mod.flash_attention(
+               q * hd ** 0.5, k, v, causal=False)}[fault]()
+    assert (bad.float() - want).abs().max().item() > bound
+
+
+@pytest.mark.cuda
+def test_flash_noncausal_stacked_cross_cache_on_card(cuda_device):
+    """A superblock's slice ``cross[s]`` of a stacked [nsb, B, S, Hkv, hd]
+    bf16 cross cache takes the tensor-core route in place, with the same
+    result as a contiguous copy."""
+    rng = np.random.default_rng(13)
+    cache = rng.normal(size=(2, 2, 3, 200, 2, 64)).astype(np.float32)
+    q = rng.normal(size=(3, 5, 8, 64)).astype(np.float32)
+    tc, tq = _torch(cache, q, device=cuda_device)
+    tc, tq = tc.to(torch.bfloat16), tq.to(torch.bfloat16)
+    k, v = tc[0][1], tc[1][1]
+    assert fa_mod.tensor_core_route(tq, k, v)
+    before = fa_mod.simt_launches
+    out = fa_mod.flash_attention(tq, k, v, causal=False)
+    assert fa_mod.simt_launches == before
+    again = fa_mod.flash_attention(tq, k.contiguous(), v.contiguous(),
+                                   causal=False)
+    assert torch.equal(out, again)
+    want = tref.flash_attention_ref(tq, k, v, causal=False).float()
+    err = (out.float() - want).abs().max().item()
+    assert err <= _noncausal_bound("bfloat16", 3e-2, want), err
 
 
 @pytest.mark.cuda

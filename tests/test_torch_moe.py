@@ -316,12 +316,14 @@ def test_old_lens_rule_changes_a_live_token(served, olmoe3, monkeypatch):
 
 
 def test_build_model_names_what_is_left():
-    """The next refused families are named; gemma (slice 8) builds."""
+    """The refused families (the recurrent ones) are named; gemma and
+    the cross-attention families build."""
     for arch, fam in (("zamba2-2.7b", "zamba_hybrid"),
-                      ("llama-3.2-vision-11b", "vlm_cross")):
+                      ("rwkv6-1.6b", "uniform_rwkv")):
         cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
         with pytest.raises(NotImplementedError, match=fam):
             build_model(cfg, device="cpu")
-    assert build_model(get_smoke_config("olmoe-1b-7b"), device="cpu")
-    assert build_model(get_smoke_config("gemma3-27b"), device="cpu")
+    for arch in ("olmoe-1b-7b", "gemma3-27b", "llama-3.2-vision-11b",
+                 "whisper-tiny"):
+        assert build_model(get_smoke_config(arch), device="cpu")
 

@@ -5,7 +5,9 @@ physical pages gives the kernel bit-identical output for its row — the
 T=1 split-KV decode and the T=64 tensor-core chunk — and leaves the sink
 page untouched; a pool imaged by ``snapshot_state`` and rebuilt by
 ``restore_state`` in a fresh pool does the same.  And olmoe-1b-7b's
-SMOKE config served under slot_paged gives the CPU's greedy tokens.
+SMOKE config served under slot_paged, and llama-3.2-vision-11b's and
+whisper-tiny's (image- or frame-conditioned prefill + decode, and
+``slot_chunked``), give the CPU's greedy tokens.
 Imports no JAX; skipped without a card."""
 import numpy as np
 import pytest
@@ -108,13 +110,13 @@ def test_snapshot_restore_is_bit_identical_on_card(cuda_device, dtype):
     assert torch.equal(other.store_v[-1], sink[1])
 
 
-def _serve_tokens(model, params, device):
-    """slot_paged over ``WORK`` with a small pool; token lists in
+def _serve_tokens(model, params, device, scheduler="slot_paged"):
+    """``scheduler`` over ``WORK`` with a small pool; token lists in
     submission order."""
     from repro_torch.serve.engine import ServeEngine
     eng = ServeEngine(model, params, max_batch=2, max_len=48, n_clients=1,
                       pool_pages=64, page_size=4, chunk_tokens=4, k_max=4,
-                      scheduler="slot_paged", device=device)
+                      scheduler=scheduler, device=device)
     rng = np.random.default_rng(5)
     work = [(rng.integers(0, model.cfg.vocab_size, n), m)
             for n, m in ((5, 3), (9, 12), (3, 8), (14, 2), (6, 10), (4, 5))]
@@ -156,3 +158,56 @@ def test_olmoe_smoke_slot_paged_tokens_equal_the_cpu_on_card(cuda_device):
     assert got == want
     assert pa_mod.launches > before[0]
     assert pa_mod.simt_launches == before[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-tiny"])
+def test_cross_smoke_tokens_equal_the_cpu_on_card(cuda_device, arch):
+    """The cross-attention families' SMOKE configs at float32, weights
+    x3: ``prefill`` with an image or frame source + 4 decode steps, and a
+    ``slot_chunked`` served run, give the CPU's greedy tokens; the cross
+    reads (and whisper's encoder) go through flash's non-causal route."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    n_src = (cfg.encoder.num_frames if cfg.encoder is not None
+             else cfg.num_image_tokens)
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 13), generator=g)
+    src = torch.randn((2, n_src, cfg.d_model), generator=g)
+
+    def scaled(tree, dev):
+        if isinstance(tree, dict):
+            return {k: scaled(v, dev) for k, v in tree.items()}
+        return (tree * 3 if tree.dim() >= 2 else tree).to(dev)
+
+    def decode(model, dev):
+        p = scaled(params, dev)
+        with torch.no_grad():
+            tok, caches = model.prefill(p, tokens.to(dev), 32,
+                                        extras=src.to(dev))
+            out = [tok.tolist()]
+            for i in range(4):
+                pos = torch.full((2,), 13 + i, dtype=torch.int32,
+                                 device=dev)
+                tok, caches = model.decode_step(p, caches, tok[:, None],
+                                                pos)
+                out.append(tok.tolist())
+        return out
+
+    card = build_model(cfg, device=cuda_device)
+    before = fa_mod.noncausal_launches
+    assert decode(card, cuda_device) == decode(cpu, "cpu")
+    n_cross = (cfg.num_layers if cfg.encoder is not None
+               else cfg.num_layers // cfg.cross_attn_every)
+    n_enc = cfg.encoder.num_layers if cfg.encoder is not None else 0
+    assert fa_mod.noncausal_launches - before == n_enc + 5 * n_cross
+    want = _serve_tokens(cpu, scaled(params, "cpu"), "cpu", "slot_chunked")
+    got = _serve_tokens(card, scaled(params, cuda_device), cuda_device,
+                        "slot_chunked")
+    assert got == want
