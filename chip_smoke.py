@@ -8,9 +8,9 @@ each of which fails the run hard:
    versions, and the build of every kernel from ``src/repro_torch`` (one
    ``nvcc`` per source, all started together), with the count of
    tensor-core instructions (HMMA/HGMMA in ``cuobjdump -sass``) in each
-   kernel: every bf16 tensor-core kernel (flash, the paged chunk kernel)
-   must have some, every NBB ``wgmma`` instance HGMMA, every float32
-   (CUDA-core) one none;
+   kernel: every bf16 tensor-core kernel (flash at head_dim 16/32/64/80/
+   128, the paged chunk kernel at the same five) must have some, every
+   NBB ``wgmma`` instance HGMMA, every float32 (CUDA-core) one none;
 2. each kernel against its plain PyTorch version on the card: paged
    attention at the reference test shapes and the paged main path's (a
    strided per-layer view of a [512, 16, 30, 3, 64] pool), then its
@@ -51,7 +51,14 @@ each of which fails the run hard:
    bit-identical) and f32 on the CUDA-core one (2e-5), where each bound
    must also reject the kernel's output with a planted fault: the other
    superblock's K/V, the last key tile dropped, the 1/sqrt(hd) scale
-   dropped;
+   dropped; (2f) the head_dim 80 instances at zamba2-2.7b's shared
+   attention (32/32 heads of 80, K/V read in place from [B, 1024] rings):
+   flash at B=1, T=S of 64, 256 and 257 and at B=4, T=1, S=513, the paged
+   split-KV decode over the ring as 64-token identity pages at B=4 (rows
+   at lens 0, 1, 63, 64, 700, ...) and its T=64 chunk, bf16 on the
+   tensor-core instances (3e-2 x max |plain| for the T=1 flash read, else
+   3e-2) and f32 on the CUDA-core ones (2e-5), each bound rejecting the
+   kernel's output with its last key tile dropped;
 3. the paged main path at full width: ``smollm-135m`` (random weights
    from a seed) served by the ``slot_paged`` engine to 4 client sessions
    x 4 requests, every stream complete and exactly-once, the paged kernel
@@ -135,20 +142,40 @@ each of which fails the run hard:
    ``max_len`` 448, every cross cache equal to ``cross_kv`` of the
    encoder's output; ``slot_chunked`` on 4 requests; the engine refusing
    ``slot_fused``;
+3j. the zamba_hybrid family at full width: ``zamba2-2.7b`` (54 mamba2
+   layers in 9 superblocks, each opened by the one shared attention block
+   over its own ring; d=2560, 32/32 heads of 80, vocab 32000; bf16,
+   seed-0 weights, 2,340,750,240 parameters built where ``param_count()``
+   claims 5,092,515,840; no cut): a B=2 prefill of 124 tokens (the
+   recurrence's scan) + 4 teacher-forced decode steps against the
+   cache-less forward over the 128 tokens (its chunked form), logits
+   within 2^-2 of the largest in bf16 and 2^-12 with the weights in
+   float32; ``slot_fused`` (the launcher's fallback: neither chunkable
+   nor pageable; ``max_batch=4``, ``max_len=1024``) on 4 requests of
+   64-128 tokens, 32 new each: every stream exactly-once, flash launches
+   = 9 x prefills, paged = 9 x decode steps, no CUDA-core route, no
+   watchdog catch, peak memory; then where a prefill's and a decode
+   block's time goes (the ranges ``mamba.ssd``, ``rwkv.wkv``);
+3k. the uniform_rwkv family the same way: ``rwkv6-1.6b`` (24 layers,
+   d=2048, vocab 65536 untied, 1,583,941,632 parameters), no attention
+   launch of either kind;
 5. CPU/CUDA parity: the SMOKE configs at float32, same weights on both
    devices, identical greedy tokens: smollm under ``slot_paged``,
    ``slot_fused`` and ``wave``, olmoe (weights x3) under ``slot_paged``
    and ``slot_fused``, gemma (weights x3) under ``slot_chunked`` and
    ``slot_fused`` with prompts of up to 30 tokens past its window of 8,
    llama-vision and whisper (weights x3) through ``prefill`` with an
-   image or frame source + 4 decode steps and under ``slot_chunked``;
+   image or frame source + 4 decode steps and under ``slot_chunked``,
+   zamba and rwkv (weights x3) under ``slot_fused``, ``slot`` and
+   ``wave``;
 6. kernel timing at the main paths' shapes (CUDA events around windows
    enqueued behind a device-side spin, so they time the card's work and
    not the host's launch rate; paged: slot_paged's T=1 decode and T=64
    chunk, slot_fused's dense-ring decode, olmoe's T=1 and T=64 with
    ``kv_lens``; the ring bound at gemma's T=1 and T=64; non-causal
    flash at llama-vision's cross decode and chunk and whisper's
-   encoder), beside each kernel's bound,
+   encoder; head_dim 80 at zamba's B=1 T=S=256 prefill and B=4
+   dense-ring decode), beside each kernel's bound,
    its plain version and the one PyTorch call that computes the same
    function
    where there is one (``scaled_dot_product_attention`` forward, backward,
@@ -170,8 +197,9 @@ each of which fails the run hard:
 
 Phase 7 runs before the timing of phase 6, which reports its launch
 count; the paged row's launches add phases 3c-3g's to phase 3's, the
-ring row's are 3g's launches under the ring bound, and the non-causal
-flash row's are 3h's and 3i's non-causal launches.  Every
+ring row's are 3g's launches under the ring bound, the non-causal
+flash row's are 3h's and 3i's non-causal launches, and the hd 80 rows'
+are 3j's served launches.  Every
 kernel counter is set to 0 just before a served or trained run (or the
 NBB matmul's entry-point call) and read just after it; launches made to
 compare or time a kernel (or to serve a request alone for comparison)
@@ -217,6 +245,13 @@ def _to_device(tree, dev):
     if isinstance(tree, dict):
         return {k: _to_device(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+def _to_dtype(tree, dtype):
+    """A nested dict of tensors, cast to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: _to_dtype(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
 
 
 _LAP = [0.0]
@@ -354,10 +389,10 @@ def phase_build():
     # HGMMA, wgmma), each float32 instance none (flash_*_simt<T>,
     # paged_split<float, hd>, paged_simt<float>, nbb_simt_kernel): no TF32.
     rules = {  # source: (tensor-core needle, least count, f32 needles, least)
-        "flash_attention": ("_tcI", 4, ("_simtI",), 2),
+        "flash_attention": ("_tcI", 5, ("_simtI",), 2),
         "flash_attention_bwd": ("_tcI", 4, ("_simtI",), 2),
-        "paged_attention": ("paged_chunk_tcI", 4,
-                            ("paged_splitIf", "paged_simtIf"), 5),
+        "paged_attention": ("paged_chunk_tcI", 5,
+                            ("paged_splitIf", "paged_simtIf"), 6),
         "nbb_matmul": ("nbb_wgmma_kernelI", 2, ("nbb_simt_kernel",), 1)}
     for name, (tc_needle, n_tc, f32_needles, n_f32) in rules.items():
         counts = tensor_core_counts(libs[name])
@@ -1569,6 +1604,166 @@ def phase_compare_noncausal():
     return worst["bfloat16"]
 
 
+# zamba2-2.7b's shared attention (2f, 3j): 32/32 heads of 80 over a dense
+# [B, 1024] ring, read as 64-token identity pages by the paged kernel.
+HD80 = dict(H=32, Hkv=32, hd=80, size=1024, ps=64)
+
+
+def hd80_bound(dt_name: str, want, mean: bool) -> float:
+    """2e's bounds where every output is a mean over many keys (the T=1
+    read of 513), else 3e-2 absolute in bf16 (causal prefills and short
+    rows read one key or few); f32 2e-5."""
+    return (noncausal_bound(dt_name, want) if mean
+            else NONCAUSAL_TOLS[dt_name])
+
+
+def hd80_ring(torch, B: int, seed: int):
+    """f32 K and V rings [B, 1024, 32, 80] of zamba's shared block."""
+    h = HD80
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (B, h["size"], h["Hkv"], h["hd"])
+    return tuple(torch.randn(shape, generator=g, device="cuda")
+                 for _ in range(2))
+
+
+def flash_tile_dropped(q, k, v):
+    """The flash kernel's causal output with each 64-query tile's last
+    key tile dropped.  At T == 1 the one query reads keys below the last
+    tile's start (the ragged one where S is no multiple of 64); at T == S
+    the queries [t0, t0 + 64) read only the keys below t0 (their diagonal
+    tile, the last their causal walk reaches, left out: no key for the
+    first tile)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    T, S = q.shape[1], k.shape[1]
+    if T == 1:
+        cut = S - (S % KEY_TILE or KEY_TILE)
+        return fa.flash_attention(q, k[:, :cut], v[:, :cut])
+    out = [torch.zeros_like(q[:, :KEY_TILE])]
+    for t0 in range(KEY_TILE, T, KEY_TILE):
+        out.append(fa.flash_attention(q[:, t0:t0 + KEY_TILE], k[:, :t0],
+                                      v[:, :t0], causal=False))
+    return torch.cat(out, 1)
+
+
+def phase_compare_hd80():
+    """2f: the head_dim 80 instances (zamba2-2.7b's shared attention,
+    32/32 heads) against their plain versions, K/V read in place from
+    [B, 1024] rings: flash at B=1, T=S of 64, 256 and 257 (a ragged tile)
+    and at B=4, T=1, S=513; the paged kernel over the ring as 64-token
+    identity pages, split-KV decode at B=4 (rows at lens 0, 1, 63, 64,
+    then 700, 64, 1000, 129, also against the plain split-KV version)
+    and the T=64 chunk (lens 64, 300, 700, 1024).  bf16 takes the
+    tensor-core instances (flash_fwd_tc<80>, paged_chunk_tc<80>) and the
+    bf16 split, each called twice, bit-identical; f32 the CUDA-core ones
+    (TF32 off).  Each bound must also reject the kernel's output with its
+    last key tile dropped (flash: :func:`flash_tile_dropped`; paged:
+    ``kv_lens`` one tile short of each row's keys).  Returns the bf16
+    max errors (flash, paged)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h = HD80
+    H, hd, ps = h["H"], h["hd"], h["ps"]
+    g = torch.Generator(device="cuda").manual_seed(500)
+    worst = {"flash": 0.0, "paged": 0.0}
+    lines = []
+
+    def held(label, kind, dt_name, out, want, bad, mean):
+        want = want.float()
+        bound = hd80_bound(dt_name, want, mean)
+        err = (out.float() - want).abs().max().item()
+        check(err <= bound, f"hd 80 {label} {dt_name}: err {err} > {bound}")
+        e = (bad.float() - want).abs().max().item()
+        check(e > bound, f"hd 80 {label} {dt_name}: bound {bound} misses "
+                         f"the dropped last key tile (err {e})")
+        if dt_name == "bfloat16":
+            worst[kind] = max(worst[kind], err)
+        lines.append(f"{label} {dt_name} err {err:.3g} <= {bound:.3g}, "
+                     f"tile dropped {e:.3g}")
+
+    # Flash: B=1 prefills over a ring slice, B=4 decode over a strided one.
+    for B, T, S in ((1, 64, 64), (1, 256, 256), (1, 257, 257), (4, 1, 513)):
+        rk, rv = hd80_ring(torch, B, seed=501 + T)
+        q32 = torch.randn((B, T, H, hd), generator=g, device="cuda")
+        for dt_name in NONCAUSAL_TOLS:
+            dt = getattr(torch, dt_name)
+            ring_k, ring_v = rk.to(dt), rv.to(dt)
+            q, k, v = q32.to(dt), ring_k[:, :S], ring_v[:, :S]
+            tc = fa.tensor_core_route(q, k, v)
+            check(tc == (dt_name == "bfloat16"),
+                  f"hd 80 flash {dt_name}: tensor-core route {tc}")
+            simt = fa.simt_launches
+            out = fa.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            if tc:
+                check(fa.simt_launches == simt,
+                      "hd 80 flash: a bf16 call took the CUDA-core route")
+                check(torch.equal(out, fa.flash_attention(q, k, v)),
+                      f"hd 80 flash B={B} T={T}: repeat not bit-identical")
+            held(f"flash B={B} T={T} S={S}", "flash", dt_name, out,
+                 ref.flash_attention_ref(q, k, v),
+                 flash_tile_dropped(q, k, v), mean=T == 1)
+            del q, k, v, out, ring_k, ring_v
+    # Paged: the B=4 ring as identity pages.
+    B = 4
+    P = h["size"] // ps
+    rk, rv = hd80_ring(torch, B, seed=520)
+    block = torch.arange(B * P, dtype=torch.int32, device="cuda").view(B, P)
+    for T, lens in ((1, [0, 1, 63, 64]), (1, [700, 64, 1000, 129]),
+                    (64, [64, 300, 700, 1024])):
+        ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        short = torch.clamp((ln - 1) // KEY_TILE * KEY_TILE, min=0).to(
+            torch.int32)
+        q32 = torch.randn((B, T, H, hd), generator=g, device="cuda")
+        for dt_name in NONCAUSAL_TOLS:
+            dt = getattr(torch, dt_name)
+            q = q32.to(dt)
+            kp = rk.to(dt).view(B * P, ps, h["Hkv"], hd)
+            vp = rv.to(dt).view(B * P, ps, h["Hkv"], hd)
+            way = pa.route(q, kp, vp)
+            want_way = ("split" if T == 1 else
+                        "chunk_tc" if dt_name == "bfloat16" else "simt")
+            check(way == want_way, f"hd 80 paged T={T} {dt_name}: route "
+                                   f"{way}, not {want_way}")
+            before = (pa.launches, pa.combine_launches, pa.simt_launches)
+            out = pa.paged_attention(q, kp, vp, block, ln)
+            torch.cuda.synchronize()
+            check((pa.launches - before[0], pa.combine_launches - before[1])
+                  == (1, int(way == "split")), f"hd 80 paged T={T}: launches")
+            if dt_name == "bfloat16":
+                check(pa.simt_launches == before[2],
+                      "hd 80 paged: a bf16 call took the CUDA-core route")
+                check(torch.equal(out, pa.paged_attention(q, kp, vp, block,
+                                                          ln)),
+                      f"hd 80 paged T={T}: repeat not bit-identical")
+            check(torch.count_nonzero(out[ln <= 0]) == 0,
+                  f"hd 80 paged T={T}: a lens=0 row is not zero")
+            label = f"paged {way} T={T} lens {lens}"
+            held(label, "paged", dt_name, out,
+                 ref.paged_attention_ref(q, kp, vp, block, ln),
+                 pa.paged_attention(q, kp, vp, block, ln, kv_lens=short),
+                 mean=False)
+            if way == "split":
+                keys = pa.split_plan(B, h["Hkv"], P, ps)[1]
+                held(label + " vs split plain", "paged", dt_name, out,
+                     ref.paged_attention_split_ref(q, kp, vp, block, ln,
+                                                   keys),
+                     pa.paged_attention(q, kp, vp, block, ln,
+                                        kv_lens=short), mean=False)
+            del q, kp, vp, out
+    for line in lines:
+        print(f"  {line}")
+    print(f"hd 80 vs plain (2f): flash_fwd_tc<80> max err "
+          f"{worst['flash']:.3g}, paged split + chunk_tc<80> max err "
+          f"{worst['paged']:.3g} (bf16: 3e-2 x max |plain| for the T=1 "
+          "flash read of 513 keys, else 3e-2; f32 on the CUDA-core "
+          "instances 2e-5); every dropped last key tile rejected")
+    return worst["flash"], worst["paged"]
+
+
 def _fresh_memory():
     import gc
 
@@ -1875,6 +2070,207 @@ def phase_serve_whisper(smi: str):
         check(False, "whisper: the engine accepted slot_fused")
     _fresh_memory()
     return noncausal
+
+
+# The recurrent families at full width (3j, 3k): slot_fused, the
+# launcher's fallback (neither chunkable nor pageable).  Prompts of
+# 64-128 tokens bucket to 64 or 128 positions of a [4, 1024] batch cache.
+RECURRENT_SERVE = dict(max_batch=4, max_len=1024, k_max=8, pool_pages=256,
+                       page_size=16)
+# Parameters of the built trees (with their norms), which
+# ``ModelConfig.param_count()`` miscounts in both packages (ROADMAP §3).
+BUILT_PARAMS = {"zamba2-2.7b": 2_340_750_240, "rwkv6-1.6b": 1_583_941_632}
+# The plumbing check's bounds on the logits of a prefill (the scan) plus
+# teacher-forced decode steps against the cache-less forward's (the
+# chunked form), as a share of the largest logit.  In bf16 the two paths
+# round the residual stream at different places and the gap grows with
+# depth: at full width on the CPU, zamba's was 2^-8 of the largest logit
+# at 6 layers and 2^-5.6 at 18, rwkv's 2^-7.3 at 2 layers and 2^-5.5 at
+# 8, so bf16 is held to 2^-2 (a lost or misplaced state moves logits by
+# their own size).  The same weights in float32 are the sharp check.
+PLUMB_TOL = {"bfloat16": 2 ** -2, "float32": 2 ** -12}
+
+
+def recurrent_plumbing(model, params, T0: int, steps: int, forwards):
+    """A prefill of T0 tokens over a fresh cache (the scan over the
+    prompt; flash over zamba's rings) and ``steps`` teacher-forced decode
+    forwards at [B] positions (the paged kernel over the rings as
+    identity pages), against the cache-less forward over the same T0 +
+    steps tokens (the chunked form, a multiple of the chunk).  Returns
+    (launches of the cached path, logits error, max |logit|, share of
+    equal argmaxes)."""
+    import torch
+    from repro_torch.models.layers import unembed_matrix
+    from repro_torch.models.losses import full_logits
+    cfg = model.cfg
+    chunk = (cfg.ssm or cfg.rwkv).chunk
+    check((T0 + steps) % chunk == 0, "plumbing: the cache-less forward "
+                                     "would not take the chunked form")
+    g = torch.Generator(device="cuda").manual_seed(12)
+    B = 2
+    tokens = torch.randint(0, cfg.vocab_size, (B, T0 + steps), generator=g,
+                           device="cuda")
+    w = unembed_matrix(params["embed"], cfg).to(cfg.compute_dtype)
+    zero_counts(forwards)
+    with torch.no_grad():
+        caches = model.init_cache(B, RECURRENT_SERVE["max_len"])
+        h, caches, _ = model.forward(params, tokens[:, :T0], caches=caches,
+                                     cache_pos=0, start_pos=0)
+        have = [full_logits(h[:, -1:], w)]
+        for i in range(steps):
+            pos = torch.full((B,), T0 + i, dtype=torch.int32, device="cuda")
+            h, caches, _ = model.forward(
+                params, tokens[:, T0 + i:T0 + i + 1], caches=caches,
+                cache_pos=pos, start_pos=pos[:, None])
+            have.append(full_logits(h, w))
+        got = _counts()
+        got["forwards"] = forwards[0]
+        hidden, _, _ = model.forward(params, tokens)
+        want = full_logits(hidden[:, T0 - 1:], w).float()
+    have = torch.cat(have, 1).float()
+    check(bool(torch.isfinite(have).all() and torch.isfinite(want).all()),
+          f"{cfg.name}: non-finite logits")
+    err = (have - want).abs().max().item()
+    same = (have.argmax(-1) == want.argmax(-1)).float().mean().item()
+    return got, err, want.abs().max().item(), same
+
+
+def phase_serve_recurrent(arch: str, smi: str):
+    """3j (``zamba2-2.7b``: 54 mamba2 layers in 9 superblocks, each
+    opened by the one shared attention block over its own ring; d=2560,
+    32/32 heads of 80, SSM 80 heads of 64 with state 64, vocab 32000 tied)
+    and 3k (``rwkv6-1.6b``: 24 rwkv6 layers, d=2048, 32 heads of 64, d_ff
+    7168, vocab 65536 untied) at full width, bf16, seed-0 weights drawn on
+    the card a layer at a time; no cut.  (a) A plumbing check of the
+    port against itself (its values are held to the reference on the CPU
+    and in phase 5): the logits of a B=2 prefill of 124 tokens plus 4
+    teacher-forced decode steps within ``PLUMB_TOL`` of the largest
+    logit of the cache-less forward over the same 128 tokens, which runs
+    the chunked form, so both recurrence forms run on the card, in bf16
+    and with the same weights in float32 (the CUDA-core instances); zamba's
+    cached path launches flash once per superblock in the prefill and
+    the paged kernel (split + combine) once per superblock in each decode
+    step, rwkv's no attention kernel.  (b) ``slot_fused`` serves 4
+    requests of 64-128 tokens, 32 new each: every stream complete and
+    exactly-once, flash launches = 9 x prefills and paged = 9 x decode
+    forwards (0 and 0 for rwkv), no CUDA-core route, no watchdog catch,
+    ``dense_cache_bytes`` and the peak device memory printed.  (c) Where a
+    B=1 prefill's and a K=8 decode block's time goes, the recurrences
+    under their profiler ranges.  Returns (b)'s launches."""
+    import torch
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import tree
+    _fresh_memory()
+    before = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    model, params, forwards = full_width_model(arch)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    zamba = model._structure() == "zamba_hybrid"
+    n_attn = model._zamba_plan()[0] if zamba else 0
+    if zamba:
+        check(model._zamba_plan() == (9, 6), f"zamba plan "
+                                             f"{model._zamba_plan()}")
+    n_params = sum(t.numel() for t in tree.flatten(params)[0])
+    check(n_params == BUILT_PARAMS[arch],
+          f"{arch} params {n_params} != {BUILT_PARAMS[arch]}")
+    shape = (f"{cfg.num_layers} mamba2 layers in {n_attn} superblocks, "
+             f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+             f"{cfg.head_dim_} in the shared block" if zamba
+             else f"{cfg.num_layers} rwkv6 layers, "
+                  f"{cfg.d_model // cfg.rwkv.head_dim} heads of "
+                  f"{cfg.rwkv.head_dim}, d_ff {cfg.d_ff}")
+    print(f"{arch} main path ({shape}, d={cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, bf16): {n_params} params built "
+          f"(param_count() gives {cfg.param_count()}, ROADMAP §3), drawn "
+          f"in {time.monotonic() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card; "
+          f"{before / 1e9:.2f} GB held before [{smi}]")
+    # (a) plumbing, in bf16 and with the weights in float32.
+    T0, steps = 124, 4
+    got, err, scale, same = recurrent_plumbing(model, params, T0, steps,
+                                               forwards)
+    check(got["forwards"] == steps + 1 and got["causal"] == n_attn
+          and got["paged"] == n_attn * steps
+          and got["combine"] == n_attn * steps and got["noncausal"] == 0
+          and got["simt"] == 0,
+          f"{arch} model path: launches {got}")
+    f32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    f32_params = _to_dtype(params, torch.float32)
+    _, err32, scale32, same32 = recurrent_plumbing(f32, f32_params, T0,
+                                                   steps, [0, 0])
+    del f32, f32_params
+    _fresh_memory()
+    for dt, e, sc, sm in (("bfloat16", err, scale, same),
+                          ("float32", err32, scale32, same32)):
+        bound = PLUMB_TOL[dt]
+        check(e <= bound * sc, f"{arch} {dt}: cached logits {e} from the "
+                               f"cache-less forward's (bound "
+                               f"2^{math.log2(bound):.0f} x {sc:.3f})")
+        print(f"  {arch} model path {dt}: prefill B=2 T={T0} (scan) + "
+              f"{steps} decode steps, logits within {e:.4g} of the "
+              f"cache-less forward's over {T0 + steps} tokens (chunked "
+              f"form; bound 2^{math.log2(bound):.0f} x max |logit| "
+              f"{sc:.3f}), argmax equal at {sm:.3f} of the positions")
+    print(f"  {arch} model path bf16 launches {got}")
+    # (b) served.
+    work = gemma_workload(cfg.vocab_size, (64, 100, 128, 80))
+    eng = ServeEngine(model, params, n_clients=len(work),
+                      scheduler="slot_fused", **RECURRENT_SERVE)
+    dense = eng.dense_cache_bytes()
+    torch.cuda.reset_peak_memory_stats()
+    launches, n_fwd, *_ = serve_run(eng, work, 32, forwards, smi,
+                                    f"{arch} slot_fused")
+    st = eng.stats
+    fl, pl = launches["flash_attention"], launches["paged_attention"]
+    check(st["prefills"] == len(work)
+          and n_fwd == st["prefills"] + st["decode_steps"]
+          and fl == n_attn * st["prefills"]
+          and pl == n_attn * st["decode_steps"]
+          and launches["paged_combine"] == n_attn * forwards[1]
+          and launches["flash_noncausal"] == launches["paged_ring"] == 0,
+          f"{arch} slot_fused: launches {launches}, prefills "
+          f"{st['prefills']}, decode steps {st['decode_steps']}")
+    print(f"  {arch} slot_fused: forwards {n_fwd} ({st['prefills']} "
+          f"prefills, {st['decode_steps']} decode steps), flash {fl} = "
+          f"{n_attn} x prefills, paged {pl} = {n_attn} x decode steps, "
+          f"dense cache {dense / 1e6:.1f} MB, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del eng
+    _fresh_memory()
+    phase_split_recurrent(model, params, smi)
+    return {"flash": fl, "paged": pl}
+
+
+def phase_split_recurrent(model, params, smi: str):
+    """Where a slot_fused B=1 prefill of 128 tokens (the scan, with
+    zamba's flash) and a K=8 decode block at B=4 (rows at 65-160, zamba's
+    rings read by the paged kernel) spend their time; the recurrences
+    are the ranges ``mamba.ssd`` and ``rwkv.wkv``."""
+    import torch
+    cfg = model.cfg
+    vocab, B = cfg.vocab_size, RECURRENT_SERVE["max_batch"]
+    max_len = RECURRENT_SERVE["max_len"]
+    g = torch.Generator(device="cuda").manual_seed(13)
+    caches = model.init_cache(B, max_len)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    pos = torch.randint(65, 161, (B,), generator=g, device="cuda").to(
+        torch.int32)
+    cur = torch.randint(0, vocab, (B,), generator=g, device="cuda").to(
+        torch.int32)
+    rem, eos = torch.full((B,), 1000, **i32), torch.full((B,), -1, **i32)
+    prompt = torch.randint(0, vocab, (1, 128), generator=g,
+                           device="cuda").to(torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    profile_split((
+        (f"{cfg.name} slot_fused prefill B=1 T=128", 1,
+         lambda: model.prefill(params, prompt, max_len)),
+        (f"{cfg.name} slot_fused decode block K=8 B=4", 8,
+         lambda: model.decode_loop(params, caches, cur, pos, rem, eos, k=8,
+                                   max_len=max_len))), smi)
+    print(f"  {cfg.name} time split: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
 
 def parity_cross(arch: str, scale: float = 3.0):
@@ -2510,7 +2906,8 @@ def phase_parity():
     with prompts of up to 30 tokens and 16-token chunks, so its 8-slot
     local rings wrap in prefill, in chunks and in decode; llama-vision
     and whisper (weights x3) through an image- or frame-conditioned
-    prefill + decode and under slot_chunked."""
+    prefill + decode and under slot_chunked; zamba and rwkv (weights x3)
+    under slot_fused, slot and wave."""
     for arch, scheds, scale in (
             ("smollm-135m", ("slot_paged", "slot_fused", "wave"), 1.0),
             ("olmoe-1b-7b", ("slot_paged", "slot_fused"), 3.0)):
@@ -2521,6 +2918,9 @@ def phase_parity():
     for arch in ("llama-3.2-vision-11b", "whisper-tiny"):
         parity_cross(arch)
     lap("5 parity (llama-vision, whisper)")
+    for arch in ("zamba2-2.7b", "rwkv6-1.6b"):
+        parity(arch, ("slot_fused", "slot", "wave"), 3.0)
+    lap("5 parity (zamba, rwkv)")
 
 
 def parity(arch: str, scheds, scale: float, prompt_extra=(0,),
@@ -2928,6 +3328,85 @@ def phase_timing_flash(launches: int, max_err: float, smi: str):
             "plain_ms": t_plain, "bound_ms": bound, "bound_by": by,
             "library_ms": t_sdpa}
 
+def phase_timing_hd80(launches: dict, flash_err: float, paged_err: float,
+                      smi: str):
+    """zamba2-2.7b's shared attention at head_dim 80 (32/32 heads), bf16,
+    over its 9 superblocks' [1, 1024] and [4, 1024] rings (cycled, as the
+    served model reads them): the flash prefill at B=1, T=S=256 and the
+    dense-ring decode read at B=4 (the paged kernel's split route over
+    64-token identity pages, rows at 65-160 as 3j's served rows), each
+    beside its bound, its plain version and SDPA on the same shape (on
+    gathered K/V for the paged read).  Returns the two JSON rows, with
+    3j's served launches."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    h = HD80
+    H, Hkv, hd, size, ps = h["H"], h["Hkv"], h["hd"], h["size"], h["ps"]
+    n = 9
+    g = torch.Generator(device="cuda").manual_seed(530)
+
+    def rings(B):
+        shape = (n, B, size, Hkv, hd)
+        return tuple(torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+
+    T = S = 256
+    rk, rv = rings(1)
+    views = [(rk[i][:, :S], rv[i][:, :S]) for i in range(n)]
+    tviews = [(k.transpose(1, 2), v.transpose(1, 2)) for k, v in views]
+    q = torch.randn((1, T, H, hd), generator=g, device="cuda").to(
+        torch.bfloat16)
+    qt = q.transpose(1, 2)
+    before = fa.launches
+    t_kern = timed(lambda i: fa.flash_attention(q, *views[i % n]))
+    t_plain = timed(lambda i: ref.flash_attention_ref(q, *views[i % n]),
+                    inner=10)
+    t_sdpa = timed(lambda i: F.scaled_dot_product_attention(
+        qt, *tviews[i % n], is_causal=True), inner=10)
+    fa.launches = before                    # timing launches are not counted
+    nbytes, flops = flash_work(1, T, S, H, Hkv, hd, 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    bound = max(t_bytes, t_ops)
+    print(f"flash_attention hd 80, zamba prefill B=1 T={T} S={S} (H={H}, "
+          f"Hkv={Hkv}, hd={hd}, causal, bf16, ring slice): kernel "
+          f"{t_kern:.4f} ms ({flops / t_kern / 1e9:.1f} TFLOP/s), bound "
+          f"{bound:.5f} ms ({by}: {nbytes / 1e6:.3f} MB, "
+          f"{flops / 1e9:.4f} GFLOP), plain {t_plain:.4f} ms, library "
+          f"(SDPA, not used by the port) {t_sdpa:.4f} ms [{smi}]")
+    flash_row = {"name": "flash_attention_hd80", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention.py:137",
+                 "launches": launches["flash"], "max_abs_err": flash_err,
+                 "ms": t_kern, "plain_ms": t_plain, "bound_ms": bound,
+                 "bound_by": by, "library_ms": t_sdpa}
+    del rk, rv, views, tviews, q, qt
+    B = 4
+    rk, rv = rings(B)
+    P = size // ps
+    pviews = [(rk[i].view(B * P, ps, Hkv, hd), rv[i].view(B * P, ps, Hkv,
+                                                          hd))
+              for i in range(n)]
+    block = torch.arange(B * P, dtype=torch.int32, device="cuda").view(B, P)
+    lens = torch.tensor([65, 100, 129, 160], dtype=torch.int32,
+                        device="cuda")
+    q = torch.randn((B, 1, H, hd), generator=g, device="cuda").to(
+        torch.bfloat16)
+    t_kern, t_plain, bound, by = paged_timing_row(
+        f"hd 80, zamba dense-ring decode T=1 B={B}", q, pviews, block, lens,
+        smi)
+    paged_row = {"name": "paged_attention_hd80", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+                 "replaces": "src/repro/kernels/paged_attention.py:152",
+                 "launches": launches["paged"], "max_abs_err": paged_err,
+                 "ms": t_kern, "plain_ms": t_plain, "bound_ms": bound,
+                 "bound_by": by, "library_ms": None}
+    return [flash_row, paged_row]
+
+
 NBB_TIMING = ((512, 1024, 512), (4096, 4096, 4096))
 
 
@@ -3086,9 +3565,9 @@ TRAIN = dict(steps=20, resume_steps=5, ckpt_every=10)
 
 # The port's profiler ranges (``torch.profiler.record_function``): the
 # flash backward, the optimizer, the fill of paged rows that see no key,
-# and the expert mixture.
+# the expert mixture, and the two recurrences.
 RANGES = ("flash_attention_trainable.backward", "adamw.update",
-          "attention.fill_unseen", "moe.block")
+          "attention.fill_unseen", "moe.block", "mamba.ssd", "rwkv.wkv")
 
 
 def range_ms(prof) -> dict:
@@ -3099,16 +3578,24 @@ def range_ms(prof) -> dict:
     subtree under one key), and a host-side subtree misses kernels
     launched outside an aten op (the flash backward's, through ctypes on
     the autograd thread), so neither is used."""
+    import bisect
+    import itertools
+
     from torch.autograd import DeviceType
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    kernels = [(e.time_range.start, e.time_range.end) for e in dev
-               if e.name not in RANGES]
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in dev
+                     if e.name not in RANGES)
+    starts = [k0 for k0, _ in kernels]
+    # Prefix sums of the kernels' durations in start order: a range's
+    # kernels (those starting inside it) are one slice, found by bisection
+    # (a decode block has hundreds of ranges and ten thousands of kernels).
+    total = [0, *itertools.accumulate(k1 - k0 for k0, k1 in kernels)]
     out = {}
     for e in dev:
         if e.name in RANGES:
-            a, b = e.time_range.start, e.time_range.end
-            out[e.name] = out.get(e.name, 0.0) + sum(
-                k1 - k0 for k0, k1 in kernels if a <= k0 < b) / 1e3
+            a = bisect.bisect_left(starts, e.time_range.start)
+            b = bisect.bisect_left(starts, e.time_range.end)
+            out[e.name] = out.get(e.name, 0.0) + (total[b] - total[a]) / 1e3
     return out
 
 
@@ -3325,6 +3812,8 @@ def main() -> int:
     lap("2-2d kernels vs plain")
     noncausal_err = phase_compare_noncausal()
     lap("2e non-causal flash vs plain")
+    hd80_flash_err, hd80_paged_err = phase_compare_hd80()
+    lap("2f hd 80 vs plain")
     model, params, forwards = full_width_model()
     paged_launches = phase_serve(model, params, forwards, smi)
     phase_split(model, params, smi)
@@ -3344,6 +3833,10 @@ def main() -> int:
     lap("3h llama-vision")
     noncausal_launches += phase_serve_whisper(smi)
     lap("3i whisper")
+    hd80_launches = phase_serve_recurrent("zamba2-2.7b", smi)
+    lap("3j zamba")
+    phase_serve_recurrent("rwkv6-1.6b", smi)
+    lap("3k rwkv")
     phase_parity()
     train_launches, train_bwd_launches = phase_train(smi)
     phase_train_parity()
@@ -3360,7 +3853,9 @@ def main() -> int:
                    max(trainable_out_err, trainable_grad_err), smi),
                phase_timing_flash_bwd(train_bwd_launches,
                                       trainable_grad_err, smi),
-               phase_timing_nbb(nbb_launches, nbb_err, smi)]
+               phase_timing_nbb(nbb_launches, nbb_err, smi),
+               *phase_timing_hd80(hd80_launches, hd80_flash_err,
+                                  hd80_paged_err, smi)]
     lap("6 timing")
     print(f"chip smoke: {time.monotonic() - t0:.1f} s")
     print(f"nvidia-smi: {smi}")

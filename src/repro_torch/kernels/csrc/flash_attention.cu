@@ -26,7 +26,7 @@
 //
 // Two instances:
 //
-// * bf16, head_dim 16/32/64/128, 16-byte aligned rows: `flash_fwd_tc`.
+// * bf16, head_dim 16/32/64/80/128, 16-byte aligned rows: `flash_fwd_tc`.
 //   One block per (64 query rows, query head, b), 4 warps of 16 rows (one
 //   warp per 16 rows when T is shorter); the g heads that share a kv head
 //   are neighbouring blocks and read its K/V tiles from L2.  K/V tiles of
@@ -42,7 +42,10 @@
 //   element by element), exponentials go to the special-function unit
 //   (ex2.approx), and the heaviest causal q tiles launch first.  The kv
 //   loop runs from the window's left edge to the causal diagonal.  No
-//   wgmma/TMA yet (ROADMAP).
+//   wgmma/TMA yet (ROADMAP).  hd 80 (zamba2-2.7b's shared attention) is
+//   five 16-wide k-steps of QK^T and five n-tile pairs of PV; its 160-byte
+//   rows are ten 16-byte copies, padded to 88 elements (176 bytes: the 8
+//   rows an ldmatrix reads start in 8 distinct 16-byte bank groups).
 // * float32 (and bf16 outside the cases above): `flash_fwd_simt`, the
 //   first, CUDA-core design.  f32 FMA, so the f32 checks (1e-4) hold:
 //   TF32 keeps ~3 digits.  One block per (q tile, kv head, b) holds
@@ -482,7 +485,7 @@ int flash_attention_max_rows(int hd) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  route: 0 = CUDA cores (block_q
-// used), 1 = tensor cores (bf16, hd 16/32/64/128, every row 16-byte
+// used), 1 = tensor cores (bf16, hd 16/32/64/80/128, every row 16-byte
 // aligned: the wrapper checks).  lse: [B,H,T] f32 or null.  Strides are in
 // elements; the head_dim stride of q, k, v and out must be 1.  Returns a
 // cudaError_t (0 = ok).
@@ -513,6 +516,7 @@ int flash_attention_launch(
       case 16: return launch_tc<16>(p, B, s);
       case 32: return launch_tc<32>(p, B, s);
       case 64: return launch_tc<64>(p, B, s);
+      case 80: return launch_tc<80>(p, B, s);
       case 128: return launch_tc<128>(p, B, s);
       default: return cudaErrorInvalidValue;
     }

@@ -74,15 +74,18 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Copy `rows` rows of HD bf16 (row r at src + r * stride) into the padded
-// tile dst; rows at or past `valid` are zero-filled.  Every thread of the
-// block takes part, each on one fixed 16-byte column of every
-// (blockDim / (HD / 8))-th row, so its addresses only step.
+// tile dst; rows at or past `valid` are zero-filled.  The first
+// dr * (HD / 8) threads of the block take part, dr = blockDim / (HD / 8),
+// each on one fixed 16-byte column of every dr-th row, so its addresses
+// only step.  At HD 80 (10 columns) the last blockDim % 10 threads copy
+// nothing: they would repeat another thread's rows.
 template <int HD>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
                                           long long stride, int rows,
                                           int valid, const void* mapped) {
   constexpr int LD = HD + 8, CH = HD / 8;
   const int c = threadIdx.x % CH, dr = blockDim.x / CH;
+  if (threadIdx.x >= dr * CH) return;
   const bf16* s = src + (threadIdx.x / CH) * stride + c * 8;
   bf16* d = dst + (threadIdx.x / CH) * LD + c * 8;
   const long long step = dr * stride;

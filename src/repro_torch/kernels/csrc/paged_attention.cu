@@ -38,8 +38,9 @@
 // chunked prefill (T=64, g=3) reuses each key for g*T = 192 rows, still
 // under the line, but too much arithmetic for the CUDA cores.
 //
-// Three routes (the wrapper picks one; head_dim 16/32/64/128 with 16-byte
-// aligned rows for the first two):
+// Three routes (the wrapper picks one; head_dim 16/32/64/80/128 with
+// 16-byte aligned rows for the first two; hd 80 is zamba2-2.7b's shared
+// attention, its rows ten 16-byte copies):
 //
 // * split (g*T <= kSplitRows: decode), float32 and bf16: flash-decoding.
 //   Grid (split, kv head, b): each split walks a fixed run of split_keys
@@ -591,9 +592,10 @@ constexpr int chunk_smem_bytes() {
 }
 
 // Keys kb .. kb+63 of kv head base (one 16-byte column per thread, every
-// (blockDim / (HD / 8))-th row) into the padded tile dst, each row found
-// through the block table (logical key -> slot_of); keys at or past `end`
-// are zero-filled, unread.
+// (blockDim / (HD / 8))-th row; at HD 80 the last blockDim % 10 threads
+// copy nothing) into the padded tile dst, each row found through the block
+// table (logical key -> slot_of); keys at or past `end` are zero-filled,
+// unread.
 template <int HD>
 __device__ __forceinline__ void load_page_rows(bf16* dst, const bf16* base,
                                                long long sp, long long st,
@@ -602,6 +604,7 @@ __device__ __forceinline__ void load_page_rows(bf16* dst, const bf16* base,
                                                int end) {
   constexpr int LD = HD + 8, CH = HD / 8;
   const int c = threadIdx.x % CH, dr = blockDim.x / CH;
+  if (threadIdx.x >= dr * CH) return;
   for (int r = threadIdx.x / CH; r < kChunkKeys; r += dr) {
     const int key = kb + r;
     const bool valid = key < end;
@@ -863,6 +866,7 @@ cudaError_t launch_split_hd(const Params& p, int B, cudaStream_t s) {
     case 16: return launch_split<T, 16>(p, B, s);
     case 32: return launch_split<T, 32>(p, B, s);
     case 64: return launch_split<T, 64>(p, B, s);
+    case 80: return launch_split<T, 80>(p, B, s);
     case 128: return launch_split<T, 128>(p, B, s);
   }
   return cudaErrorInvalidValue;
@@ -873,6 +877,7 @@ cudaError_t launch_chunk_hd(const Params& p, int B, cudaStream_t s) {
     case 16: return launch_chunk<16>(p, B, s);
     case 32: return launch_chunk<32>(p, B, s);
     case 64: return launch_chunk<64>(p, B, s);
+    case 80: return launch_chunk<80>(p, B, s);
     case 128: return launch_chunk<128>(p, B, s);
   }
   return cudaErrorInvalidValue;

@@ -45,7 +45,7 @@ ring_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("simt", "split", "chunk_tc")
-_FAST_HEAD_DIMS = (16, 32, 64, 128)
+_FAST_HEAD_DIMS = (16, 32, 64, 80, 128)
 # The split route's limits, fixed in the source (checked at load): query
 # rows g*T a block holds, and keys per tile (split_keys is a multiple).
 SPLIT_ROWS = 16
@@ -98,8 +98,8 @@ def route(q: torch.Tensor, k_pages: torch.Tensor,
           v_pages: torch.Tensor) -> str:
     """The kernel route for these operands: ``split`` when the g*T query
     rows of a kv head fit one split block (decode), else ``chunk_tc`` for
-    bf16; both need a head_dim of 16, 32, 64 or 128 and 16-byte aligned
-    rows.  Everything else takes ``simt``."""
+    bf16; both need a head_dim of 16, 32, 64, 80 or 128 and 16-byte
+    aligned rows.  Everything else takes ``simt``."""
     B, T, H, hd = q.shape
     g = H // k_pages.shape[2]
     if hd not in _FAST_HEAD_DIMS or not all(

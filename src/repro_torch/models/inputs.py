@@ -60,7 +60,9 @@ def prefill_specs(cfg: ModelConfig, shape: ShapeConfig
 def decode_specs(cfg: ModelConfig, shape: ShapeConfig, model
                  ) -> Dict[str, Any]:
     """Inputs of one decode step: a [B, 1] token, a [B] position and the
-    cache of ``seq_len`` positions (``init_cache`` on the meta device)."""
+    cache of ``seq_len`` positions (``init_cache`` on the meta device:
+    rings in the compute dtype and, for the recurrent families, their
+    conv or token-shift state beside the float32 recurrent state)."""
     B, S = shape.global_batch, shape.seq_len
     return {"caches": model.init_cache(B, S, device="meta"),
             "tokens": _spec((B, 1), torch.int32),

@@ -1,0 +1,121 @@
+"""Linear attention with data-dependent per-channel decay, the recurrence
+both recurrent families share (the JAX package's
+``models/linear_attention.py``):
+
+  * Mamba2 / SSD (zamba2): scalar-per-head decay, q=C, k=B, v=dt*x;
+  * RWKV-6 "Finch": per-key-channel decay w_t, receptance r as q, bonus u.
+
+Recurrence over a state S_t in R^{N x P} (N key/state channels, P value):
+
+    S_t = diag(exp(ld_t)) S_{t-1} + k_t v_t^T
+    y_t = q_t^T S_t                                  (decay_at_readout)
+    y_t = q_t^T (S_{t-1} + diag(u) k_t v_t^T)        (rwkv)
+
+Two forms of the same function, plain tensor code (no kernel: the
+reference leaves both to XLA): :func:`decay_linear_attention_scan`, a
+loop over tokens, and :func:`decay_linear_attention_chunked`, a loop over
+chunks of matrix products, which separates the decay as exp(L_t - L_s) =
+exp(L_t) exp(-L_s) with L the running log-decay sum.  ``ld`` is clamped
+to ``[-clamp, 0]`` per step in both, so exp(-L) stays inside the float32
+range over a chunk (``clamp * chunk <= 80``).  State and sums are float32;
+outputs take v's dtype.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def _clamp(ld: torch.Tensor, clamp: float) -> torch.Tensor:
+    return torch.clamp(ld, -clamp, 0.0)
+
+
+def _state0(initial_state: Optional[torch.Tensor], B: int, H: int, N: int,
+            P: int, device) -> torch.Tensor:
+    if initial_state is None:
+        return torch.zeros((B, H, N, P), dtype=torch.float32, device=device)
+    return initial_state.float()
+
+
+def decay_linear_attention_scan(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Tensor,
+    u: Optional[torch.Tensor] = None,
+    initial_state: Optional[torch.Tensor] = None,
+    decay_at_readout: bool = True,
+    clamp: float = 5.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sequential form, one token a step (decode, and every call with
+    a cache).
+
+    q, k: [B, T, H, N]; v: [B, T, H, P]; ld: [B, T, H, N] log decay
+    (<= 0); u: [H, N] bonus (rwkv) or None (mamba).
+    Returns y [B, T, H, P] in v's dtype and the final state [B, H, N, P]
+    float32."""
+    B, T, H, N = q.shape
+    P = v.shape[-1]
+    decay = torch.exp(_clamp(ld.float(), clamp))[..., None]   # [B,T,H,N,1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    bonus = None if u is None else u.float()[None, :, :, None]
+    S = _state0(initial_state, B, H, N, P, q.device)
+    ys = []
+    for t in range(T):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]      # [B,H,N,P]
+        if decay_at_readout:
+            S = decay[:, t] * S + kv
+            read = S
+        else:
+            read = S + (kv if bonus is None else bonus * kv)
+            S = decay[:, t] * S + kv
+        ys.append(torch.einsum("bhn,bhnp->bhp", qf[:, t], read))
+    return torch.stack(ys, dim=1).to(v.dtype), S
+
+
+def decay_linear_attention_chunked(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Tensor,
+    u: Optional[torch.Tensor] = None,
+    initial_state: Optional[torch.Tensor] = None,
+    decay_at_readout: bool = True,
+    chunk: int = 64,
+    clamp: float = 1.25,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunk-parallel form: shapes as :func:`decay_linear_attention_scan`,
+    ``T % chunk == 0``.  Inside a chunk, decay-scaled q and k meet in one
+    masked matrix product; the state is read once per chunk and handed to
+    the next."""
+    B, T, H, N = q.shape
+    P = v.shape[-1]
+    assert T % chunk == 0, (T, chunk)
+    assert clamp * chunk <= 80.0, "decay clamp too loose for f32 exp range"
+    C, NC = chunk, T // chunk
+
+    def chunks(x):
+        return x.float().reshape(B, NC, C, H, x.shape[-1])
+
+    qc, kc, vc = chunks(q), chunks(k), chunks(v)
+    ldc = _clamp(chunks(ld), clamp)
+    bonus = None if u is None else u.float()
+    S = _state0(initial_state, B, H, N, P, q.device)
+    causal = torch.tril(torch.ones((C, C), dtype=torch.bool,
+                                   device=q.device),
+                        0 if decay_at_readout else -1)
+    ys = []
+    for c in range(NC):
+        qi, ki, vi, ldi = qc[:, c], kc[:, c], vc[:, c], ldc[:, c]
+        L = torch.cumsum(ldi, dim=1)                    # inclusive [B,C,H,N]
+        Lq = L if decay_at_readout else L - ldi         # rwkv: pre-decay
+        q_in = qi * torch.exp(Lq)
+        k_out = ki * torch.exp(-L)
+        A = torch.einsum("bthn,bshn->bhts", q_in, k_out)
+        A = torch.where(causal, A, 0.0)
+        y = torch.einsum("bhts,bshp->bthp", A, vi)
+        if bonus is not None:
+            # The rwkv diagonal: the current token with weight u.
+            y = y + (qi * bonus * ki).sum(-1, keepdim=True) * vi
+        y = y + torch.einsum("bthn,bhnp->bthp", q_in, S)
+        Ltot = L[:, -1]                                 # [B,H,N]
+        k_tail = ki * torch.exp(Ltot[:, None] - L)
+        S = (torch.exp(Ltot)[..., None] * S
+             + torch.einsum("bthn,bthp->bhnp", k_tail, vi))
+        ys.append(y)
+    return torch.cat(ys, dim=1).to(v.dtype), S

@@ -1,7 +1,9 @@
-"""Model assembly for the uniform-attention (``smollm-135m``),
-mixture-of-experts (``olmoe-1b-7b``, ``arctic-480b``), local:global
-(``gemma3-27b``) and cross-attention (``llama-3.2-vision-11b``: vlm_cross;
-``whisper-tiny``: enc_dec) families.
+"""Model assembly for every family of the JAX package: uniform attention
+(``smollm-135m``), mixture-of-experts (``olmoe-1b-7b``, ``arctic-480b``),
+local:global (``gemma3-27b``), cross-attention (``llama-3.2-vision-11b``:
+vlm_cross; ``whisper-tiny``: enc_dec) and the recurrent ones
+(``zamba2-2.7b``: mamba2 layers around one shared attention block;
+``rwkv6-1.6b``: uniform rwkv6 layers).
 
 ``build_model(cfg, remat_policy="nothing", device=None)`` returns a
 :class:`Model` exposing the JAX package's training and serving surface
@@ -28,9 +30,10 @@ rings (``init_cache``: ``{"k", "v"}`` of ``[L, B, size, Hkv, hd]``, or
 for the local:global family the JAX package's tree of local rings of
 ``min(W, max_len)`` slots and global rings of ``max_len``; for the
 cross-attention families self rings beside static cross K/V of the
-source's length, which ``fill_cross_cache`` writes).  Both are
-updated in place, so the returned cache is the one passed in.  A scalar
-position (prefill, lockstep wave decode) is a Python int; per-row
+source's length, which ``fill_cross_cache`` writes; for the recurrent
+families their per-layer state, beside zamba's superblock rings).  Both
+are updated in place, so the returned cache is the one passed in.  A
+scalar position (prefill, lockstep wave decode) is a Python int; per-row
 positions are a [B] tensor.  The layer stack is a Python loop (the JAX
 package's ``lax.scan``); without a cache and with gradients on, each
 layer runs under the remat policy.  Entry points
@@ -49,6 +52,8 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.models import mamba2 as m2
+from repro_torch.models import rwkv6 as rw
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (attend_static, attention, cross_kv,
                                        embed, init_kv_cache, is_paged, mlp,
@@ -112,12 +117,39 @@ def moe_layer(p: Params, cfg: ModelConfig, x, positions, cache=None,
     return x + y, cache, aux
 
 
+def mamba_layer(p: Params, cfg: ModelConfig, x, cache=None):
+    """Pre-norm mamba2 mixer (zamba's layers, ``model.py:162-166`` of the
+    JAX package): (x, new cache or None)."""
+    y, cache = m2.mamba2_block(p["mixer"], cfg,
+                               rms_norm(p["ln"], x, cfg.norm_eps), cache)
+    return x + y, cache
+
+
+def rwkv_layer(p: Params, cfg: ModelConfig, x, cache=None):
+    """Time-mix, then channel-mix, each pre-norm (``model.py:174-186``
+    there): (x, new cache or None)."""
+    y, c1 = rw.rwkv6_time_mix(p["rwkv"], cfg,
+                              rms_norm(p["ln1"], x, cfg.norm_eps), cache)
+    x = x + y
+    y, c2 = rw.rwkv6_channel_mix(p["rwkv"], cfg,
+                                 rms_norm(p["ln2"], x, cfg.norm_eps), cache)
+    return x + y, None if cache is None else {**c1, **c2}
+
+
 def _block(p: Params, cfg: ModelConfig, x, positions, window=0, cache=None,
            cache_pos=None, write_mask=None, kv_source=None, cross=False):
     """One layer of any family: (x, cache, aux); aux is None but under
     MoE.  ``window`` is the layer's sliding window (0: global).  A
     ``cross`` layer attends over ``kv_source`` without a cache and over
-    its static K/V with one."""
+    its static K/V with one.  A recurrent layer's new state is copied
+    into its cache in place."""
+    if "mixer" in p or "rwkv" in p:
+        fn = mamba_layer if "mixer" in p else rwkv_layer
+        x, new = fn(p, cfg, x, cache)
+        if cache is not None:
+            for name, t in new.items():
+                cache[name].copy_(t)
+        return x, cache, None
     if "moe" in p:
         return moe_layer(p, cfg, x, positions, cache, cache_pos, write_mask)
     if cross and cache is not None:
@@ -194,17 +226,30 @@ class Model:
         nsb = self.cfg.num_layers // (per + 1)
         return per, nsb, self.cfg.num_layers - nsb * (per + 1)
 
+    def _zamba_plan(self):
+        """(superblocks, mamba layers per superblock), as the JAX
+        package's ``_zamba_plan`` (``model.py:284-288`` there): (9, 6) for
+        zamba2-2.7b, each superblock the shared attention block, then its
+        6 mamba layers."""
+        per = self.cfg.attn_every
+        nsb = self.cfg.num_layers // per
+        if nsb * per != self.cfg.num_layers:
+            raise ValueError(f"{self.cfg.name}: {self.cfg.num_layers} layers "
+                             f"are not superblocks of {per}")
+        return nsb, per
+
     # -- parameters ----------------------------------------------------------
     def init(self, generator: torch.Generator) -> Params:
         """Random weights with the JAX package's distribution
         (``ParamBuilder``): fan-in-scaled normal for projections, unit
-        normal for the embedding, ones for norms.  Drawn in float32 on the
-        generator's device, then cast to the compute dtype on the model's
-        device: every layer-stacked leaf one layer at a time, and an
-        embedding table of more than 2^28 entries in pieces of rows, so
-        the float32 transient is one layer's (olmoe's whole expert
-        ``wi_gate`` would be 8.6 GB, gemma3-27b's ``wi_gate`` stack 28.7
-        GB and its table 5.6 GB).  The numbers differ from
+        normal for the embedding, ones for norms, and the recurrent
+        layers' own ``scale=`` normals and ``zero=`` leaves.  Drawn in
+        float32 on the generator's device, then cast to the compute dtype
+        on the model's device: every layer-stacked leaf one layer at a
+        time, and an embedding table of more than 2^28 entries in pieces
+        of rows, so the float32 transient is one layer's (olmoe's whole
+        expert ``wi_gate`` would be 8.6 GB, gemma3-27b's ``wi_gate``
+        stack 28.7 GB and its table 5.6 GB).  The numbers differ from
         ``jax.random``'s."""
         cfg = self.cfg
         d, f = cfg.d_model, cfg.d_ff
@@ -217,14 +262,50 @@ class Model:
                             device=generator.device) * s
             return x.to(device=self.device, dtype=dt)
 
-        def stacked(lead, shape, fan_in):
+        def stacked(lead, shape, fan_in=None, scale=None):
             out = torch.empty(lead + shape, dtype=dt, device=self.device)
             for one in out.view((-1,) + shape):
-                one.copy_(normal(shape, fan_in))
+                one.copy_(normal(shape, fan_in, scale))
             return out
 
         def ones(*shape):
             return torch.ones(shape, dtype=dt, device=self.device)
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=dt, device=self.device)
+
+        def mamba_layers(*lead):
+            """``mamba_layer_params`` (``mamba2.py:30-47`` there)."""
+            ss, d_in, mh = m2._dims(cfg)
+            N, K, xbc = ss.state_dim, ss.conv_kernel, d_in + 2 * ss.state_dim
+            return {"ln": ones(*lead, d), "mixer": {
+                "in_proj": stacked(lead, (d, 2 * d_in + 2 * N + mh), d),
+                "conv_w": stacked(lead, (K, xbc), scale=K ** -0.5),
+                "conv_b": zeros(*lead, xbc),
+                "a_log": stacked(lead, (mh,), scale=1.0),
+                "dt_bias": stacked(lead, (mh,), scale=1.0),
+                "d_skip": stacked(lead, (mh,), scale=1.0),
+                "norm": stacked(lead, (d_in,), scale=1.0),
+                "out_proj": stacked(lead, (d_in, d), d_in)}}
+
+        def rwkv_layers(*lead):
+            """``rwkv_layer_params`` (``rwkv6.py:34-63`` there)."""
+            rh, rhd = rw._dims(cfg)
+            r = cfg.rwkv.decay_lora
+            half = {n: stacked(lead, (d,), scale=0.5) for n in (
+                "mix_r", "mix_k", "mix_v", "mix_g", "mix_w", "cmix_k",
+                "cmix_r")}
+            sq = {n: stacked(lead, (d, d), d)
+                  for n in ("wr", "wk", "wv", "wg", "wo", "cr")}
+            return {"ln1": ones(*lead, d), "ln2": ones(*lead, d), "rwkv": {
+                **half, **sq,
+                "w0": stacked(lead, (d,), scale=1.0),
+                "w_lora_a": stacked(lead, (d, r), d),
+                "w_lora_b": stacked(lead, (r, d), r),
+                "u_bonus": stacked(lead, (rh, rhd), scale=0.3),
+                "ln_x": stacked(lead, (d,), scale=1.0),
+                "ck": stacked(lead, (d, f), d),
+                "cv": stacked(lead, (f, d), f)}}
 
         def table():
             V = cfg.vocab_size
@@ -273,6 +354,12 @@ class Model:
             out["super"] = {"local": block(nsb, per), "global": block(nsb)}
             if tail:
                 out["tail"] = block(tail)
+        elif fam == "zamba_hybrid":
+            nsb, per = self._zamba_plan()
+            out["shared_attn"] = block()
+            out["super"] = mamba_layers(nsb, per)
+        elif fam == "uniform_rwkv":
+            out["layers"] = rwkv_layers(cfg.num_layers)
         else:
             L = cfg.num_layers
             layers = attn_layers(L)
@@ -306,17 +393,31 @@ class Model:
         of ``extras_len`` source positions (the image tokens or encoder
         frames by default), ``{"super": {"selfs": [nsb, per - 1, ...],
         "cross": [nsb, ...]}}`` (vlm_cross) or ``{"self": [L, ...],
-        "cross": [L, ...]}`` (enc_dec)."""
+        "cross": [L, ...]}`` (enc_dec); for the recurrent families their
+        state, ``{"shift_tm", "shift_cm", "wkv"}`` of ``[L, ...]`` (rwkv)
+        or ``{"super": {"attn": [nsb, ...], "mamba": {"conv", "ssm"} of
+        [nsb, per, ...]}}`` (zamba: a ring per superblock for the shared
+        attention block), the state float32."""
         cfg = self.cfg
         dev = self.device if device is None else device
         W = cfg.sliding_window
 
-        def rings(lead, window=0, size=max_len):
-            one = init_kv_cache(cfg, batch, size, window=window, device=dev)
+        def stack(lead, one):
             return {n: a.new_zeros(lead + tuple(a.shape))
                     for n, a in one.items()}
 
+        def rings(lead, window=0, size=max_len):
+            return stack(lead, init_kv_cache(cfg, batch, size, window=window,
+                                             device=dev))
+
         fam = self._structure()
+        if fam == "uniform_rwkv":
+            return stack((cfg.num_layers,),
+                         rw.init_rwkv_cache(cfg, batch, device=dev))
+        if fam == "zamba_hybrid":
+            nsb, per = self._zamba_plan()
+            return {"super": {"attn": rings((nsb,)), "mamba": stack(
+                (nsb, per), m2.init_mamba_cache(cfg, batch, device=dev))}}
         if fam == "vlm_cross":
             nsb, per, _ = self._vlm_plan()
             src = extras_len or cfg.num_image_tokens
@@ -377,9 +478,21 @@ class Model:
         the windowed tail (``model.py:393-432`` there); vlm_cross each
         superblock's self layers with its cross layer at ``cross_at``
         (``:457-492``); enc_dec each decoder layer's self block, then its
-        cross block (``:494-513``)."""
+        cross block (``:494-513``); zamba each superblock's shared
+        attention block over the superblock's own ring, then its mamba
+        layers (``:433-455``).  The shared block's parameters
+        (``("shared_attn",)``) carry no layer index."""
         cfg = self.cfg
         fam = self._structure()
+        if fam == "zamba_hybrid":
+            nsb, per = self._zamba_plan()
+            order = []
+            for s in range(nsb):
+                order.append((("shared_attn",), ("super", "attn"), (s,), 0,
+                              False))
+                order += [(("super",), ("super", "mamba"), (s, i), 0, False)
+                          for i in range(per)]
+            return order
         if fam == "vlm_cross":
             nsb, per, cross_at = self._vlm_plan()
             selfs, cross = ("super", "selfs"), ("super", "cross")
@@ -413,17 +526,18 @@ class Model:
     def _stack(self, params: Params, caches):
         """(layer params, its cache or None, its window, cross) for each
         layer in order: a self layer's dense ring comes with its identity
-        block table, a cross layer's static K/V with none (the paged view
-        never sees a cross cache)."""
+        block table, a cross layer's static K/V and a recurrent layer's
+        state with none (the paged view never sees either)."""
         for ppath, cpath, idx, window, cross in self._order():
             c = None
             if caches is not None:
                 c = _layer(functools.reduce(operator.getitem, cpath,
                                             caches), *idx)
-                if not cross:
+                if "k" in c and not cross:
                     c["block"] = self._ring_block(*c["k"].shape[:2])
-            yield (_layer(functools.reduce(operator.getitem, ppath, params),
-                          *idx), c, window, cross)
+            lp = functools.reduce(operator.getitem, ppath, params)
+            yield (lp if ppath == ("shared_attn",) else _layer(lp, *idx), c,
+                   window, cross)
 
     def _remat(self, fn, *args):
         """``fn(*args)`` under the remat policy when gradients are on."""
@@ -478,6 +592,11 @@ class Model:
         layer attends over (image embeddings, the encoder's output); with
         a cache it reads its static K/V instead."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if self._structure() == "zamba_hybrid":
+            # The shared block is called without a write mask
+            # (``model.py:437-440`` there); the family is not chunkable, so
+            # no dispatch of the engine passes one.
+            write_mask = None
         if caches is not None and is_paged(caches):
             for li in range(self.cfg.num_layers):
                 x, _, a = _block(_layer(params["layers"], li), self.cfg, x,
@@ -634,7 +753,12 @@ class Model:
                   the row is not admitting; nothing is written for it).
 
         Returns (next_tok [B] int32 after each row's last valid position,
-        caches)."""
+        caches).  A recurrent family raises, as in the JAX package: its
+        state folds every token in and cannot be write-masked."""
+        if not self.chunkable:
+            raise NotImplementedError(
+                f"{self.cfg.name}: chunked prefill needs position-indexed "
+                "caches; recurrent state cannot be write-masked")
         B, C = chunk.shape
         write_mask = (torch.arange(C, device=chunk.device)[None, :]
                       < n_valid[:, None])
@@ -687,10 +811,4 @@ def build_model(cfg: ModelConfig, remat_policy: str = "nothing",
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy {remat_policy!r} not in "
                          f"{REMAT_POLICIES}")
-    model = Model(cfg, resolve_device(device), remat_policy=remat_policy)
-    fam = model._structure()
-    if fam in ("zamba_hybrid", "uniform_rwkv"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {fam} family is not ported yet (ROADMAP, "
-            "'Still to port': zamba_hybrid and uniform_rwkv)")
-    return model
+    return Model(cfg, resolve_device(device), remat_policy=remat_policy)

@@ -5,7 +5,7 @@ prefill + 3 decode steps, with inputs from ``models/inputs.py``
 (finite, shaped, in range); the parameter tree's shapes equal to the
 reference's; and, at float32 on the same weights, logits within 2e-5 of
 the reference's (through the image or frame source where the family
-has one).  Families the port does not build yet are refused by name."""
+has one).  The port builds every family of the registry."""
 import dataclasses
 
 import numpy as np
@@ -33,8 +33,7 @@ from repro_torch.train.train_step import loss_and_grads  # noqa: E402
 jax.config.update("jax_platform_name", "cpu")
 
 SMOKE_SHAPE = ShapeConfig("smoke", "train", seq_len=16, global_batch=2)
-NOT_PORTED = {"zamba2-2.7b": "zamba_hybrid", "rwkv6-1.6b": "uniform_rwkv"}
-ARCHS = [a for a in list_archs() if a not in NOT_PORTED]
+ARCHS = list_archs()
 
 
 @pytest.fixture(scope="module")
@@ -58,11 +57,14 @@ def _finite(tree_) -> bool:
 
 
 def test_every_family_but_the_recurrent_ones_is_built():
-    assert {"llama-3.2-vision-11b", "whisper-tiny", "gemma3-27b",
-            "olmoe-1b-7b", "smollm-135m"} <= set(ARCHS)
-    for arch, fam in NOT_PORTED.items():
-        with pytest.raises(NotImplementedError, match=fam):
-            build_model(get_smoke_config(arch), device="cpu")
+    """Every family is built now, the recurrent ones included (the name
+    is the test's from before they were ported)."""
+    families = {build_model(get_smoke_config(a), device="cpu")._structure()
+                for a in ARCHS}
+    assert families == {"uniform_attn", "uniform_moe", "gemma_local_global",
+                        "vlm_cross", "enc_dec", "zamba_hybrid",
+                        "uniform_rwkv"}
+    assert {"zamba2-2.7b", "rwkv6-1.6b"} <= set(ARCHS)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -145,7 +147,8 @@ def test_logits_match_reference(arch):
                                atol=2e-5, rtol=2e-5)
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-14b", "stablelm-3b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-14b", "stablelm-3b",
+                                  "rwkv6-1.6b", "zamba2-2.7b"])
 def test_decode_matches_forward(arch, built):
     """Greedy decode from a filled cache agrees with the teacher-forced
     forward on the same prefix (incremental == batch computation)."""
@@ -166,7 +169,8 @@ def test_decode_matches_forward(arch, built):
             assert int(tok[0]) == int(want[0, i]), f"{arch}: position {i}"
 
 
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-tiny",
+                                  "zamba2-2.7b", "rwkv6-1.6b"])
 def test_input_specs_match_reference(arch):
     """Shapes and dtypes of every spec equal the JAX package's
     ``inputs`` at the same cell; nothing is allocated for a spec."""

@@ -11,7 +11,9 @@ the forward's log-sum-exp, the non-causal route at the cross and encoder
 shapes of llama-3.2-vision-11b and whisper-tiny; paged attention's written-key bound
 (``kv_lens``) at olmoe-1b-7b's shapes on all three routes, and its ring
 bound (a sliding-window ring read with wrap-around) at gemma3-27b's
-local-layer shapes on all three; the flash
+local-layer shapes on all three; the head_dim 80 instances (flash's
+forward, the paged split and chunk) at zamba2-2.7b's shared attention,
+each bound rejecting the output with its last key tile dropped; the flash
 backward kernel against
 ``ref.flash_attention_bwd_ref`` on every case with T <= S and at
 smollm's training shape, bit-identical from call to call; and
@@ -873,3 +875,120 @@ def test_flash_trainable_grads_on_card(cuda_device, B, T, H, Hkv, hd, kw):
     assert launched == [(1, 1), (0, 0)]
     for a, b in zip(*results):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# head_dim 80 (zamba2-2.7b's shared attention, 32/32 heads): the flash
+# forward's and the paged kernel's tensor-core instances.
+# ---------------------------------------------------------------------------
+def _hd80_ring(B, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn((B, 1024, 32, 80), generator=g, device=device)
+                 for _ in range(2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,S", [(1, 64, 64), (1, 257, 257),
+                                   (4, 1, 513)])
+def test_flash_hd80_on_card(cuda_device, B, T, S):
+    """bf16 at hd 80 takes ``flash_fwd_tc<80>`` (no CUDA-core launch),
+    bit-identical twice, within 3e-2 (3e-2 x max |plain| for the T=1
+    read, a mean over 513 keys) of the plain version over a ring slice;
+    the bound rejects the output with the last key tile dropped.  f32
+    takes the CUDA-core instance, within 2e-5."""
+    rk, rv = _hd80_ring(B, cuda_device, seed=T)
+    g = torch.Generator(device=cuda_device).manual_seed(S)
+    q = torch.randn((B, T, 32, 80), generator=g, device=cuda_device)
+    for dtype in (torch.bfloat16, torch.float32):
+        qd, k, v = q.to(dtype), rk.to(dtype)[:, :S], rv.to(dtype)[:, :S]
+        assert fa_mod.tensor_core_route(qd, k, v) == (dtype == torch.bfloat16)
+        before = fa_mod.simt_launches
+        out = fa_mod.flash_attention(qd, k, v)
+        want = tref.flash_attention_ref(qd, k, v).float()
+        if dtype == torch.float32:
+            assert fa_mod.simt_launches == before + 1
+            torch.testing.assert_close(out, want, atol=2e-5, rtol=0)
+            continue
+        assert fa_mod.simt_launches == before
+        assert torch.equal(out, fa_mod.flash_attention(qd, k, v))
+        bound = 3e-2 * (want.abs().max().item() if T == 1 else 1.0)
+        assert (out.float() - want).abs().max().item() <= bound
+        cut = (S - (S % 64 or 64)) if T == 1 else 0
+        if T == 1:
+            bad = fa_mod.flash_attention(qd, k[:, :cut], v[:, :cut])
+        else:   # every query tile without its diagonal key tile
+            bad = torch.cat([torch.zeros_like(qd[:, :64])] + [
+                fa_mod.flash_attention(qd[:, t0:t0 + 64], k[:, :t0],
+                                       v[:, :t0], causal=False)
+                for t0 in range(64, T, 64)], 1)
+        assert (bad.float() - want).abs().max().item() > bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,lens", [(1, [0, 1, 63, 64]),
+                                    (1, [700, 64, 1000, 129]),
+                                    (64, [64, 300, 700, 1024])])
+def test_paged_hd80_on_card(cuda_device, T, lens):
+    """The paged kernel at hd 80 over a [4, 1024] ring viewed as 64-token
+    identity pages: bf16 on the split route (T=1) or ``paged_chunk_tc<80>``
+    (T=64), no CUDA-core launch, bit-identical twice, within 3e-2 of the
+    plain version (and of the plain split-KV version at T=1), zeros for a
+    lens=0 row; ``kv_lens`` one tile short of each row's keys (the last
+    key tile dropped) breaks the bound.  f32 within 2e-5."""
+    B, ps, P = 4, 64, 16
+    rk, rv = _hd80_ring(B, cuda_device, seed=20 + T)
+    block = torch.arange(B * P, dtype=torch.int32,
+                         device=cuda_device).view(B, P)
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    short = torch.clamp((ln - 1) // 64 * 64, min=0).to(torch.int32)
+    g = torch.Generator(device=cuda_device).manual_seed(30 + T)
+    q = torch.randn((B, T, 32, 80), generator=g, device=cuda_device)
+    for dtype in (torch.bfloat16, torch.float32):
+        qd = q.to(dtype)
+        kp = rk.to(dtype).view(B * P, ps, 32, 80)
+        vp = rv.to(dtype).view(B * P, ps, 32, 80)
+        way = pa_mod.route(qd, kp, vp)
+        before = pa_mod.simt_launches
+        out = pa_mod.paged_attention(qd, kp, vp, block, ln)
+        want = tref.paged_attention_ref(qd, kp, vp, block, ln).float()
+        assert torch.count_nonzero(out[ln <= 0]) == 0
+        if dtype == torch.float32:
+            assert way == ("split" if T == 1 else "simt")
+            torch.testing.assert_close(out, want, atol=2e-5, rtol=0)
+            continue
+        assert way == ("split" if T == 1 else "chunk_tc")
+        assert pa_mod.simt_launches == before
+        assert torch.equal(out, pa_mod.paged_attention(qd, kp, vp, block,
+                                                       ln))
+        assert (out.float() - want).abs().max().item() <= 3e-2
+        if T == 1:
+            keys = pa_mod.split_plan(B, 32, P, ps)[1]
+            want2 = tref.paged_attention_split_ref(qd, kp, vp, block, ln,
+                                                   keys).float()
+            assert (out.float() - want2).abs().max().item() <= 3e-2
+        bad = pa_mod.paged_attention(qd, kp, vp, block, ln, kv_lens=short)
+        assert (bad.float() - want).abs().max().item() > 3e-2
+
+
+@pytest.mark.cuda
+def test_hd80_is_a_forward_instance_only(cuda_device):
+    """hd 80 is in the forward's tensor-core set, not the backward's: the
+    backward at hd 80 takes the CUDA-core instance (counted) and its
+    gradients still match the plain version's."""
+    assert 80 in fa_mod.FWD_TC_HEAD_DIMS
+    assert 80 not in fa_mod.BWD_TC_HEAD_DIMS
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v = (torch.randn((1, 64, 2, 80), generator=g,
+                           device=cuda_device).to(torch.bfloat16)
+               for _ in range(3))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = fa_mod.simt_launches
+    out = fa_mod.flash_attention_trainable(*leaves)
+    assert fa_mod.simt_launches == before            # forward: tensor cores
+    grads = torch.autograd.grad(out.float().sum(), leaves)
+    assert fa_mod.simt_launches == before + 1        # backward: CUDA cores
+    ref_leaves = [t.clone().float().requires_grad_(True) for t in (q, k, v)]
+    ref_grads = torch.autograd.grad(
+        tref.flash_attention_ref(*ref_leaves).sum(), ref_leaves)
+    for a, b in zip(grads, ref_grads):
+        torch.testing.assert_close(a.float(), b, atol=2e-2, rtol=1e-2)

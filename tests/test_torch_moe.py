@@ -316,13 +316,13 @@ def test_old_lens_rule_changes_a_live_token(served, olmoe3, monkeypatch):
 
 
 def test_build_model_names_what_is_left():
-    """The refused families (the recurrent ones) are named; gemma and
-    the cross-attention families build."""
+    """Nothing is left: the recurrent families build too, beside MoE,
+    gemma and the cross-attention families (the name is the test's from
+    before they were ported)."""
     for arch, fam in (("zamba2-2.7b", "zamba_hybrid"),
                       ("rwkv6-1.6b", "uniform_rwkv")):
         cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
-        with pytest.raises(NotImplementedError, match=fam):
-            build_model(cfg, device="cpu")
+        assert build_model(cfg, device="cpu")._structure() == fam
     for arch in ("olmoe-1b-7b", "gemma3-27b", "llama-3.2-vision-11b",
                  "whisper-tiny"):
         assert build_model(get_smoke_config(arch), device="cpu")

@@ -201,7 +201,9 @@ def test_route_by_shape():
     assert _route(bf16, 8, 64, 9, 3, 64, view=True) == "chunk_tc"
     assert _route(bf16, 2, 6, 9, 3, 64) == "chunk_tc"        # 18 rows
     assert _route(f32, 8, 64, 9, 3, 64) == "simt"
-    assert _route(bf16, 2, 1, 4, 2, 80) == "simt"            # head_dim 80
+    assert _route(bf16, 2, 1, 4, 2, 80) == "split"           # head_dim 80
+    assert _route(bf16, 2, 64, 32, 32, 80) == "chunk_tc"     # zamba's
+    assert _route(bf16, 2, 1, 4, 2, 48) == "simt"            # head_dim 48
     assert _route(bf16, 2, 64, 4, 2, 12) == "simt"
 
 

@@ -7,7 +7,9 @@ page untouched; a pool imaged by ``snapshot_state`` and rebuilt by
 ``restore_state`` in a fresh pool does the same.  And olmoe-1b-7b's
 SMOKE config served under slot_paged, and llama-3.2-vision-11b's and
 whisper-tiny's (image- or frame-conditioned prefill + decode, and
-``slot_chunked``), give the CPU's greedy tokens.
+``slot_chunked``), give the CPU's greedy tokens, as do zamba2-2.7b's
+and rwkv6-1.6b's under ``slot_fused``; zamba's shared attention at
+head_dim 80 in bf16 is served with no CUDA-core launch.
 Imports no JAX; skipped without a card."""
 import numpy as np
 import pytest
@@ -211,3 +213,62 @@ def test_cross_smoke_tokens_equal_the_cpu_on_card(cuda_device, arch):
     got = _serve_tokens(card, scaled(params, cuda_device), cuda_device,
                         "slot_chunked")
     assert got == want
+
+
+def _scaled3(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _scaled3(v, dev) for k, v in tree.items()}
+    return (tree * 3 if tree.dim() >= 2 else tree).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-1.6b"])
+def test_recurrent_smoke_slot_fused_tokens_equal_the_cpu_on_card(
+        cuda_device, arch):
+    """The recurrent families' SMOKE configs at float32, weights x3 so
+    streams vary: the card's greedy tokens under slot_fused (the scan in
+    every prefill and decode step; zamba's shared block on flash and the
+    paged kernel) equal the CPU's."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    want = _serve_tokens(cpu, _scaled3(params, "cpu"), "cpu", "slot_fused")
+    before = (fa_mod.launches, pa_mod.launches)
+    got = _serve_tokens(build_model(cfg, device=cuda_device),
+                        _scaled3(params, cuda_device), cuda_device,
+                        "slot_fused")
+    assert got == want
+    attn = (fa_mod.launches - before[0], pa_mod.launches - before[1])
+    assert (min(attn) > 0) == (arch == "zamba2-2.7b") and (
+        max(attn) > 0) == (arch == "zamba2-2.7b")
+
+
+@pytest.mark.cuda
+def test_zamba_hd80_is_served_on_the_tensor_cores(cuda_device):
+    """zamba's SMOKE stack widened to the full config's attention heads
+    (32/32 of 80) in bf16: a slot_fused run launches flash (prefills) and
+    the paged kernel (decode) on the card, none of either on a CUDA-core
+    instance, and every token in range."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(get_smoke_config("zamba2-2.7b"), d_model=64,
+                              num_heads=32, num_kv_heads=32, head_dim=80,
+                              dtype="bfloat16")
+    model = build_model(cfg, device=cuda_device)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    before = (fa_mod.launches, fa_mod.simt_launches, pa_mod.launches,
+              pa_mod.simt_launches)
+    toks = _serve_tokens(model, params, cuda_device, "slot_fused")
+    after = (fa_mod.launches, fa_mod.simt_launches, pa_mod.launches,
+             pa_mod.simt_launches)
+    assert after[0] > before[0] and after[2] > before[2]
+    assert after[1] == before[1] and after[3] == before[3]
+    assert all(0 <= t < cfg.vocab_size for s in toks for t in s)
