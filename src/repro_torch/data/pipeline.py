@@ -17,7 +17,7 @@ side of the checkpoint/restart contract.
 from __future__ import annotations
 
 import threading
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -26,13 +26,25 @@ from repro_torch.core.host_queue import MpscQueue
 
 
 def synth_batch(seed: int, producer: int, seq_no: int, batch: int,
-                seq_len: int, vocab: int) -> Dict[str, np.ndarray]:
-    """Deterministic synthetic batch (Zipf-ish token distribution)."""
+                seq_len: int, vocab: int,
+                extras_shape: Optional[tuple] = None) -> Dict[str, np.ndarray]:
+    """Deterministic synthetic batch (Zipf-ish token distribution).
+
+    With ``extras_shape``, a standard-normal float32 source of shape
+    ``(batch,) + extras_shape`` drawn after the tokens from the same
+    stream, stored under ``"extras"`` as the JAX package stores it.
+    ``Model.loss`` reads only ``"image_embeds"``/``"frame_embeds"``, so
+    in both packages such a batch trains the cross layers without a
+    source unless the caller renames the key."""
     rng = np.random.default_rng(
         np.random.SeedSequence([seed, producer, seq_no]))
     # Zipf over vocab, clipped — cheap stand-in for natural token stats.
     z = rng.zipf(1.3, size=(batch, seq_len)).astype(np.int64)
-    return {"tokens": (z % vocab).astype(np.int32)}
+    out = {"tokens": (z % vocab).astype(np.int32)}
+    if extras_shape is not None:
+        out["extras"] = rng.standard_normal(
+            (batch,) + tuple(extras_shape)).astype(np.float32)
+    return out
 
 
 class DataPipeline:
@@ -45,9 +57,10 @@ class DataPipeline:
     """
 
     def __init__(self, batch: int, seq_len: int, vocab: int,
-                 nproducers: int = 2, seed: int = 0, depth: int = 8):
+                 nproducers: int = 2, seed: int = 0, depth: int = 8,
+                 extras_shape: Optional[tuple] = None):
         self.batch, self.seq_len, self.vocab = batch, seq_len, vocab
-        self.seed = seed
+        self.seed, self.extras_shape = seed, extras_shape
         self._queue = MpscQueue(nproducers, capacity_per_producer=depth)
         self._stop = threading.Event()
         self._threads = [
@@ -62,7 +75,7 @@ class DataPipeline:
         seq_no = 0
         while not self._stop.is_set():
             item = synth_batch(self.seed, pid, seq_no, self.batch,
-                               self.seq_len, self.vocab)
+                               self.seq_len, self.vocab, self.extras_shape)
             # Table-1 retry protocol via the shared Transport backoff:
             # spin on transient statuses, yield, then exponential sleep.
             transport.send_blocking(ring, item,

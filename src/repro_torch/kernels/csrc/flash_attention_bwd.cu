@@ -37,12 +37,17 @@
 //      its head's share in f32 and a third launch sums the g shares in a
 //      fixed order: a block per kv head would walk g times as many tiles
 //      in series (48 at the training shape), one per query head walks 16.
-// bf16 (head_dim 16/32/64/128, 16-byte aligned rows) runs on the tensor
-// cores (mma.sync.m16n8k16, f32 accumulation); as in the forward, each
-// tile costs one barrier, the softcap and the mask branch once per tile
-// outside the element loops, and exponentials use ex2.approx.  float32,
+// bf16 (head_dim 16/32/64/80/128, 16-byte aligned rows) runs on the
+// tensor cores (mma.sync.m16n8k16, f32 accumulation); as in the forward,
+// each tile costs one barrier, the softcap and the mask branch once per
+// tile outside the element loops, and exponentials use ex2.approx.  float32,
 // and bf16 outside those cases, runs a CUDA-core instance of the same
 // two passes (f32 FMA, no TF32) for the f32 checks, not for speed.
+// head_dim 80 (zamba2-2.7b's shared attention): a 160-byte row is ten
+// 16-byte copies, so flash::load_rows leaves idle the threads past a
+// whole number of rows; every other loop over a row's columns steps by
+// k-steps of 16 (HD / 16 = 5), n-tiles of 8 (NT = 10) or pairs of
+// columns, which 80 divides.
 
 #include "flash_common.cuh"
 
@@ -795,7 +800,7 @@ cudaError_t launch_simt(const Params& p, int B, cudaStream_t stream) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  route: 0 = CUDA cores, 1 = tensor
-// cores (bf16, hd 16/32/64/128, every row 16-byte aligned: the wrapper
+// cores (bf16, hd 16/32/64/80/128, every row 16-byte aligned: the wrapper
 // checks).  lse: the forward's [B,H,T] f32; dsum: [B,H,T] f32 scratch;
 // partial: [2,B,S,H,hd] f32 scratch for the tensor-core route when
 // H > Hkv (else null).
@@ -831,6 +836,7 @@ int flash_attention_bwd_launch(
       case 16: return launch_tc<16>(p, B, s);
       case 32: return launch_tc<32>(p, B, s);
       case 64: return launch_tc<64>(p, B, s);
+      case 80: return launch_tc<80>(p, B, s);
       case 128: return launch_tc<128>(p, B, s);
       default: return cudaErrorInvalidValue;
     }

@@ -15,9 +15,8 @@ flash_attention_fwd_ref``, ``ref.flash_attention_bwd_ref``); a CUDA
 ``q`` launches a kernel on ``torch.cuda.current_stream()`` or raises.
 There is no fallback.  On the card, bf16 with 16-byte aligned rows takes
 the tensor-core instance of each kernel (:func:`tensor_core_route`) at
-head_dim 16/32/64/80/128 in the forward and 16/32/64/128 in the backward;
-float32 and other bf16 inputs take the CUDA-core instance (f32 FMA, no
-TF32).
+head_dim 16/32/64/80/128; float32 and other bf16 inputs take the
+CUDA-core instance (f32 FMA, no TF32).
 
 :func:`flash_attention_trainable` is the forward with a gradient (the
 JAX package's ``custom_vjp`` at ``flash_attention.py:164``).
@@ -48,11 +47,9 @@ simt_launches = 0
 noncausal_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Head dims with a tensor-core instance: the forward's (80 for
-# zamba2-2.7b's shared attention, which is served, not trained) and the
-# backward's.
-FWD_TC_HEAD_DIMS = (16, 32, 64, 80, 128)
-BWD_TC_HEAD_DIMS = (16, 32, 64, 128)
+# Head dims with a tensor-core instance, forward and backward (80:
+# zamba2-2.7b's shared attention).
+TC_HEAD_DIMS = (16, 32, 64, 80, 128)
 # Query rows (g * block_q) a block of the CUDA-core forward aims for:
 # enough rows to reuse each K/V tile, few enough that a prefill spreads
 # over many blocks.
@@ -77,16 +74,14 @@ def _declare_bwd(lib: ctypes.CDLL) -> None:
     lib.flash_attention_bwd_launch.restype = ctypes.c_int
 
 
-def tensor_core_route(*tensors: torch.Tensor,
-                      head_dims=FWD_TC_HEAD_DIMS) -> bool:
+def tensor_core_route(*tensors: torch.Tensor) -> bool:
     """Whether a kernel takes its tensor-core instance for these
-    operands: bf16, a head_dim in ``head_dims`` (the forward's by
-    default; the backward passes ``BWD_TC_HEAD_DIMS``), and every row
-    16-byte aligned (the data pointer, and the batch, sequence and head
-    strides a multiple of 8 elements), as the 16-byte ``cp.async`` copies
-    need.  Otherwise the CUDA-core instance runs."""
+    operands: bf16, a head_dim in ``TC_HEAD_DIMS``, and every row 16-byte
+    aligned (the data pointer, and the batch, sequence and head strides a
+    multiple of 8 elements), as the 16-byte ``cp.async`` copies need.
+    Otherwise the CUDA-core instance runs."""
     first = tensors[0]
-    if first.dtype != torch.bfloat16 or first.shape[-1] not in head_dims:
+    if first.dtype != torch.bfloat16 or first.shape[-1] not in TC_HEAD_DIMS:
         return False
     return all(t.data_ptr() % 16 == 0
                and all(st % 8 == 0 for st in t.stride()[:-1])
@@ -249,8 +244,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ops = (q, k, v, out, dout, dq, dk, dv)
     strides = (ctypes.c_longlong * 24)(*[st for t in ops
                                          for st in t.stride()[:3]])
-    route = tensor_core_route(q, k, v, out, dout,
-                              head_dims=BWD_TC_HEAD_DIMS)
+    route = tensor_core_route(q, k, v, out, dout)
     # The tensor-core dK/dV pass runs a block per query head; with several
     # query heads per kv head their f32 shares go to this scratch (2 x B x
     # S x H x hd f32: 151 MB at B=4, S=1024, H=9, hd=64) and a third

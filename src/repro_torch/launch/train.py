@@ -34,7 +34,9 @@ def main(argv=None) -> Trainer:
                     default=OptConfig.warmup_steps)
     ap.add_argument("--remat", default="nothing", choices=REMAT_POLICIES)
     ap.add_argument("--ckpt-dir", default=TrainerConfig().ckpt_dir)
-    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--ckpt-every", type=int, default=50,
+                    help="steps between checkpoints; 0 writes none, not "
+                         "even the final one")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--resume", action="store_true")
     args = ap.parse_args(argv)

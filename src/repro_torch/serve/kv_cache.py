@@ -33,7 +33,10 @@ all-or-nothing and writes the saved bytes back in place
 (``index_copy_``), so a resumed sequence reads back byte-identical
 through the new physical page numbers.  Swap traffic is charged to
 ``kv_copy_bytes`` and itemized in ``swap_out_bytes``/``swap_in_bytes``,
-so ``kv_copy_bytes == cow_copy_bytes + swap_in_bytes + swap_out_bytes``.
+so ``kv_copy_bytes == cow_copy_bytes + swap_in_bytes + swap_out_bytes``
+under ``slot_paged``.  The retired ``swap_in``/``swap_out`` pair (dense
+gather and scatter of a whole sequence; no scheduler calls it) charges
+``kv_copy_bytes`` alone, as in the JAX package.
 ``snapshot_state``/``restore_state`` image and rebuild the whole pool for
 crash recovery (``serve/snapshot.py``).  Host copies of page bytes are
 numpy arrays; a bfloat16 pool's are the ``int16`` view of their bits
@@ -49,7 +52,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
-from typing import Callable, Dict, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -332,6 +335,18 @@ class PagedKVPool:
         t.n_reserved = max(t.n_reserved, n_tokens)
         return OK
 
+    def grow(self, seq_id: int, new_n_tokens: int) -> int:
+        """Extend a sequence (decode appends); claims pages as needed,
+        all-or-nothing: POOL_FULL leaves the table as it was."""
+        t = self._tables[seq_id]
+        got = self._claim_pages(self.pages_needed(new_n_tokens)
+                                - len(t.pages))
+        if got is None:
+            return POOL_FULL
+        t.pages.extend(got)
+        t.n_tokens = new_n_tokens
+        return OK
+
     def free(self, seq_id: int) -> None:
         t = self._tables.pop(seq_id)
         for p in t.pages:
@@ -399,6 +414,54 @@ class PagedKVPool:
                 "shared_pages": self._alloc.shared_count(),
                 "shared_pages_peak": self._shared_peak,
                 "quarantined": len(self.quarantined)}
+
+    # -- device data movement (RETIRED: no scheduler calls these) -------------
+    # Residency under ``slot_paged`` is established by writing block-table
+    # rows, not by moving device memory.  The pair stays, as in the JAX
+    # package, as the measured "what the block table deletes" baseline and
+    # as the copy hook a host-offload tier would charge to
+    # ``kv_copy_bytes``.
+    def swap_in(self, seq_id: int, max_len: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Gather a sequence's pages -> contiguous [max_len, L, kv, hd]
+        k/v, zero past its pages."""
+        t = self._tables[seq_id]
+        self.kv_copy_bytes += len(t.pages) * self.page_nbytes
+        idx = torch.tensor(t.pages, dtype=torch.long,
+                           device=self.store_k.device)
+        tail = (self.n_layers, self.kv_heads, self.head_dim)
+        k = self.store_k.index_select(0, idx).reshape((-1,) + tail)
+        v = self.store_v.index_select(0, idx).reshape((-1,) + tail)
+        pad = max_len - k.shape[0]
+        if pad > 0:
+            z = k.new_zeros((pad,) + tail)
+            k, v = torch.cat([k, z]), torch.cat([v, z])
+        return k[:max_len], v[:max_len]
+
+    def swap_out(self, seq_id: int, k_seq: torch.Tensor,
+                 v_seq: torch.Tensor, n_tokens: int) -> int:
+        """Scatter contiguous [S, L, kv, hd] k/v back into the pool
+        (in place, ``index_copy_`` into the store), after growing the
+        sequence to ``n_tokens``."""
+        status = self.grow(seq_id, n_tokens)
+        if status != OK:
+            return status
+        t = self._tables[seq_id]
+        ps = self.page_size
+        n_pages = self.pages_needed(n_tokens)
+        self.kv_copy_bytes += n_pages * self.page_nbytes
+        pad = n_pages * ps - k_seq.shape[0]
+        if pad > 0:
+            z = k_seq.new_zeros((pad,) + tuple(k_seq.shape[1:]))
+            k_seq, v_seq = torch.cat([k_seq, z]), torch.cat([v_seq, z])
+        shape = (n_pages, ps, self.n_layers, self.kv_heads, self.head_dim)
+        dev = self.store_k.device
+        idx = torch.tensor(t.pages[:n_pages], dtype=torch.long, device=dev)
+        self.store_k.index_copy_(0, idx, k_seq[:n_pages * ps].reshape(shape)
+                                 .to(device=dev, dtype=self.k.dtype))
+        self.store_v.index_copy_(0, idx, v_seq[:n_pages * ps].reshape(shape)
+                                 .to(device=dev, dtype=self.v.dtype))
+        return OK
 
     # -- device <-> host page movement -----------------------------------------
     def _gather_host(self, pages: List[int]):

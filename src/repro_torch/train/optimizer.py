@@ -57,6 +57,13 @@ def _is_state_leaf(x: Any) -> bool:
     return isinstance(x, dict) and "q" in x
 
 
+# Elements one pass of the update takes from a large matrix leaf.  A
+# whole stacked leaf at once would need several float32 temporaries of its
+# full size (zamba2-2.7b's stacked ``in_proj``: 1.44e9 elements, 5.8 GB
+# each) beside the old and the new state, more than one 80 GB card holds.
+_CHUNK_ELEMS = 1 << 26
+
+
 class AdamW:
     def __init__(self, cfg: OptConfig):
         self.cfg = cfg
@@ -104,7 +111,7 @@ class AdamW:
         b2c = 1 - torch.pow(c.b2, step.float())
         quant = c.state_dtype == "int8"
 
-        def upd(p, g, m, v):
+        def step_of(p, g, m, v):
             g = g.float() * scale
             m_f = _dequantize(m) if quant else m
             v_f = _dequantize(v) if quant else v
@@ -117,6 +124,23 @@ class AdamW:
             if quant:
                 return new_p, _quantize(m_f), _quantize(v_f)
             return new_p, m_f, v_f
+
+        def upd(p, g, m, v):
+            """``step_of`` over row blocks of a large matrix leaf, into
+            preallocated outputs: the same elementwise arithmetic, so the
+            same bits, with its float32 temporaries bounded by
+            ``_CHUNK_ELEMS``."""
+            if quant or p.dim() < 2 or p.numel() <= _CHUNK_ELEMS:
+                return step_of(p, g, m, v)
+            rows = p.numel() // p.shape[-1]
+            per = max(1, _CHUNK_ELEMS // p.shape[-1])
+            ins = [x.reshape(rows, -1) for x in (p, g, m, v)]
+            outs = [torch.empty_like(x) for x in (ins[0], ins[2], ins[3])]
+            for a in range(0, rows, per):
+                for out, x in zip(outs, step_of(*(t[a:a + per]
+                                                  for t in ins))):
+                    out[a:a + per] = x
+            return tuple(x.reshape(p.shape) for x in outs)
 
         is_leaf = _is_state_leaf if quant else None
         flat_m = tree.flatten(state["m"], is_leaf)[0]

@@ -76,10 +76,10 @@ def make_decode_step(model: Model):
 
 
 def make_prefill(model: Model, max_len: int):
-    """prefill: the prompt's cache and first token (the encoder and vision
-    families' ``extras`` come with the slice that ports them)."""
+    """prefill: the prompt's cache and first token; ``extras`` (images
+    or audio frames) conditions the cross-attention families."""
 
-    def prefill(params, tokens):
-        return model.prefill(params, tokens, max_len)
+    def prefill(params, tokens, extras=None):
+        return model.prefill(params, tokens, max_len, extras=extras)
 
     return prefill

@@ -10,6 +10,10 @@ lock-free pieces:
 
   * restart — ``Trainer(..., resume=True)`` restores the newest intact
     checkpoint (atomic directories and CRC manifests).
+  * no checkpoints — ``ckpt_every <= 0`` writes none, not even the final
+    one ``close`` writes otherwise (the JAX trainer divides by it).  A
+    full-width smoke run of a multi-billion-parameter model would else
+    end by writing its whole optimizer state (23 GB for zamba2-2.7b).
   * stragglers — each iteration's wall time (data wait included) feeds an
     EMA; an iteration slower than ``straggler_factor`` x the EMA counts as
     a straggler.  Step 1 is left out: it pays the first-use costs (the
@@ -72,7 +76,8 @@ class Trainer:
                     cfg.ckpt_dir, (self.params, self.opt_state))
 
         self.ckpt = (ckpt_lib.AsyncCheckpointer(cfg.ckpt_dir, keep=cfg.keep)
-                     if cfg.async_checkpoint else None)
+                     if cfg.async_checkpoint and cfg.ckpt_every > 0
+                     else None)
         # NBW telemetry cells: monitors read without locking the loop.
         self.telemetry = {"step": nbw.HostNBW(), "loss": nbw.HostNBW()}
         self._ema_dt: Optional[float] = None
@@ -119,7 +124,8 @@ class Trainer:
                      "stragglers": self.straggler_steps})
                 if on_metrics:
                     on_metrics(self.step, self.history[-1])
-            if self.step % self.cfg.ckpt_every == 0:
+            every = self.cfg.ckpt_every
+            if every > 0 and self.step % every == 0:
                 self.save()
         return self.history
 
@@ -133,6 +139,7 @@ class Trainer:
                           keep=self.cfg.keep)
 
     def close(self) -> None:
-        self.save()
+        if self.cfg.ckpt_every > 0:
+            self.save()
         if self.ckpt is not None:
             self.ckpt.close()

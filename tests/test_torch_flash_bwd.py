@@ -159,11 +159,13 @@ def test_bwd_entry_on_cpu_is_the_plain_version():
 
 
 def test_tensor_core_route_choice():
-    """bf16 rows of 16/32/64/128 elements, 16-byte aligned, take the
+    """bf16 rows of 16/32/64/80/128 elements, 16-byte aligned, take the
     tensor-core kernels; float32, other head dims and unaligned strides
     take the CUDA-core ones."""
     bf = torch.zeros((2, 8, 4, 64), dtype=torch.bfloat16)
     assert fa_mod.tensor_core_route(bf, bf)
+    assert fa_mod.tensor_core_route(
+        torch.zeros((2, 8, 4, 80), dtype=torch.bfloat16))
     assert not fa_mod.tensor_core_route(bf.float())
     assert not fa_mod.tensor_core_route(
         torch.zeros((2, 8, 4, 48), dtype=torch.bfloat16))

@@ -15,8 +15,11 @@ local-layer shapes on all three; the head_dim 80 instances (flash's
 forward, the paged split and chunk) at zamba2-2.7b's shared attention,
 each bound rejecting the output with its last key tile dropped; the flash
 backward kernel against
-``ref.flash_attention_bwd_ref`` on every case with T <= S and at
-smollm's training shape, bit-identical from call to call; and
+``ref.flash_attention_bwd_ref`` on every case with T <= S, at
+smollm's training shape, at zamba2-2.7b's head_dim 80 (32/32 heads at
+its training shape; 32/8 ragged with window + softcap) and whisper-tiny's
+non-causal cross read (T=448, S=1500), each of the last three with a
+dropped tile its bound must reject, bit-identical from call to call; and
 ``flash_attention_trainable``'s gradients (1e-4).  NBB matmul: the
 reference test shapes and tolerances, one and 13 kernel K tiles, ragged
 edges, refused operands; in bf16, each tile instance's ring at 1, S-1,
@@ -809,6 +812,72 @@ def test_flash_bwd_training_shape_on_card(cuda_device):
         _bf16_grad_close(a, b)
 
 
+# The backward at zamba2-2.7b's shared attention (head_dim 80) and at
+# whisper-tiny's non-causal reads as they train: (B, T, S, H, Hkv, hd,
+# kwargs, dropped tile (query rows, keys), every key of it visible to
+# every row of it).
+BWD_TRAIN_CASES = {
+    "zamba_g1": (4, 1024, 1024, 32, 32, 80, {},
+                 (slice(960, 1024), slice(448, 512))),
+    "zamba_g4_ragged_window_softcap": (
+        2, 96, 96, 32, 8, 80, dict(window=40, softcap=30.0),
+        (slice(64, 96), slice(56, 65))),
+    "whisper_cross": (4, 448, 1500, 6, 6, 64, dict(causal=False),
+                      (slice(384, 448), slice(704, 768))),
+}
+# Non-causal gradients are sums over 448-1500 rows or keys of
+# probabilities near 1/1500 (about 0.01-0.1), so bf16 holds them to 3e-2
+# x max |plain| (as the non-causal forward), not to BF16_GRAD_TOL's
+# absolute floor, which a missing tile would pass.
+F32_GRAD_TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _grad_bound(dtype, kw, want):
+    """(atol, rtol) of one gradient of a BWD_TRAIN_CASES case."""
+    if dtype == "float32":
+        return F32_GRAD_TOL["atol"], F32_GRAD_TOL["rtol"]
+    if not kw.get("causal", True):
+        return 3e-2 * want.float().abs().max().item(), 0.0
+    return BF16_GRAD_TOL
+
+
+def _within(got, want, atol, rtol) -> bool:
+    return bool(((got.float() - want.float()).abs()
+                 <= atol + rtol * want.float().abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(BWD_TRAIN_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_training_cases_on_card(cuda_device, name, dtype):
+    """The kernel against the plain backward on the plain forward's
+    residuals (bf16 on the tensor cores: zamba's g = 1 takes no
+    sum-heads launch, its g = 4 does; f32 on the CUDA cores within 2e-5);
+    each bound must reject the kernel's gradients with the case's tile
+    left out."""
+    B, T, S, H, Hkv, hd, kw, (rows, keys) = BWD_TRAIN_CASES[name]
+    dt = getattr(torch, dtype)
+    q, k, v, dout = _bwd_inputs(name, B, T, S, H, Hkv, hd, dt, cuda_device)
+    out, lse = tref.flash_attention_fwd_ref(q, k, v, **kw)
+    before = (fa_mod.bwd_launches, fa_mod.simt_launches)
+    got = fa_mod.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert fa_mod.bwd_launches == before[0] + 1
+    assert fa_mod.simt_launches == before[1] + (dtype == "float32")
+    want = tref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    lost = tref.flash_attention_bwd_ref(
+        q[:, rows], k[:, keys], v[:, keys], out[:, rows], lse[:, :, rows],
+        dout[:, rows], causal=False, softcap=kw.get("softcap", 0.0))
+    for a, b, part, where in zip(got, want, lost, (rows, keys, keys)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        atol, rtol = _grad_bound(dtype, kw, b)
+        assert _within(a, b, atol, rtol), (
+            f"max err {(a.float() - b.float()).abs().max().item()}")
+        bad = a.float().clone()
+        bad[:, where] -= part.float()
+        assert not _within(bad, b, atol, rtol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_bwd_is_deterministic_on_card(cuda_device, dtype):
@@ -972,11 +1041,11 @@ def test_paged_hd80_on_card(cuda_device, T, lens):
 
 @pytest.mark.cuda
 def test_hd80_is_a_forward_instance_only(cuda_device):
-    """hd 80 is in the forward's tensor-core set, not the backward's: the
-    backward at hd 80 takes the CUDA-core instance (counted) and its
-    gradients still match the plain version's."""
-    assert 80 in fa_mod.FWD_TC_HEAD_DIMS
-    assert 80 not in fa_mod.BWD_TC_HEAD_DIMS
+    """hd 80 has a tensor-core instance in the forward and, since the
+    recurrent families train, in the backward too (the name is the
+    test's from when it had none): neither counts a CUDA-core launch,
+    and the gradients match the plain version's."""
+    assert 80 in fa_mod.TC_HEAD_DIMS
     g = torch.Generator(device=cuda_device).manual_seed(7)
     q, k, v = (torch.randn((1, 64, 2, 80), generator=g,
                            device=cuda_device).to(torch.bfloat16)
@@ -986,7 +1055,7 @@ def test_hd80_is_a_forward_instance_only(cuda_device):
     out = fa_mod.flash_attention_trainable(*leaves)
     assert fa_mod.simt_launches == before            # forward: tensor cores
     grads = torch.autograd.grad(out.float().sum(), leaves)
-    assert fa_mod.simt_launches == before + 1        # backward: CUDA cores
+    assert fa_mod.simt_launches == before            # backward: tensor cores
     ref_leaves = [t.clone().float().requires_grad_(True) for t in (q, k, v)]
     ref_grads = torch.autograd.grad(
         tref.flash_attention_ref(*ref_leaves).sum(), ref_leaves)

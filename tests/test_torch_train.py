@@ -220,6 +220,23 @@ def test_adamw_does_not_write_its_arguments():
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("state_dtype", ["float32", "int8"])
+def test_adamw_row_blocks_give_the_same_bits(monkeypatch, state_dtype):
+    """A matrix leaf larger than ``_CHUNK_ELEMS`` is updated a block of
+    rows at a time (float32 state): the same bits as the whole leaf."""
+    params, grads = _opt_trees(5)
+    opt = topt.AdamW(topt.OptConfig(lr=1e-2, warmup_steps=1,
+                                    state_dtype=state_dtype))
+    tp = _to_torch(params)
+    state = opt.init(tp)
+    whole = opt.update(_to_torch(grads[0]), state, tp)
+    monkeypatch.setattr(topt, "_CHUNK_ELEMS", 7)
+    assert max(x.numel() for x in tree.flatten(tp)[0]) > 7
+    blocks = opt.update(_to_torch(grads[0]), state, tp)
+    for a, b in zip(tree.flatten(whole[:2])[0], tree.flatten(blocks[:2])[0]):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
 def test_schedule_and_quantize_match_jax():
     kw = dict(lr=2e-3, warmup_steps=3, total_steps=10)
     jo, to = jopt.AdamW(jopt.OptConfig(**kw)), topt.AdamW(topt.OptConfig(**kw))
@@ -401,7 +418,9 @@ def test_async_checkpointer_publish_between_read_and_save(tmp_path):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("args", [(0, 1, 2, 4, 8, 100),
                                   (3, 0, 0, 2, 16, 49152),
-                                  (5, 2, 9, 1, 4, 256)])
+                                  (5, 2, 9, 1, 4, 256),
+                                  (0, 1, 2, 4, 8, 100, (24, 64)),
+                                  (7, 3, 1, 2, 448, 51865, (1500, 384))])
 def test_synth_batch_equals_jax(args):
     a = synth_batch(*args)
     b = jsynth(*args)
@@ -409,6 +428,23 @@ def test_synth_batch_equals_jax(args):
     for k in a:
         assert a[k].dtype == b[k].dtype
         np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_pipeline_carries_extras():
+    """``extras_shape``: every batch is ``synth_batch``'s with the source
+    under ``"extras"``, as the reference pipeline stores it."""
+    index = {synth_batch(2, p, s, 2, 8, 1000)["tokens"].tobytes(): (p, s)
+             for p in range(2) for s in range(16)}
+    pipe = DataPipeline(batch=2, seq_len=8, vocab=1000, nproducers=2,
+                        seed=2, depth=4, extras_shape=(3, 5))
+    try:
+        got = [pipe.get() for _ in range(6)]
+    finally:
+        pipe.close()
+    for b in got:
+        want = jsynth(2, *index[b["tokens"].tobytes()], 2, 8, 1000, (3, 5))
+        assert b.keys() == want.keys() == {"tokens", "extras"}
+        np.testing.assert_array_equal(b["extras"], want["extras"])
 
 
 def test_pipeline_delivers_every_batch_once_in_producer_order():
@@ -461,6 +497,18 @@ def test_trainer_loss_decreases(tiny, tmp_path):
         pipe.close()
     assert [h["step"] for h in hist] == [5, 10, 15, 20, 25, 30]
     assert hist[-1]["loss"] < hist[0]["loss"], hist
+
+
+def test_trainer_without_checkpoints_writes_none(tiny, tmp_path):
+    """``ckpt_every=0`` (the launcher's ``--ckpt-every 0``): no periodic
+    checkpoint and no final one at ``close``."""
+    cfg, model, opt = tiny
+    tc = TrainerConfig(ckpt_dir=str(tmp_path / "none"), ckpt_every=0)
+    tr = Trainer(model, opt, tc)
+    tr.fit(_stream(cfg), steps=3)
+    tr.close()
+    assert tr.step == 3 and tr.ckpt is None
+    assert not (tmp_path / "none").exists()
 
 
 def test_trainer_checkpoint_restart_exact(tiny, tmp_path):
