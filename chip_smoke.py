@@ -215,7 +215,32 @@ each of which fails the run hard:
    scenario explored at its budget capped at 1500 executions (each
    verdict must be the scenario's ``expect``), the six schedules of
    ``tests/schedules/`` replayed, and the functional bit set on a CUDA
-   tensor against ``HostBitset``.
+   tensor against ``HostBitset``;
+9. parallelism on ``make_host_mesh()`` (1x1 ``("data", "model")``, an
+   NCCL world of one): (9a) full-width ``smollm-135m`` trained through
+   ``Trainer(mesh=, shardings=(param, opt state, batch))`` for 5 steps at
+   batch 4 x 1024 (remat "nothing", seed 0) against the same 5 steps with
+   no mesh — every loss equal (largest relative difference printed, 1e-3
+   at most), equal flash forward and backward launches, none on the
+   CUDA-core instance — then ``remesh(None, None)`` and 2 more steps
+   equal to a run that never had a mesh, with each run's step wall and
+   device time; (9b) one cache-less forward of full-width
+   ``olmoe-1b-7b`` (B=2 x 256) under ``axis_rules(make_host_mesh())``:
+   the expert-parallel route (64 local experts from 0, a data all-gather
+   of the experts' weights and a model all-reduce each layer, counted by
+   the accountant) against the local route, logits and aux; (9c)
+   ``pipeline_apply`` at one stage under all three schedules against
+   ``pipeline_reference`` (f32, 1e-5), and a scripted ``NBBState``
+   sequence (fill to full, one BUFFER_FULL, drain, one BUFFER_EMPTY) and
+   NBW writes and reads on CUDA tensors under
+   ``torch.cuda.set_sync_debug_mode("error")``, equal to the same on the
+   CPU; (9d) ``python -m repro_torch.launch.dryrun --arch smollm-135m
+   --shape train_4k`` (started in the background at the lowest CPU
+   priority once phase 7's smollm training has been timed, as it plans on
+   the host's CPU: it shares the host with phases 7b-9c, whose steps are
+   device-bound, and with no earlier phase): its per-device FLOPs, argument bytes, peak
+   estimate and collective bytes by kind, printed as plan estimates, and
+   its argument bytes equal to the count derived from the specs.
 
 Phase 7 runs before the timing of phase 6, which reports its launch
 count; the paged row's launches add phases 3c-3g's to phase 3's, the
@@ -4108,6 +4133,260 @@ def phase_train_whisper(smi: str):
     return c
 
 
+DRYRUN_OUT = ROOT / "results" / "dryrun_torch" / \
+    "smollm-135m__train_4k__16x16.json"
+
+
+def start_dryrun():
+    """9d's dry-run in a process of its own (it plans a 256-rank step on
+    a fake process group, on the host's CPU), at the lowest CPU priority
+    so that it runs beside the phases on the card and takes the host's
+    cores only when they idle."""
+    import atexit
+    DRYRUN_OUT.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "smollm-135m", "--shape", "train_4k"], cwd=str(ROOT), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        preexec_fn=lambda: os.nice(19))
+    # A failed phase ends the run early: the dry-run must not outlive it.
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def _step_times(trainer, batches):
+    """Wall ms of one more step (host clock) and the device ms of its
+    kernels (the profiler's device rows), on a throwaway copy of the
+    trainer's state: the trainer itself is left as it was."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    saved = (trainer.params, trainer.opt_state, trainer.step,
+             list(trainer.history))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        trainer.fit(iter(batches), steps=1)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    dev = sum(e.self_device_time_total for e in kernel_rows(prof)) / 1e3
+    trainer.params, trainer.opt_state, trainer.step, trainer.history = saved
+    return 1e3 * wall, dev
+
+
+def phase_parallel(smi: str, dryrun):
+    """9: the parallelism slice on the card (see the module docstring)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train.optimizer import AdamW, OptConfig
+    from repro_torch.train.train_step import (abstract_params,
+                                              batch_shardings,
+                                              opt_state_shardings,
+                                              param_shardings)
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    mesh = make_host_mesh()
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"host mesh: {dist.get_backend()} world {dist.get_world_size()}")
+
+    # 9a: sharded training at full width against the same steps unsharded.
+    cfg = get_config("smollm-135m")
+    model = build_model(cfg, remat_policy="nothing")
+    opt = AdamW(OptConfig(lr=1e-3, warmup_steps=2, total_steps=7))
+    tc = TrainerConfig(ckpt_every=0, log_every=1)
+    B, T = 4, 1024
+    rng = np.random.default_rng(9)
+    batches = [{"tokens": rng.integers(0, cfg.vocab_size, (B, T))
+                .astype(np.int32)} for _ in range(8)]
+    runs = {}
+    for label in ("unsharded", "sharded"):
+        shardings = None
+        if label == "sharded":
+            with sh.axis_rules(mesh, cfg.mesh_rules):
+                shardings = (param_shardings(model, mesh),
+                             opt_state_shardings(model, opt, mesh,
+                                                 abstract_params(model)),
+                             batch_shardings(mesh, batches[0]))
+        tr = Trainer(model, opt, tc, seed=0,
+                     mesh=mesh if shardings else None, shardings=shardings)
+        fa.launches = fa.bwd_launches = fa.simt_launches = 0
+        tr.fit(iter(batches[:5]), steps=5)
+        torch.cuda.synchronize()
+        launches = (fa.launches, fa.bwd_launches, fa.simt_launches)
+        wall_ms, dev_ms = _step_times(tr, batches[7:8])
+        if label == "sharded":
+            tr.remesh(None, None)
+        tr.fit(iter(batches[5:7]), steps=2)
+        runs[label] = ([h["loss"] for h in tr.history], launches,
+                       [1e3 * h["dt_s"] for h in tr.history[1:5]],
+                       wall_ms, dev_ms)
+        del tr
+    (l0, n0, dt0, w0, d0), (l1, n1, dt1, w1, d1) = (runs["unsharded"],
+                                                    runs["sharded"])
+    rel = max(abs(a - b) / abs(a) for a, b in zip(l0, l1))
+    check(all(map(math.isfinite, l1)) and len(l1) == 7,
+          f"sharded losses: {l1}")
+    check(max(abs(a - b) / abs(a) for a, b in zip(l0[:5], l1[:5])) <= 1e-3,
+          f"sharded vs unsharded losses: {l1[:5]} vs {l0[:5]}")
+    check(max(abs(a - b) / abs(a) for a, b in zip(l0[5:], l1[5:])) <= 1e-3,
+          f"after remesh(None, None): {l1[5:]} vs {l0[5:]}")
+    check(n0 == n1 and n1[2] == 0 and n1[0] == 2 * cfg.num_layers * 5,
+          f"flash launches (fwd, bwd, CUDA-core): unsharded {n0}, "
+          f"sharded {n1}")
+    print(f"parallel 9a: smollm-135m (30 layers, d=576) batch {B} x {T}, "
+          f"5 steps on make_host_mesh() (NCCL world 1) vs no mesh: losses "
+          f"{[round(x, 4) for x in l1[:5]]}, largest relative difference "
+          f"{rel:.3g} (bitwise: {l0 == l1}); after remesh(None, None) 2 "
+          f"steps {[round(x, 4) for x in l1[5:]]} vs {[round(x, 4) for x in l0[5:]]}; "
+          f"flash launches (fwd, bwd, CUDA-core) {n1} both runs; step wall "
+          f"ms (steps 2-5) sharded {[round(x, 1) for x in dt1]} vs "
+          f"unsharded {[round(x, 1) for x in dt0]}; one profiled step: "
+          f"wall {w1:.1f} vs {w0:.1f} ms, device {d1:.1f} vs {d0:.1f} ms "
+          f"[{smi}]")
+
+    # 9b: expert parallelism at full width.
+    phase_parallel_olmoe(mesh)
+
+    # 9c: the paper's rings on the device.
+    phase_parallel_rings(mesh)
+    dist.destroy_process_group()
+
+    # 9d: the dry-run's plan.
+    try:
+        log = dryrun.communicate(timeout=900)[0]
+    except subprocess.TimeoutExpired:
+        dryrun.kill()
+        dryrun.communicate()
+        check(False, "dry-run: no result within 900 s")
+    check(dryrun.returncode == 0 and DRYRUN_OUT.exists(),
+          f"dry-run failed: {log[-3000:]}")
+    r = json.loads(DRYRUN_OUT.read_text())
+    mem = r["memory"]
+    check(mem["argument_bytes"] == mem["argument_bytes_from_specs"],
+          f"dry-run argument bytes {mem['argument_bytes']} != "
+          f"{mem['argument_bytes_from_specs']} from the specs")
+    check(r["flops_per_device"] > 0 and r["n_devices"] == 256,
+          f"dry-run: {r['flops_per_device']} flops, {r['n_devices']} ranks")
+    print(f"parallel 9d: dry-run smollm-135m x train_4k x 16x16 (plan "
+          f"estimate on a fake 256-rank process group, not a card "
+          f"measurement): {r['flops_per_device']:.4g} FLOPs/device, "
+          f"argument bytes {mem['argument_bytes']} (= from specs), peak "
+          f"estimate {mem['peak_estimate_bytes'] / 1e9:.2f} GB (fits "
+          f"{r['device_memory_bytes'] / 1e9:.1f} GB: {r['fits']}), "
+          f"collective bytes/device {r['collective_bytes_per_device']}, "
+          f"counts {r['collective_counts']}, planned in {r['run_s']} s")
+
+
+def phase_parallel_olmoe(mesh):
+    """9b: one cache-less forward of full-width olmoe-1b-7b, local route
+    against the expert-parallel one under the host mesh's rules."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import hlo_analysis
+    from repro_torch.models.layers import unembed_matrix
+    from repro_torch.parallel import sharding as sh
+    model, params, _ = full_width_model("olmoe-1b-7b")
+    cfg = model.cfg
+    tok = torch.from_numpy(np.random.default_rng(19).integers(
+        0, cfg.vocab_size, (2, 256)).astype(np.int32)).cuda()
+    w = unembed_matrix(params["embed"], cfg)
+    with torch.no_grad():
+        h0, _, aux0 = model.forward(params, tok)
+        with sh.axis_rules(mesh, cfg.mesh_rules):
+            with hlo_analysis.Accountant() as acc:
+                h1, _, aux1 = model.forward(params, tok)
+        torch.cuda.synchronize()
+        d_logit = float((h1.float() @ w.float() - h0.float() @ w.float())
+                        .abs().max())
+    d_aux = abs(float(aux1) - float(aux0))
+    L = cfg.num_layers
+    counts = acc.account.collective_counts
+    check(counts["all-gather"] == 3 * L and counts["all-reduce"] == 2 * L,
+          f"olmoe EP route collectives {counts}: want 3 x {L} data "
+          f"all-gathers (the experts' weights) and 2 x {L} all-reduces "
+          f"(the output over model, aux over data)")
+    check(d_logit == 0.0 and d_aux == 0.0,
+          f"olmoe EP vs local: logits differ by {d_logit}, aux by {d_aux}")
+    print(f"parallel 9b: olmoe-1b-7b (16 layers, 64 experts top-8, "
+          f"d=2048) B=2 x 256 cache-less forward, expert-parallel route "
+          f"(e_local {cfg.moe.num_experts}, base 0; per layer 3 data "
+          f"all-gathers and 2 all-reduces of one rank each: {counts}) vs "
+          f"local: largest logit difference {d_logit}, aux {float(aux1):.6f}"
+          f" vs {float(aux0):.6f}")
+    del model, params
+
+
+def _ring_script(torch, device):
+    """The scripted NBB/NBW sequence on ``device``: a capacity-3 ring
+    filled to full (one BUFFER_FULL), drained (one BUFFER_EMPTY), and an
+    NBW cell of depth 2 written and read 3 times.  -> every item, status
+    and counter, as tensors on ``device``."""
+    from repro_torch.core import nbb, nbw
+    out = []
+    s = nbb.init(3, torch.zeros(4, device=device))
+    for i in range(4):
+        s, st = nbb.insert_item(s, torch.full((4,), i + 1.0, device=device))
+        out += [st, s.update_count, nbb.size(s)]
+    for _ in range(4):
+        s, item, st = nbb.read_item(s)
+        out += [item, st, s.acknowledge_count]
+    c = nbw.init(2, torch.zeros(4, device=device))
+    for i in range(3):
+        c = nbw.write(c, torch.full((4,), 10.0 + i, device=device))
+        value, version = nbw.read(c)
+        out += [value, version]
+    return out
+
+
+def phase_parallel_rings(mesh):
+    """9c: pipeline_apply at one stage (all three schedules) against
+    pipeline_reference, and the functional NBB/NBW on the card with no
+    host sync, against the CPU."""
+    import torch
+    from repro_torch.core import nbb
+    from repro_torch.parallel.pipeline import (pipeline_apply,
+                                               pipeline_reference)
+    g = torch.Generator(device="cuda").manual_seed(29)
+    params = {"w": torch.randn(1, 64, 64, generator=g, device="cuda") * .3,
+              "b": torch.randn(1, 64, generator=g, device="cuda") * .1}
+    mbs = torch.randn(6, 8, 64, generator=g, device="cuda")
+
+    def stage_fn(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    want = pipeline_reference(stage_fn, params, mbs, 1)
+    errs = {}
+    for schedule in ("barrier", "nbb", "nbb2"):
+        got = pipeline_apply(stage_fn, params, mbs, mesh, axis="model",
+                             schedule=schedule).full_tensor()[-1]
+        errs[schedule] = float((got - want).abs().max())
+        check(errs[schedule] <= 1e-5, f"pipeline {schedule}: err "
+                                      f"{errs[schedule]}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dev = _ring_script(torch, "cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    cpu = _ring_script(torch, "cpu")
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(dev, cpu))
+    statuses = [int(dev[i]) for i in range(0, 12, 3)] + [
+        int(dev[12 + 3 * i + 1]) for i in range(4)]
+    check(same, "NBB/NBW on the card differ from the CPU")
+    check(statuses == [nbb.OK] * 3 + [nbb.BUFFER_FULL] + [nbb.OK] * 3
+          + [nbb.BUFFER_EMPTY], f"NBB statuses {statuses}")
+    print(f"parallel 9c: pipeline_apply at one stage vs pipeline_reference "
+          f"(f32, 6 microbatches of 8 x 64): max err {errs}; NBB insert/"
+          f"read statuses {statuses} and NBW reads equal on CUDA and CPU, "
+          f"run under set_sync_debug_mode('error') (no host sync)")
+
+
 def main() -> int:
     try:
         import torch
@@ -4167,6 +4446,7 @@ def main() -> int:
     train_launches, train_bwd_launches = phase_train(smi)
     phase_train_parity()
     lap("7 training")
+    dryrun = start_dryrun()
     zamba_train = phase_train_recurrent("zamba2-2.7b", smi)
     lap("7b zamba training")
     phase_train_recurrent("rwkv6-1.6b", smi)
@@ -4175,6 +4455,8 @@ def main() -> int:
     lap("7d whisper training")
     phase_checker()
     lap("8 checker")
+    phase_parallel(smi, dryrun)
+    lap("9 parallel")
     hd64_out_err, hd64_grad_err = trainable_errs["hd64"]
     hd80_out_err, hd80_grad_err = trainable_errs["hd80"]
     kernels = [phase_timing_paged(paged_launches, paged_err, smi),

@@ -3,8 +3,9 @@ residual MLP per layer.  [hf:Snowflake/snowflake-arctic-base; hf]"""
 from repro_torch.models.config import ModelConfig, MoEConfig
 
 # 56 heads / 8 kv: attention replicated over model; experts sharded 128/16
-# and FSDP-sharded over data (ZeRO-3 gather in the MoE block) so the 468B
-# expert params fit 16 GB/chip.  Optimizer state is 8-bit (train config).
+# and FSDP-sharded over data (ZeRO-3 gather in the MoE block), which is
+# what spreads the 468B expert params over the production mesh.
+# Optimizer state is 8-bit (train config; the dry-run's plan).
 CONFIG = ModelConfig(
     name="arctic-480b", family="moe",
     num_layers=35, d_model=7168, num_heads=56, num_kv_heads=8,

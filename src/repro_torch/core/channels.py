@@ -13,9 +13,9 @@ mutex-guarded baseline (the reference design) for A/B benchmarking.
 The same endpoint naming scheme is reused at the *device* level:
 :class:`DeviceChannel` describes a point-to-point edge on a mesh axis and
 resolves to the (source, dest) pairs of a collective permute — the
-device analogue of an MCAPI FIFO channel.  Only the descriptor is carried
-here, as plain Python; the permute that uses it belongs to the
-parallelism port.
+device analogue of an MCAPI FIFO channel.  The descriptor is plain
+Python here; ``parallel/pipeline.py`` sends along its pairs, one
+point-to-point exchange a tick.
 """
 from __future__ import annotations
 

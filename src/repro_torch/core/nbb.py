@@ -27,14 +27,19 @@ Two variants are provided:
     half-increments as separate micro-ops, for property tests of the
     torn (odd-counter) states.
 
-The functional device form of the same state machine (the JAX package's
-``NBBState``) is not carried yet; it waits for the pipeline-parallel port.
+and the functional device form of the same state machine
+(:class:`NBBState`, :func:`init`, :func:`size`, :func:`insert_item`,
+:func:`read_item`) on tensors: statuses are int32 tensors and every
+branch a ``torch.where``, so a sequence of operations on the card never
+waits for the host.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
+
+import torch
 
 from repro_torch.core import interleave as _il
 
@@ -288,6 +293,70 @@ class HostNBB:
 # producer/consumer interleaving, which is how we check the paper's Safety
 # property (a successful read never observes a partially-written slot).
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# Functional device variant (``core/nbb.py:288-353`` of the JAX package).
+# ---------------------------------------------------------------------------
+class NBBState(NamedTuple):
+    """Pure-functional NBB state: each op returns a new state."""
+
+    update_count: torch.Tensor       # int32 scalar, producer counter
+    acknowledge_count: torch.Tensor  # int32 scalar, consumer counter
+    slots: torch.Tensor              # [capacity, *item_shape]
+
+
+def init(capacity: int, item: torch.Tensor) -> NBBState:
+    """An empty NBB of ``capacity`` items shaped like ``item``, on its
+    device."""
+    z = torch.zeros((), dtype=torch.int32, device=item.device)
+    return NBBState(z, z.clone(), torch.zeros(
+        (capacity,) + tuple(item.shape), dtype=item.dtype,
+        device=item.device))
+
+
+def size(state: NBBState) -> torch.Tensor:
+    return state.update_count // 2 - state.acknowledge_count // 2
+
+
+def _pick(slots: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``slots[idx]`` for a 0-d index tensor, with no host read of it."""
+    return torch.index_select(slots, 0, idx.reshape(1))[0]
+
+
+def insert_item(state: NBBState, item: torch.Tensor
+                ) -> Tuple[NBBState, torch.Tensor]:
+    """Producer op -> (new state, status).  Never blocks: when the ring
+    is full the state comes back unchanged with a BUFFER_FULL* status."""
+    n = state.slots.shape[0]
+    uc, ac = state.update_count, state.acknowledge_count
+    full = (uc // 2 - ac // 2) >= n
+    status = torch.where(
+        full, torch.where(ac % 2 == 1, BUFFER_FULL_BUT_CONSUMER_READING,
+                          BUFFER_FULL), OK).to(torch.int32)
+    idx = (uc // 2) % n
+    written = state.slots.index_copy(
+        0, idx.reshape(1).long(), item.to(state.slots.dtype)[None])
+    new_slots = torch.where(full, state.slots, written)
+    # Both half-increments fused: no observer sits between them.
+    new_uc = torch.where(full, uc, uc + 2)
+    return NBBState(new_uc, ac, new_slots), status
+
+
+def read_item(state: NBBState
+              ) -> Tuple[NBBState, torch.Tensor, torch.Tensor]:
+    """Consumer op -> (new state, item, status); ``item`` is zeros when
+    the status is not OK (callers branch on it, as in the paper)."""
+    n = state.slots.shape[0]
+    uc, ac = state.update_count, state.acknowledge_count
+    empty = (uc // 2) == (ac // 2)
+    status = torch.where(
+        empty, torch.where(uc % 2 == 1, BUFFER_EMPTY_BUT_PRODUCER_INSERTING,
+                           BUFFER_EMPTY), OK).to(torch.int32)
+    item = _pick(state.slots, ((ac // 2) % n).long())
+    item = torch.where(empty, torch.zeros_like(item), item)
+    new_ac = torch.where(empty, ac, ac + 2)
+    return NBBState(uc, new_ac, state.slots), item, status
+
+
 @dataclasses.dataclass
 class SimNBB:
     capacity: int

@@ -18,13 +18,17 @@ Framework uses:
   * publishing fresh weights to a serving engine (weight hot-swap),
   * scalar telemetry (step counter, loss) between host actors.
 
-Only the host variant is carried here; the functional device cell (the
-JAX package's ``NBWState``) waits for the training port.
+Two variants: :class:`HostNBW` for host threads, and the functional
+device cell (:class:`NBWState`, :func:`init`, :func:`write`, :func:`read`,
+``core/nbw.py:86-110`` of the JAX package) on tensors, which never reads
+its counter on the host.
 """
 from __future__ import annotations
 
 import copy
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
+
+import torch
 
 # Status codes for the explicit (non-retrying) reader.
 OK = 0
@@ -79,3 +83,34 @@ class HostNBW:
             if status == OK:
                 return value
         raise TimeoutError("NBW read retries exhausted (writer storm)")
+
+
+# ---------------------------------------------------------------------------
+# Functional device variant: a versioned state cell.
+# ---------------------------------------------------------------------------
+class NBWState(NamedTuple):
+    version: torch.Tensor  # int32 scalar, even = stable
+    bufs: torch.Tensor     # [depth, *item_shape]
+
+
+def init(depth: int, item: torch.Tensor) -> NBWState:
+    return NBWState(
+        torch.zeros((), dtype=torch.int32, device=item.device),
+        torch.zeros((depth,) + tuple(item.shape), dtype=item.dtype,
+                    device=item.device))
+
+
+def write(state: NBWState, value: torch.Tensor) -> NBWState:
+    depth = state.bufs.shape[0]
+    v = state.version
+    idx = ((v // 2 + 1) % depth).reshape(1).long()
+    return NBWState(v + 2, state.bufs.index_copy(
+        0, idx, value.to(state.bufs.dtype)[None]))
+
+
+def read(state: NBWState) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (value, version).  The functional form cannot collide; the
+    collision semantics live in the host variant."""
+    depth = state.bufs.shape[0]
+    idx = ((state.version // 2) % depth).reshape(1).long()
+    return torch.index_select(state.bufs, 0, idx)[0], state.version // 2

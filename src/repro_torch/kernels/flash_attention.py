@@ -159,6 +159,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _cuda(q: torch.Tensor, what: str) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
+    if type(q).__name__ == "DTensor":
+        # The kernel reads raw pointers: under a mesh the caller passes
+        # each rank's shard (``layers.on_local_heads``).
+        raise TypeError(f"{what}: a DTensor reached the kernel; pass its "
+                        f"local shards")
 
 
 def _forward(q, k, v, causal: bool, window: int, softcap: float,

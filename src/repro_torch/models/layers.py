@@ -40,6 +40,8 @@ from torch.profiler import record_function
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import sharding
+from repro_torch.parallel.sharding import shard
 
 
 # ---------------------------------------------------------------------------
@@ -143,13 +145,17 @@ def attention(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_norm(p["k_norm"], k, cfg.norm_eps)
+    q = shard(q, "batch", "seq", "heads", "head_dim")
+    kv_seq = "cache_seq" if cache is not None else "seq"
+    k = shard(k, "batch", kv_seq, "kv_heads", "head_dim")
+    v = shard(v, "batch", kv_seq, "kv_heads", "head_dim")
     if cross:
         if cache is not None:
             raise ValueError("cross-attention reads a static cache "
                              "(attend_static), not a ring")
-        out = ops.flash_attention_trainable(
-            q, k, v, causal=False, softcap=cfg.attn_logit_softcap)
-        return torch.einsum("bthk,hkd->btd", out, p["wo"]), None
+        out = on_local_heads(ops.flash_attention_trainable, q, k, v,
+                             causal=False, softcap=cfg.attn_logit_softcap)
+        return _out_proj(out, p["wo"]), None
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
@@ -159,9 +165,9 @@ def attention(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
         # (``Model.forward``): the T queries are then the suffix of the T
         # keys, the flash contract, and relative positions mask as the
         # absolute ones would.
-        out = ops.flash_attention_trainable(
-            q, k, v, causal=True, window=window,
-            softcap=cfg.attn_logit_softcap)
+        out = on_local_heads(ops.flash_attention_trainable, q, k, v,
+                             causal=True, window=window,
+                             softcap=cfg.attn_logit_softcap)
     elif is_paged(cache):
         if window:
             raise NotImplementedError("a sliding window defeats the linear "
@@ -170,8 +176,38 @@ def attention(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     else:
         out = _dense_ring(cfg, q, k, v, cache, cache_pos, write_mask,
                           window)
-    out = torch.einsum("bthk,hkd->btd", out, p["wo"])
-    return out, cache
+    return _out_proj(out, p["wo"]), cache
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    return shard(torch.einsum("bthk,hkd->btd", out, wo),
+                 "batch", "seq", "embed")
+
+
+def on_local_heads(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   **kw) -> torch.Tensor:
+    """``fn(q, k, v, **kw)`` (a flash entry point) on this rank's
+    shards when q is a DTensor: the kernels take raw device pointers, so
+    under a mesh each call gets plain local tensors (``shard_map_compat``,
+    the JAX package's ``shard_map``).  Attention is independent across
+    the batch and across KV head groups, so q/k/v keep their batch and
+    head splits where the rules give them and the sizes divide (q's heads
+    and k/v's heads over the same axes, so each rank holds whole groups);
+    sequence and head_dim are gathered.  Plain tensors go straight
+    through."""
+    if not sharding.is_dtensor(q):
+        return fn(q, k, v, **kw)
+    mesh = q.device_mesh
+    b = sharding.batch_entry(q.shape[0], mesh)
+    hq = sharding.dividing("heads", q.shape[2], mesh)
+    hk = sharding.dividing("kv_heads", k.shape[2], mesh)
+    if hq != hk:
+        hq = hk = None
+    qs = sharding.P(b, None, hq, None)
+    kvs = sharding.P(b, None, hk, None)
+    return sharding.shard_map_compat(
+        lambda q, k, v: fn(q, k, v, **kw), mesh=mesh,
+        in_specs=(qs, kvs, kvs), out_specs=qs)(q, k, v)
 
 
 def _paged(cfg: ModelConfig, q, k, v, cache, cache_pos, write_mask):
@@ -387,8 +423,9 @@ def attend_static(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     q = torch.einsum("btd,dhk->bthk", x, p["wq"])
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q, cfg.norm_eps)
-    out = ops.flash_attention(q, kv_cache["k"], kv_cache["v"], causal=False)
-    return torch.einsum("bthk,hkd->btd", out, p["wo"])
+    out = on_local_heads(ops.flash_attention, q, kv_cache["k"],
+                         kv_cache["v"], causal=False)
+    return _out_proj(out, p["wo"])
 
 
 def cross_kv(p: Dict[str, Any], cfg: ModelConfig,
@@ -409,7 +446,9 @@ def cross_kv(p: Dict[str, Any], cfg: ModelConfig,
 def mlp(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     h = F.silu(torch.einsum("btd,df->btf", x, p["wi_gate"]))
     h = h * torch.einsum("btd,df->btf", x, p["wi_up"])
-    return torch.einsum("btf,fd->btd", h, p["wo"])
+    h = shard(h, "batch", "seq", "mlp")
+    return shard(torch.einsum("btf,fd->btd", h, p["wo"]),
+                 "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -420,11 +459,47 @@ def embed(p: Dict[str, Any], tokens: torch.Tensor,
     """Table rows in the compute dtype; gemma's are scaled by
     ``sqrt(d_model)`` cast to that dtype first (73.5 in bf16 at d 5376),
     as the reference's ``embed`` (``layers.py:396-399`` there)."""
-    x = p["table"][tokens.long()].to(cfg.compute_dtype)
+    if sharding.is_dtensor(p["table"]):
+        x = _embed_vocab_parallel(p["table"], tokens).to(cfg.compute_dtype)
+    else:
+        x = p["table"][tokens.long()].to(cfg.compute_dtype)
     if cfg.name.startswith("gemma"):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
-    return x
+    return shard(x, "batch", "seq", "embed")
+
+
+def _embed_vocab_parallel(table: torch.Tensor,
+                          tokens: torch.Tensor) -> torch.Tensor:
+    """The lookup of a table split over its vocabulary (rules: "vocab"),
+    on local shards: each rank looks up the tokens in its own rows (the
+    others give zeros) and one all-reduce over the vocabulary's axis
+    joins them.  DTensor's own sharded lookup leaves a masked partial it
+    cannot combine with the gradient's partial sum."""
+    mesh = table.device_mesh
+    v_ax = sharding.spec_for(("vocab", "embed"))[0] \
+        if sharding.active() else None
+    if not isinstance(v_ax, str):
+        v_ax = None                      # gathered whole below
+    rows = -(-table.shape[0] // sharding.mesh_axis_size(mesh, v_ax)) \
+        if v_ax else table.shape[0]
+    b = sharding.batch_entry(tokens.shape[0], mesh)
+
+    def local(tok, tab):
+        # Row indexing, as the unsharded lookup, so a one-rank mesh
+        # gives its bits (forward and gradient).
+        if v_ax is None:
+            return tab[tok.long()]
+        ids = tok.long() - mesh.get_local_rank(v_ax) * rows
+        ok = (ids >= 0) & (ids < tab.shape[0])
+        x = tab[torch.where(ok, ids, 0)]
+        return sharding.psum(torch.where(ok[..., None], x, 0), mesh, v_ax)
+
+    return sharding.shard_map_compat(
+        local, mesh=mesh, in_specs=(sharding.P(b, None),
+                                    sharding.P(v_ax, None)),
+        out_specs=sharding.P(b, None, None),
+        collective_axes=sharding.mesh_axis_names(mesh))(tokens, table)
 
 
 def unembed_matrix(p: Dict[str, Any], cfg: ModelConfig) -> torch.Tensor:

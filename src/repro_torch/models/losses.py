@@ -14,14 +14,27 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.parallel.sharding import is_dtensor, shard
+
 
 def _chunk_xent(hc: torch.Tensor, w_out: torch.Tensor, yc: torch.Tensor,
                 wc: torch.Tensor) -> torch.Tensor:
     """Weighted sum of (logsumexp - label logit) over one token chunk;
     w_out [D, V] in float32."""
+    if hc.dim() == 3:
+        hc = shard(hc, "batch", None, None)
     logits = torch.matmul(hc.float(), w_out)
+    logits = shard(logits, *(("batch", None, "vocab") if logits.dim() == 3
+                             else (None, "vocab")))
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, yc.long()[..., None])[..., 0]
+    if is_dtensor(logits):
+        # A gather along the vocab-sharded dimension gives DTensor a
+        # masked partial it cannot combine here; the label's column
+        # picked by a mask is the same value (one term, zeros elsewhere).
+        cols = torch.arange(logits.shape[-1], device=yc.device)
+        ll = torch.where(cols == yc.long()[..., None], logits, 0.0).sum(-1)
+    else:
+        ll = torch.gather(logits, -1, yc.long()[..., None])[..., 0]
     return torch.sum((lse - ll) * wc)
 
 
@@ -77,4 +90,5 @@ def full_logits(hidden: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
     """Decode-path logits (tiny T): [B, T, D] -> [B, T, V], accumulated
     and returned in float32 like the JAX package's
     ``preferred_element_type=float32`` einsum."""
-    return torch.einsum("btd,dv->btv", hidden.float(), w_out.float())
+    return shard(torch.einsum("btd,dv->btv", hidden.float(), w_out.float()),
+                 "batch", None, "vocab")

@@ -18,6 +18,7 @@ from torch.profiler import record_function
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
+from repro_torch.parallel.sharding import on_local_rows, shard
 from repro_torch.models.linear_attention import (
     decay_linear_attention_chunked, decay_linear_attention_scan)
 
@@ -52,13 +53,14 @@ def _ssd(p, cfg: ModelConfig, x_heads, Bmat, Cmat, dt, initial_state,
     v = x_heads * dt.unsqueeze(-1)                             # fold dt in
     with record_function("mamba.ssd"):
         if chunked:
-            y, S = decay_linear_attention_chunked(
-                q, k, v, ld, initial_state=initial_state,
-                decay_at_readout=True, chunk=ss.chunk, clamp=MAMBA_CLAMP)
+            y, S = on_local_rows(
+                decay_linear_attention_chunked, q, k, v, ld, None,
+                initial_state, decay_at_readout=True, chunk=ss.chunk,
+                clamp=MAMBA_CLAMP)
         else:
-            y, S = decay_linear_attention_scan(
-                q, k, v, ld, initial_state=initial_state,
-                decay_at_readout=True, clamp=MAMBA_CLAMP)
+            y, S = on_local_rows(
+                decay_linear_attention_scan, q, k, v, ld, None,
+                initial_state, decay_at_readout=True, clamp=MAMBA_CLAMP)
     y = y + x_heads * p["d_skip"].to(y.dtype)[None, None, :, None]
     return y, S
 
@@ -87,7 +89,8 @@ def mamba2_block(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     chunked form, else the scan (``mamba2.py:116`` there)."""
     ss, d_in, nh = _dims(cfg)
     B, T, _ = x.shape
-    proj = torch.einsum("btd,de->bte", x, p["in_proj"])
+    proj = shard(torch.einsum("btd,de->bte", x, p["in_proj"]),
+                 "batch", "seq", "mlp")
     z, xBC, dt = _split_proj(cfg, proj)
     # softplus as the JAX package's ``jax.nn.softplus``: logaddexp(x, 0).
     dt = torch.logaddexp(dt.float() + p["dt_bias"].float(),
@@ -120,4 +123,5 @@ def mamba2_block(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     y = y.reshape(B, T, d_in).to(x.dtype)
     # Gated RMSNorm (mamba2-style): norm(y * silu(z)).
     y = rms_norm(p["norm"], y * F.silu(z), cfg.norm_eps)
-    return torch.einsum("bte,ed->btd", y, p["out_proj"]), new_cache
+    return shard(torch.einsum("bte,ed->btd", y, p["out_proj"]),
+                 "batch", "seq", "embed"), new_cache

@@ -61,6 +61,7 @@ from repro_torch.models.layers import (attend_static, attention, cross_kv,
                                        unembed_matrix)
 from repro_torch.models.losses import chunked_softmax_xent, full_logits
 from repro_torch.models.moe import moe_block
+from repro_torch.parallel.sharding import Axes, shard
 
 Params = Dict[str, Any]
 
@@ -378,6 +379,103 @@ class Model:
         out["final_norm"] = ones(d)
         return out
 
+    def param_axes(self) -> Params:
+        """The logical axes of every leaf of :meth:`init`'s tree, an
+        :class:`~repro_torch.parallel.sharding.Axes` per leaf, as the JAX
+        package's ``param_axes`` (``model.py:300`` there, through its
+        ``ParamBuilder("axes")``); each layer-stacking dimension is
+        ``"layers"``."""
+        cfg = self.cfg
+
+        def ax(lead, *names):
+            return Axes(*(("layers",) * len(lead) + names))
+
+        def attn_layers(*lead):
+            attn = {"wq": ax(lead, "embed", "heads", "head_dim"),
+                    "wk": ax(lead, "embed", "kv_heads", "head_dim"),
+                    "wv": ax(lead, "embed", "kv_heads", "head_dim"),
+                    "wo": ax(lead, "heads", "head_dim", "embed")}
+            if cfg.qk_norm:
+                attn["q_norm"] = ax(lead, "head_dim")
+                attn["k_norm"] = ax(lead, "head_dim")
+            return {"ln1": ax(lead, "embed"), "attn": attn,
+                    "ln2": ax(lead, "embed")}
+
+        def dense_mlp(*lead):
+            return {"wi_gate": ax(lead, "embed", "mlp"),
+                    "wi_up": ax(lead, "embed", "mlp"),
+                    "wo": ax(lead, "mlp", "embed")}
+
+        def block(*lead):
+            return {**attn_layers(*lead), "mlp": dense_mlp(*lead)}
+
+        def mamba_layers(*lead):
+            return {"ln": ax(lead, "embed"), "mixer": {
+                "in_proj": ax(lead, "embed", "mlp"),
+                "conv_w": ax(lead, "conv_kernel", "mlp"),
+                "conv_b": ax(lead, "mlp"),
+                "a_log": ax(lead, "heads"), "dt_bias": ax(lead, "heads"),
+                "d_skip": ax(lead, "heads"), "norm": ax(lead, "mlp"),
+                "out_proj": ax(lead, "mlp", "embed")}}
+
+        def rwkv_layers(*lead):
+            r = {n: ax(lead, "embed") for n in (
+                "mix_r", "mix_k", "mix_v", "mix_g", "mix_w", "cmix_k",
+                "cmix_r")}
+            r.update({n: ax(lead, "embed", "qkv")
+                      for n in ("wr", "wk", "wv", "wg", "cr")})
+            r.update({"w0": ax(lead, "qkv"), "ln_x": ax(lead, "qkv"),
+                      "w_lora_a": ax(lead, "embed", None),
+                      "w_lora_b": ax(lead, None, "qkv"),
+                      "u_bonus": ax(lead, "heads", "head_dim"),
+                      "wo": ax(lead, "qkv", "embed"),
+                      "ck": ax(lead, "embed", "mlp"),
+                      "cv": ax(lead, "mlp", "embed")})
+            return {"ln1": ax(lead, "embed"), "ln2": ax(lead, "embed"),
+                    "rwkv": r}
+
+        emb = {"table": Axes("vocab", "embed")}
+        if not cfg.tie_embeddings:
+            emb["unembed"] = Axes("embed", "vocab")
+        out = {"embed": emb}
+        fam = self._structure()
+        if fam == "vlm_cross":
+            nsb, per, _ = self._vlm_plan()
+            out["super"] = {"selfs": block(nsb, per - 1), "cross": block(nsb)}
+        elif fam == "enc_dec":
+            out["encoder"] = block(cfg.encoder.num_layers)
+            out["enc_norm"] = Axes("embed")
+            selfs = attn_layers(cfg.num_layers)
+            del selfs["ln2"]
+            out["layers"] = {"self": selfs, "cross": block(cfg.num_layers)}
+        elif fam == "gemma_local_global":
+            per, nsb, tail = self._gemma_plan()
+            out["super"] = {"local": block(nsb, per), "global": block(nsb)}
+            if tail:
+                out["tail"] = block(tail)
+        elif fam == "zamba_hybrid":
+            nsb, per = self._zamba_plan()
+            out["shared_attn"] = block()
+            out["super"] = mamba_layers(nsb, per)
+        elif fam == "uniform_rwkv":
+            out["layers"] = rwkv_layers(cfg.num_layers)
+        else:
+            L = (cfg.num_layers,)
+            layers = attn_layers(*L)
+            if cfg.moe is None:
+                layers["mlp"] = dense_mlp(*L)
+            else:
+                layers["moe"] = {
+                    "router": ax(L, "embed", None),
+                    "wi_gate": ax(L, "expert", "expert_data", "expert_mlp"),
+                    "wi_up": ax(L, "expert", "expert_data", "expert_mlp"),
+                    "wo": ax(L, "expert", "expert_mlp", "expert_data")}
+                if cfg.moe.dense_residual:
+                    layers["dense"] = dense_mlp(*L)
+            out["layers"] = layers
+        out["final_norm"] = Axes("embed")
+        return out
+
     # -- forward -------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, extras_len: int = 0,
                    device: Union[str, torch.device, None] = None
@@ -626,6 +724,7 @@ class Model:
         cache-less cross layers; without them such a layer attends over
         its own input, as in the JAX package."""
         cfg = self.cfg
+        tokens = shard(tokens, "batch", "seq")
         B, T = tokens.shape
         ar = torch.arange(T, device=tokens.device)
         if start_pos is None:
@@ -657,7 +756,9 @@ class Model:
         extras = batch.get("image_embeds", batch.get("frame_embeds"))
         hidden, _, aux = self.forward(params, tokens, extras=extras)
         w_out = unembed_matrix(params["embed"], cfg).to(cfg.compute_dtype)
-        labels = torch.roll(tokens, -1, 1)
+        # The labels rolled left one position (``torch.roll``, spelled
+        # as a concatenation, which DTensor shards on every version).
+        labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
         weights = torch.ones(tokens.shape, dtype=torch.float32,
                              device=tokens.device)
         weights[:, -1] = 0.0

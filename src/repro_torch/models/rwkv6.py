@@ -22,6 +22,7 @@ from torch.profiler import record_function
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
+from repro_torch.parallel.sharding import on_local_rows, shard
 from repro_torch.models.linear_attention import (
     decay_linear_attention_chunked, decay_linear_attention_scan)
 
@@ -86,14 +87,15 @@ def rwkv6_time_mix(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     initial = cache["wkv"] if cache is not None else None
     with record_function("rwkv.wkv"):
         if cache is None and T % cfg.rwkv.chunk == 0:
-            y, S = decay_linear_attention_chunked(
-                heads(r), heads(k), heads(v), heads(ld), u=p["u_bonus"],
-                initial_state=initial, decay_at_readout=False,
-                chunk=cfg.rwkv.chunk, clamp=RWKV_CLAMP)
+            y, S = on_local_rows(
+                decay_linear_attention_chunked, heads(r), heads(k),
+                heads(v), heads(ld), p["u_bonus"], initial,
+                decay_at_readout=False, chunk=cfg.rwkv.chunk,
+                clamp=RWKV_CLAMP)
         else:
-            y, S = decay_linear_attention_scan(
-                heads(r), heads(k), heads(v), heads(ld), u=p["u_bonus"],
-                initial_state=initial, decay_at_readout=False,
+            y, S = on_local_rows(
+                decay_linear_attention_scan, heads(r), heads(k), heads(v),
+                heads(ld), p["u_bonus"], initial, decay_at_readout=False,
                 clamp=RWKV_CLAMP)
     y = rms_norm(p["ln_x"], y.reshape(B, T, D), cfg.norm_eps)
     y = y * F.silu(g)
@@ -101,7 +103,7 @@ def rwkv6_time_mix(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     new_cache = None
     if cache is not None:
         new_cache = {"shift_tm": x[:, -1], "wkv": S}
-    return out, new_cache
+    return shard(out, "batch", "seq", "embed"), new_cache
 
 
 def rwkv6_channel_mix(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
@@ -110,9 +112,9 @@ def rwkv6_channel_mix(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     mixed = _mixer(x, _token_shift(
         x, cache["shift_cm"] if cache is not None else None))
     k = torch.einsum("btd,df->btf", mixed(p["cmix_k"]), p["ck"])
-    k = torch.square(F.relu(k))
+    k = shard(torch.square(F.relu(k)), "batch", "seq", "mlp")
     kv = torch.einsum("btf,fd->btd", k, p["cv"])
     r = torch.sigmoid(torch.einsum("btd,de->bte", mixed(p["cmix_r"]),
                                    p["cr"]))
     new_shift = {"shift_cm": x[:, -1]} if cache is not None else None
-    return r * kv, new_shift
+    return shard(r * kv, "batch", "seq", "embed"), new_shift

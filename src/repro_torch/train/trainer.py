@@ -18,11 +18,26 @@ lock-free pieces:
     EMA; an iteration slower than ``straggler_factor`` x the EMA counts as
     a straggler.  Step 1 is left out: it pays the first-use costs (the
     kernels' build and load on the card).
-
-Elastic re-meshing (``Trainer.remesh``) belongs to the parallelism slice.
+  * sharded state — ``Trainer(mesh=, shardings=(params, opt state,
+    batch))`` distributes the parameters and the optimizer state as
+    DTensors and each batch on arrival, and runs the step under the
+    model's logical-axis rules on that mesh (``trainer.py:52-94`` there).
+  * elastic scaling — ``remesh(mesh, shardings)`` gathers the state to
+    full tensors and distributes it again (``remesh(None, None)``: plain
+    tensors, no mesh).  The state stays mesh-agnostic: checkpoints hold
+    full tensors.
+  * several ranks — in a process group of more than one rank the Trainer
+    is collective: every rank builds it, fits it and closes it, and a
+    mesh spans the whole group.  Each batch is broadcast from rank 0
+    before it is distributed (``DataPipeline`` does not promise one
+    order, so the ranks' own feeds may differ), and rank 0 alone writes
+    checkpoints; ``close`` waits at a barrier until the last one is on
+    disk.  A resume reads the directory on every rank, so it must be
+    one that every rank sees.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import tempfile
@@ -31,11 +46,18 @@ from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import nbw
+from repro_torch.parallel import sharding as shlib
 from repro_torch.train import checkpoint as ckpt_lib
+from repro_torch.train import tree
 from repro_torch.train.optimizer import AdamW
 from repro_torch.train.train_step import make_train_step
+
+
+def _world_size() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def _default_ckpt_dir() -> str:
@@ -60,9 +82,11 @@ class Trainer:
 
     def __init__(self, model, opt: AdamW, cfg: TrainerConfig,
                  generator: Optional[torch.Generator] = None, seed: int = 0,
-                 resume: bool = False):
+                 resume: bool = False, mesh=None,
+                 shardings: Optional[tuple] = None):
         self.model, self.opt, self.cfg = model, opt, cfg
         self._step = make_train_step(model, opt)
+        self.mesh, self.shardings = None, None
         if generator is None:
             generator = torch.Generator(device=model.device).manual_seed(seed)
         self.params = model.init(generator)
@@ -75,9 +99,12 @@ class Trainer:
                 self.step, (self.params, self.opt_state) = ckpt_lib.restore(
                     cfg.ckpt_dir, (self.params, self.opt_state))
 
+        self.remesh(mesh, shardings)
+        # Several ranks hold the same full state: one of them writes it.
+        self._writer = _world_size() == 1 or dist.get_rank() == 0
         self.ckpt = (ckpt_lib.AsyncCheckpointer(cfg.ckpt_dir, keep=cfg.keep)
                      if cfg.async_checkpoint and cfg.ckpt_every > 0
-                     else None)
+                     and self._writer else None)
         # NBW telemetry cells: monitors read without locking the loop.
         self.telemetry = {"step": nbw.HostNBW(), "loss": nbw.HostNBW()}
         self._ema_dt: Optional[float] = None
@@ -86,8 +113,46 @@ class Trainer:
 
     def _to_device(self, batch: Dict[str, np.ndarray]
                    ) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v).to(self.model.device)
-                for k, v in batch.items()}
+        out = {k: torch.as_tensor(v).to(self.model.device)
+               for k, v in batch.items()}
+        if self.mesh is not None and self.mesh.size() > 1:
+            for v in out.values():      # rank 0's batch is the step's
+                dist.broadcast(v, src=0)
+        if self.shardings is not None:
+            out = {k: shlib.distribute(v, self.shardings[2][k])
+                   for k, v in out.items()}
+        return out
+
+    def remesh(self, mesh, shardings: Optional[tuple] = None) -> None:
+        """Elastic scale: gather the state to full tensors, then
+        distribute it over ``mesh`` by ``shardings`` = (params, opt state,
+        batch) NamedSharding trees; ``shardings=None`` keeps it plain."""
+        if mesh is not None and mesh.size() not in (1, _world_size()):
+            raise ValueError(f"a Trainer's mesh spans the whole process "
+                             f"group: {mesh.size()} of {_world_size()} "
+                             f"ranks")
+        full = lambda t: tree.map_leaves(shlib.full, t)   # noqa: E731
+        self.params, self.opt_state = full(self.params), full(self.opt_state)
+        self.mesh, self.shardings = mesh, shardings
+        if shardings is not None:
+            p_sh, o_sh, _ = shardings
+            self.params = tree.map_leaves(shlib.distribute, self.params,
+                                          p_sh)
+            self.opt_state = tree.map_leaves(shlib.distribute,
+                                             self.opt_state, o_sh)
+
+    def _context(self):
+        """The step's rules context: the model's logical-axis rules on the
+        mesh, plain tensors taken as replicated (positions, masks)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        stack = contextlib.ExitStack()
+        stack.enter_context(shlib.axis_rules(self.mesh,
+                                             self.model.cfg.mesh_rules))
+        stack.enter_context(implicit_replication())
+        return stack
 
     # -- loop -----------------------------------------------------------------
     def fit(self, batches: Iterable[Dict[str, np.ndarray]], steps: int,
@@ -99,9 +164,10 @@ class Trainer:
             # symptom just like a slow device.
             t0 = time.monotonic()
             batch = self._to_device(next(it))
-            self.params, self.opt_state, metrics = self._step(
-                self.params, self.opt_state, batch)
-            loss = float(metrics["loss"])  # sync point = step boundary
+            with self._context():
+                self.params, self.opt_state, metrics = self._step(
+                    self.params, self.opt_state, batch)
+            loss = float(shlib.full(metrics["loss"]))  # sync: step boundary
             dt = time.monotonic() - t0
             self.step += 1
 
@@ -120,7 +186,7 @@ class Trainer:
             if self.step % self.cfg.log_every == 0 or self.step == target:
                 self.history.append(
                     {"step": self.step, "loss": loss, "dt_s": dt,
-                     "grad_norm": float(metrics["grad_norm"]),
+                     "grad_norm": float(shlib.full(metrics["grad_norm"])),
                      "stragglers": self.straggler_steps})
                 if on_metrics:
                     on_metrics(self.step, self.history[-1])
@@ -131,7 +197,9 @@ class Trainer:
 
     # -- checkpointing --------------------------------------------------------
     def save(self) -> None:
-        state = (self.params, self.opt_state)
+        state = tree.map_leaves(shlib.full, (self.params, self.opt_state))
+        if not self._writer:
+            return
         if self.ckpt is not None:
             self.ckpt.publish(self.step, state)
         else:
@@ -143,3 +211,5 @@ class Trainer:
             self.save()
         if self.ckpt is not None:
             self.ckpt.close()
+        if self.cfg.ckpt_every > 0 and _world_size() > 1:
+            dist.barrier()

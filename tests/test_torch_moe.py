@@ -37,10 +37,12 @@ from repro.models import moe as jmoe  # noqa: E402
 from repro.models.layers import unembed_matrix as j_unembed  # noqa: E402
 from repro.serve.engine import ServeEngine as JaxEngine  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.launch.mesh import AbstractMesh  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.parallel.sharding import axis_rules  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.train import tree  # noqa: E402
 from repro_torch.train.train_step import loss_and_grads  # noqa: E402
@@ -142,10 +144,13 @@ def test_capacity_matches_reference(arch):
 
 
 def test_mesh_is_refused(pair1):
+    """A mesh whose model axis does not divide the experts is refused
+    (8 SMOKE experts over 3 columns), before any collective."""
     _, _, jp, tm, tp = pair1
     _, tm0 = _moe0(jp, tp)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tmoe.moe_block(tm0, tm.cfg, torch.zeros(1, 2, 64), mesh=object())
+    with axis_rules(AbstractMesh((1, 3), ("data", "model"))):
+        with pytest.raises(ValueError, match="mesh"):
+            tmoe.moe_block(tm0, tm.cfg, torch.zeros(1, 2, 64))
 
 
 def test_logits_match_reference(pair1):
