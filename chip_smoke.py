@@ -237,17 +237,36 @@ each of which fails the run hard:
    CPU; (9d) ``python -m repro_torch.launch.dryrun --arch smollm-135m
    --shape train_4k`` (started in the background at the lowest CPU
    priority once phase 7's smollm training has been timed, as it plans on
-   the host's CPU: it shares the host with phases 7b-9c, whose steps are
-   device-bound, and with no earlier phase): its per-device FLOPs, argument bytes, peak
-   estimate and collective bytes by kind, printed as plan estimates, and
-   its argument bytes equal to the count derived from the specs.
+   the host's CPU: it shares the host with phases 7b-10, and with no
+   earlier phase; read after phase 10): its per-device FLOPs, argument
+   bytes, peak estimate and collective bytes by kind, printed as plan
+   estimates, and its argument bytes equal to the count derived from the
+   specs;
+10. the four examples of ``examples_torch/`` on the card, each ``main``
+   run in this process: (10a) ``quickstart`` for ``smollm-135m`` and
+   ``olmoe-1b-7b`` (SMOKE, bf16, head_dim 16: one train step, prefill of
+   8 tokens, 6 decode steps), loss and grad norm finite, 7 token ids in
+   the vocabulary, flash forward and backward launched, none on the
+   CUDA-core instance; (10b) ``train_e2e --full-135m`` (smollm-135m at
+   full width: 30 layers, d=576) at batch 8 x 128 for 60 steps with its
+   checkpoints under ``build/``, the loss falling, flash forward = 2 x 30
+   and backward = 30 launches a step, then the same command for 10 steps,
+   which must resume from step 60 and say so on its first line; (10c)
+   ``serve_batched`` (``slot_fused``, 3 threaded clients x 2 streamed
+   requests and a cancel mid-decode): every stream complete and exactly
+   once, the cancelled request in one terminal state (cancelled, or
+   completed where its 48 tokens finished first), every pool page free
+   again, no watchdog catch; (10d) ``lockfree_pipeline_demo --ranks 1``
+   (one rank: an NCCL world of one), every schedule matching
+   ``pipeline_reference``.
 
 Phase 7 runs before the timing of phase 6, which reports its launch
 count; the paged row's launches add phases 3c-3g's to phase 3's, the
 ring row's are 3g's launches under the ring bound, the non-causal
 flash row's are 3h's and 3i's non-causal launches, the hd 80 serving
 rows' are 3j's served launches, the trainable flash and flash backward
-rows' are phase 7's and 7d's, and the hd 80 training rows' are 7b's.
+rows' are phase 7's, 7d's and 10b's, and the hd 80 training rows' are
+7b's.
 Every
 kernel counter is set to 0 just before a served or trained run (or the
 NBB matmul's entry-point call) and read just after it; launches made to
@@ -4175,8 +4194,9 @@ def _step_times(trainer, batches):
     return 1e3 * wall, dev
 
 
-def phase_parallel(smi: str, dryrun):
-    """9: the parallelism slice on the card (see the module docstring)."""
+def phase_parallel(smi: str):
+    """9a-9c: the parallelism slice on the card (see the module
+    docstring)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -4257,7 +4277,10 @@ def phase_parallel(smi: str, dryrun):
     phase_parallel_rings(mesh)
     dist.destroy_process_group()
 
-    # 9d: the dry-run's plan.
+
+def read_dryrun(dryrun):
+    """9d: the dry-run's plan, read once its process ends (it runs beside
+    phases 7b-10)."""
     try:
         log = dryrun.communicate(timeout=900)[0]
     except subprocess.TimeoutExpired:
@@ -4387,6 +4410,147 @@ def phase_parallel_rings(mesh):
           f"run under set_sync_debug_mode('error') (no host sync)")
 
 
+def load_example(name: str):
+    """``examples_torch/<name>.py`` as a module, so that its ``main`` runs
+    in this process and the kernel counters can be read around it."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(mod, argv):
+    """``mod.main(argv)`` with its standard output captured and then
+    printed -> (its return value, its printed lines)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(argv)
+    text = buf.getvalue()
+    print(text, end="")
+    return out, text.splitlines()
+
+
+def phase_examples(smi: str):
+    """10: the four examples of ``examples_torch/`` on the card, each
+    run in-process with every kernel counter set to 0 just before it and
+    read just after (see the module docstring).  Returns 10b's flash
+    forward and backward launches (a training path: they join the
+    trainable flash and flash backward rows)."""
+    import shutil
+
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import states
+    forwards = [0, 0]
+
+    # 10a: the quickstart (SMOKE, bf16, head_dim 16).
+    quickstart = load_example("quickstart")
+    for arch in ("smollm-135m", "olmoe-1b-7b"):
+        zero_counts(forwards)
+        r, _ = run_example(quickstart, ["--arch", arch])
+        c = _counts()
+        vocab = get_smoke_config(arch).vocab_size
+        check(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]),
+              f"quickstart {arch}: loss {r['loss']}, grad norm "
+              f"{r['grad_norm']}")
+        check(len(r["tokens"]) == 7
+              and all(0 <= t < vocab for t in r["tokens"]),
+              f"quickstart {arch}: token ids {r['tokens']}")
+        check(c["causal"] > 0 and c["bwd"] > 0 and c["simt"] == 0,
+              f"quickstart {arch}: flash launches {c['causal']}, backward "
+              f"{c['bwd']}, CUDA-core {c['simt']}")
+        print(f"examples 10a: quickstart {arch} (SMOKE, bf16, "
+              f"{r['params']} params): loss {r['loss']:.4f}, grad norm "
+              f"{r['grad_norm']:.2f}, tokens {r['tokens']}; launches: flash "
+              f"{c['causal']}, backward {c['bwd']}, paged {c['paged']}, "
+              f"CUDA-core {c['simt']}")
+
+    # 10b: train_e2e --full-135m, then a resume from its checkpoint.
+    train_e2e = load_example("train_e2e")
+    L = get_config("smollm-135m").num_layers
+    ckpt_dir = ROOT / "build" / "chip_smoke_train_e2e"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    args = ["--full-135m", "--batch", "8", "--seq", "128", "--ckpt-dir",
+            str(ckpt_dir)]
+    runs = []
+    for steps in (60, 10):
+        zero_counts(forwards)
+        r, lines = run_example(train_e2e, args + ["--steps", str(steps)])
+        runs.append((r, lines, _counts(), steps))
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    (r1, lines1, c1, s1), (r2, lines2, c2, s2) = runs
+    losses = [h["loss"] for h in r1["history"]]
+    check(r1["resumed_from"] == 0 and all(map(math.isfinite, losses))
+          and losses[-1] < losses[0], f"train_e2e: losses {losses}, "
+          f"resumed from {r1['resumed_from']}")
+    check(r2["resumed_from"] == s1
+          and lines2[0].endswith(f"resume from step {s1}")
+          and r2["history"][-1]["step"] == s1 + s2,
+          f"train_e2e resume: first line {lines2[0]!r}, history "
+          f"{r2['history']}")
+    for (r, _, c, steps) in runs:
+        check(c["causal"] == 2 * L * steps and c["bwd"] == L * steps
+              and c["simt"] == 0,
+              f"train_e2e {steps} steps: flash launches {c['causal']} (want "
+              f"{2 * L * steps}), backward {c['bwd']} (want {L * steps}), "
+              f"CUDA-core {c['simt']}")
+    walls = [round(1e3 * h["dt_s"], 1) for h in r1["history"]]
+    print(f"examples 10b: train_e2e --full-135m (smollm-135m, 30 layers, "
+          f"d=576, {r1['params']} params, bf16) batch 8 x 128, {s1} steps "
+          f"in {r1['seconds']:.1f} s ({r1['tok_s']:.0f} tokens/s), logged "
+          f"step walls ms {walls}, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; resumed from step {r2['resumed_from']} for "
+          f"{s2} steps ({r2['tok_s']:.0f} tokens/s), loss "
+          f"{r2['history'][-1]['loss']:.4f}; flash launches {c1['causal']} "
+          f"+ {c2['causal']}, backward {c1['bwd']} + {c2['bwd']}, "
+          f"CUDA-core 0 [{smi}]")
+
+    # 10c: serve_batched (slot_fused, SMOKE).
+    serve_batched = load_example("serve_batched")
+    zero_counts(forwards)
+    r, _ = run_example(serve_batched, [])
+    c = _counts()
+    eng, cancelled = r["engine"], r["cancelled"]
+    check(len(r["streams"]) == 6
+          and all(len(resp.tokens_out) == 8
+                  and [p for p, _ in got] == list(range(8))
+                  for resp, got in r["streams"]),
+          f"serve_batched streams: {[(len(g), len(x.tokens_out)) for x, g in r['streams']]}")
+    check(bool(cancelled) and cancelled.fsm.state in (
+        states.REQUEST_CANCELLED, states.REQUEST_COMPLETED),
+          f"serve_batched cancel: {cancelled}")
+    check(eng.pool.free_pages() == eng.pool.n_pages,
+          f"serve_batched: {eng.pool.free_pages()} of {eng.pool.n_pages} "
+          f"pages free")
+    check(c["causal"] > 0 and c["simt"] == 0
+          and eng.fault_report()["tick_failures"] == 0,
+          f"serve_batched: flash {c['causal']}, CUDA-core {c['simt']}, "
+          f"faults {eng.fault_report()}")
+    print(f"examples 10c: serve_batched (slot_fused, SMOKE): 6 streams "
+          f"complete and exactly once; the cancelled request ended "
+          f"{cancelled.fsm.state} after {len(cancelled.tokens_out)}/48 "
+          f"tokens; pool free {eng.pool.free_pages()}/{eng.pool.n_pages}; "
+          f"launches: flash {c['causal']}, paged {c['paged']}, CUDA-core "
+          f"{c['simt']}")
+    del eng, r
+
+    # 10d: the pipeline demo as an NCCL world of one.
+    demo = load_example("lockfree_pipeline_demo")
+    rows, _ = run_example(demo, ["--ranks", "1"])
+    check([row["schedule"] for row in rows] == ["barrier", "nbb", "nbb2"]
+          and all(row["match"] for row in rows),
+          f"lockfree_pipeline_demo rows: {rows}")
+    print(f"examples 10d: lockfree_pipeline_demo --ranks 1 (NCCL world of "
+          f"one, S=1 M=16 B=8 D=256): "
+          + ", ".join(f"{row['schedule']} {row['bytes']} B {row['ms']} ms"
+                      for row in rows) + " [plumbing only]")
+    return c1["causal"], c1["bwd"]
+
+
 def main() -> int:
     try:
         import torch
@@ -4455,8 +4619,12 @@ def main() -> int:
     lap("7d whisper training")
     phase_checker()
     lap("8 checker")
-    phase_parallel(smi, dryrun)
+    phase_parallel(smi)
     lap("9 parallel")
+    e2e_launches, e2e_bwd_launches = phase_examples(smi)
+    lap("10 examples")
+    read_dryrun(dryrun)
+    lap("9d dry-run")
     hd64_out_err, hd64_grad_err = trainable_errs["hd64"]
     hd80_out_err, hd80_grad_err = trainable_errs["hd80"]
     kernels = [phase_timing_paged(paged_launches, paged_err, smi),
@@ -4466,10 +4634,11 @@ def main() -> int:
                                       smi),
                phase_timing_trainable(
                    train_launches + whisper_train["causal"]
-                   + whisper_train["noncausal"],
+                   + whisper_train["noncausal"] + e2e_launches,
                    max(hd64_out_err, hd64_grad_err), smi),
                phase_timing_flash_bwd(train_bwd_launches
-                                      + whisper_train["bwd"],
+                                      + whisper_train["bwd"]
+                                      + e2e_bwd_launches,
                                       hd64_grad_err, smi),
                phase_timing_nbb(nbb_launches, nbb_err, smi),
                *phase_timing_hd80(hd80_launches, hd80_flash_err,

@@ -176,6 +176,62 @@ def test_weak_refusals_and_partial_bursts():
 # ---------------------------------------------------------------------------
 # The fault paths under the scheduler
 # ---------------------------------------------------------------------------
+def test_torn_span_recovery_exhaustive():
+    """Every interleaving of the stalled producer, the consumer and the
+    reaper, at the scenario's full budget, as in the reference."""
+    r = scenarios.explore_scenario("torn_span_recovery")
+    assert _summary(r) == _summary(
+        jscenarios.explore_scenario("torn_span_recovery"))
+    assert r.ok, (f"{r.counterexample.error}\n"
+                  f"repro schedule: {list(r.counterexample.schedule)}")
+    assert r.exhausted, "budget too small: raise explore_budget"
+
+
+def test_mpsc_dead_producer_bounded():
+    r = scenarios.explore_scenario("mpsc_dead_producer",
+                                   max_executions=1500)
+    assert _summary(r) == _summary(jscenarios.explore_scenario(
+        "mpsc_dead_producer", max_executions=1500))
+    assert r.ok, (f"{r.counterexample.error}\n"
+                  f"repro schedule: {list(r.counterexample.schedule)}")
+
+
+def test_stall_fires_under_scheduler_control():
+    """The FaultPlan's nth-probe counting is deterministic under the
+    scheduler: the first burst commits, the second stalls; the trace is
+    the reference's."""
+    def run(il_mod, scen_mod):
+        seen = []
+
+        def make():
+            w = scen_mod.get("torn_span_recovery").make_world()
+            inner = w.check
+
+            def check():
+                seen.append(True)
+                inner()
+            w.check = check
+            return w
+
+        res = il_mod.run_schedule(make, [0] * 40, strict=False,
+                                  max_steps=600)
+        return res, seen
+
+    res, seen = run(il, scenarios)
+    assert not res.failed, res.error
+    assert seen
+    ref, _ = run(jil, jscenarios)
+    assert [s for _, s, _ in res.trace] == [s for _, s, _ in ref.trace]
+
+
+def test_fuzz_fault_scenarios():
+    for name in ("torn_span_recovery", "mpsc_dead_producer"):
+        f = scenarios.fuzz_scenario(name, seed=1, runs=20)
+        assert f.ok, (f"{name}: {f.counterexample.error}\n"
+                      f"repro: {f.counterexample.repro(name)}")
+        assert f.runs == jscenarios.fuzz_scenario(name, seed=1, runs=20).runs
+
+
 def test_recovery_path_reachable():
     sched = [0] * 40 + [2] * 20 + [1] * 20
     res = il.run_schedule(scenarios.get("torn_span_recovery").make_world,

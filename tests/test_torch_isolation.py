@@ -1,7 +1,8 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, every submodule imports with both
-blocked, and the entry points refuse to run without a card unless the
-CPU is asked for."""
+"""The port stands alone: ``repro_torch``, ``examples_torch/`` and
+``chip_smoke.py`` import neither JAX nor the JAX package, every
+submodule imports with both blocked, and the entry points (the
+examples too) refuse to run without a card unless the CPU is asked
+for."""
 import ast
 import dataclasses
 import os
@@ -17,8 +18,12 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
 
+EXAMPLES = ROOT / "examples_torch"
+
+
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + sorted(EXAMPLES.glob("*.py"))
+            + [ROOT / "chip_smoke.py"])
 
 
 def test_no_jax_or_reference_imports_in_the_source():
@@ -124,3 +129,20 @@ def test_engine_constructs_every_scheduler():
                            device="cpu")
     with pytest.raises(ValueError, match="slot_paged needs"):
         ServeEngine(windowed, params, scheduler="slot_paged", device="cpu")
+
+
+@pytest.mark.parametrize("name", ["quickstart", "train_e2e",
+                                  "serve_batched", "lockfree_pipeline_demo"])
+def test_examples_refuse_without_a_card(monkeypatch, tmp_path, name):
+    """Each example's ``main`` refuses to start without a card unless
+    ``--device cpu`` is given (no silent fallback)."""
+    import importlib.util
+    assert len(list(EXAMPLES.glob("*.py"))) == 4
+    spec = importlib.util.spec_from_file_location(
+        f"_example_{name}", EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = (["--ckpt-dir", str(tmp_path)] if name == "train_e2e" else [])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(argv)
