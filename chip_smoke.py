@@ -283,6 +283,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -444,6 +445,7 @@ def phase_build():
     print(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
           f"device {torch.cuda.get_device_name(0)}")
     print(f"kernel build: {dt:.1f} s ({', '.join(libs)})")
+    spills, serialized = {}, set()
     for name, lib in libs.items():
         kernel = name
         for line in Path(lib).with_suffix(".log").read_text().splitlines():
@@ -451,14 +453,23 @@ def phase_build():
                 kernel = demangle(line.split("'")[1])
             elif "registers" in line or "spill" in line:
                 print(f"  {kernel}: {line.split(':', 1)[-1].strip()}")
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", line)
+                if m:
+                    spills[kernel] = int(m[1]) + int(m[2])
+            elif "warning" in line or "Performance Loss" in line:
+                print(f"  {kernel}: {line.strip()}")
+                if "wgmma" in line and "serialized" in line:
+                    serialized.add(kernel)
     # Tensor-core instructions in the SASS: each bf16 tensor-core instance
-    # must issue them (the flash kernels' flash_*_tc<hd>, the paged chunk
-    # kernel paged_chunk_tc<hd>; the NBB matmul's nbb_wgmma_kernel<...>
-    # HGMMA, wgmma), each float32 instance none (flash_*_simt<T>,
+    # must issue them (the flash forward's flash_fwd_tc<hd>, the paged
+    # chunk kernel paged_chunk_tc<hd>; HGMMA, wgmma, in each of the flash
+    # backward's flash_bwd_{dq,dkdv}_wgmma<hd> and the NBB matmul's
+    # nbb_wgmma_kernel<...>), each float32 instance none (flash_*_simt<T>,
     # paged_split<float, hd>, paged_simt<float>, nbb_simt_kernel): no TF32.
     rules = {  # source: (tensor-core needle, least count, f32 needles, least)
         "flash_attention": ("_tcI", 5, ("_simtI",), 2),
-        "flash_attention_bwd": ("_tcI", 10, ("_simtI",), 2),
+        "flash_attention_bwd": ("_wgmmaI", 20, ("_simtI",), 2),
         "paged_attention": ("paged_chunk_tcI", 5,
                             ("paged_splitIf", "paged_simtIf"), 6),
         "nbb_matmul": ("nbb_wgmma_kernelI", 2, ("nbb_simt_kernel",), 1)}
@@ -471,14 +482,27 @@ def phase_build():
               f"{name}: a tensor-core kernel without HMMA/HGMMA: {tc}")
         check(len(f32) >= n_f32 and not any(f32.values()),
               f"{name}: a float32 kernel with HMMA/HGMMA: {f32}")
-        if name == "flash_attention_bwd":       # zamba's head_dim 80
-            hd80 = {f: n for f, n in tc.items() if "ILi80E" in f}
-            check(len(hd80) == 2 and all(hd80.values()),
-                  f"flash_attention_bwd: the hd-80 instances {hd80}")
-        if name == "nbb_matmul":
+        if name in ("flash_attention_bwd", "nbb_matmul"):
             hgmma = tensor_core_counts(libs[name], ("HGMMA",))
             check(all(hgmma[f] > 0 for f in tc),
-                  f"nbb_matmul: a wgmma instance without HGMMA: {hgmma}")
+                  f"{name}: a wgmma instance without HGMMA: {hgmma}")
+        if name == "flash_attention_bwd":
+            # Every head dim of the route, zamba's 80 included, in both
+            # passes, with and without a softcap; no per-head partial sum
+            # left; no spill.
+            dims = {int(re.search(r"ILi(\d+)E", f)[1]) for f in tc}
+            hd80 = {f: n for f, n in tc.items() if "ILi80E" in f}
+            check(dims == {16, 32, 64, 80, 128} and len(tc) == 20
+                  and len(hd80) == 4, f"flash_attention_bwd: the wgmma "
+                  f"instances {sorted(map(demangle, tc))}")
+            check(not any("sum_heads" in f for f in counts),
+                  "flash_attention_bwd: flash_bwd_sum_heads is still built")
+            spilled = {k: n for k, n in spills.items()
+                       if "flash_bwd_" in k and "_wgmma" in k and n}
+            check(not spilled, f"flash_attention_bwd: spills {spilled}")
+            check(not any("flash_bwd_" in k for k in serialized),
+                  f"flash_attention_bwd: ptxas serialized the wgmma of "
+                  f"{sorted(serialized)}")
         print(f"  {name} SASS tensor-core instructions (HMMA/HGMMA): "
               + ", ".join(sorted(f"{demangle(f)} {n}"
                                  for f, n in counts.items())))
@@ -1115,7 +1139,11 @@ def phase_compare_nbb():
 # its training shape in bf16; 32/8 heads over a ragged 96 rows with window
 # + softcap in f32 and bf16); whisper-tiny's non-causal reads at head_dim
 # 64 as it trains (batch 4: the encoder over 1500 frames, the decoder's
-# 448 text tokens over them), in f32 and bf16.  Every element of the
+# 448 text tokens over them), in f32 and bf16; in bf16 the cases the
+# wgmma backward's tiles make risky: head_dim 128 (two 128-byte boxes a
+# row) with g = 4, head_dim 16 (one 32-byte box) over 32 rows, and a
+# ragged T = S = 1000 at 9/3 heads (a last query and key tile of 40 rows,
+# zero-filled by TMA).  Every element of the
 # output and of each gradient must lie within atol + rtol |want|
 # (TRAINABLE_TOL).  f32: the reference's 1e-4, and 2e-5 for the head_dim
 # 80 and non-causal cases.  bf16 gradients: rtol 1e-2 (2.5 bf16 steps) of
@@ -1137,6 +1165,8 @@ TILE_1024 = (slice(960, 1024), slice(448, 512))   # late rows x middle keys
 TILE_96 = (slice(64, 96), slice(56, 65))
 TILE_ENC = (slice(1436, 1500), slice(704, 768))
 TILE_CROSS = (slice(384, 448), slice(704, 768))
+TILE_512 = (slice(448, 512), slice(192, 256))
+TILE_1000 = (slice(936, 1000), slice(448, 512))   # the ragged last rows
 WS = {"window": 40, "softcap": 30.0}
 NC = {"causal": False}
 TRAINABLE_CASES = [
@@ -1153,6 +1183,9 @@ TRAINABLE_CASES = [
     (4, 1500, 1500, 6, 6, 64, NC, "bfloat16", TILE_ENC),
     (4, 448, 1500, 6, 6, 64, NC, "float32", TILE_CROSS),
     (4, 448, 1500, 6, 6, 64, NC, "bfloat16", TILE_CROSS),
+    (2, 512, 512, 16, 4, 128, {}, "bfloat16", TILE_512),
+    (2, 32, 32, 4, 2, 16, {}, "bfloat16", None),
+    (2, 1000, 1000, 9, 3, 64, {}, "bfloat16", TILE_1000),
 ]
 # {dtype: {"out" or "grad": (atol, rtol)}}
 TRAINABLE_TOL = {"float32": {"out": (1e-4, 0.0), "grad": (1e-4, 1e-4)},
@@ -2496,18 +2529,20 @@ def phase_timing_noncausal(launches: int, max_err: float, smi: str):
 
 
 def phase_serve_dense(model, params, forwards, smi: str):
-    """The dense main path: ``slot_fused`` on the same 16 requests (flash
-    launches = 30 x prefills, paged = 30 x decode steps), then 4 requests
-    each under ``slot_chunked`` (paged only) and ``wave`` (flash only).
-    Returns the slot_fused run's launches."""
+    """The dense main path: ``slot_fused`` on 8 of the 16 requests (each
+    client's first two: flash launches = 30 x prefills, paged = 30 x
+    decode steps), then 4 requests each under ``slot_chunked`` (paged
+    only) and ``wave`` (flash only).  Returns the slot_fused run's
+    launches."""
     from repro_torch.serve.engine import ServeEngine
     L = model.cfg.num_layers
     prompts = main_workload(model.cfg.vocab_size)
-    few = {k: p for k, p in prompts.items() if k[0] < 2 and k[1] < 2}
+    half = {k: p for k, p in prompts.items() if k[1] < 2}
+    few = {k: p for k, p in half.items() if k[0] < 2}
     kw = dict(max_batch=4, max_len=1024, page_size=16, pool_pages=256,
               k_max=8)
     fused_launches = None
-    for sched, work, extra in (("slot_fused", prompts, {}),
+    for sched, work, extra in (("slot_fused", half, {}),
                                ("slot_chunked", few, {"chunk_tokens": 64}),
                                ("wave", few, {})):
         eng = ServeEngine(model, params, n_clients=4, scheduler=sched,
@@ -2766,7 +2801,7 @@ def serve_alone(model, params, prompt, max_tokens: int):
 def phase_overload(model, params, forwards, smi: str):
     """Overload control with page-swap preemption: 2 priority classes,
     preemption and WFQ, 8 slots over a 128-page pool.  Two low-class
-    clients each send 4 requests (400-480 prompt tokens, 64 new), one
+    clients each send 2 requests (400-480 prompt tokens, 64 new), one
     outstanding at a time; once both hold a decoding slot, two
     high-class clients each send 4 requests at once (40-120 prompt
     tokens, 32 new).  Returns the paged launches."""
@@ -2776,7 +2811,7 @@ def phase_overload(model, params, forwards, smi: str):
     L, vocab = model.cfg.num_layers, model.cfg.vocab_size
     rng = np.random.default_rng(2024)
     low = {c: [rng.integers(0, vocab, int(rng.integers(400, 481)))
-               for _ in range(4)] for c in (0, 1)}
+               for _ in range(2)] for c in (0, 1)}
     high = {c: [rng.integers(0, vocab, int(rng.integers(40, 121)))
                 for _ in range(4)] for c in (2, 3)}
     policy = OverloadPolicy(n_classes=2, preemption=True, wfq=True)
@@ -2816,7 +2851,7 @@ def phase_overload(model, params, forwards, smi: str):
     def on_tick(ticks):
         new = []
         for c in (0, 1):
-            if lows[c].test() and sent[c] < 4:
+            if lows[c].test() and sent[c] < len(low[c]):
                 new.append(send_low(c))
         if (not highs_sent[0] and all(
                 s.request is not None and s.generated > 0
@@ -2837,8 +2872,9 @@ def phase_overload(model, params, forwards, smi: str):
     dt = time.monotonic() - t0
     got = read_counts(forwards, "overload", L)
     st = eng.stats
-    check(highs_sent[0] and len(handles) == 16, "overload: the high-class "
-          f"burst never came ({len(handles)} requests)")
+    n_req = sum(map(len, low.values())) + sum(map(len, high.values()))
+    check(highs_sent[0] and len(handles) == n_req, "overload: the high-"
+          f"class burst never came ({len(handles)} requests)")
     check(all(h.response.fsm.state.endswith("COMPLETED") for h in handles),
           "overload: not every request completed: "
           + str([h.response.fsm.state for h in handles]))
@@ -2854,7 +2890,7 @@ def phase_overload(model, params, forwards, smi: str):
           "negative page")
     clean_run(eng, "overload")
     ttft = eng.class_ttft()
-    print(f"overload: 16 requests in {ticks} ticks, {dt:.2f} s; "
+    print(f"overload: {n_req} requests in {ticks} ticks, {dt:.2f} s; "
           f"preemptions {st['preemptions']}, resumes {st['resumes']}, "
           f"swap out {st['swap_out_bytes']} B ({st['swap_out_bytes'] // page_b}"
           f" pages), swap in {st['swap_in_bytes']} B, host_syncs "
@@ -3689,8 +3725,14 @@ def phase_timing_flash_bwd(launches: int, max_err: float, smi: str,
     t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
     bound = max(t_bytes, t_ops)
+    slots = 2 if hd >= 128 else 3
     print(f"flash_attention_bwd B={B} T=S={T} (H={H}, Hkv={Hkv}, hd={hd}, "
-          f"causal, bf16): kernel (dQ pass + dK/dV pass) {t_kern:.4f} ms "
+          f"causal, bf16): kernel (TMA + wgmma, two passes: dQ, one "
+          f"warpgroup a block, then dK/dV, {2 if H > Hkv else 1} a "
+          f"block, with the "
+          f"{H // Hkv} query heads of a kv head summed in registers; 64 x "
+          f"64 tiles, each warpgroup its own TMA ring of {slots} slots) "
+          f"{t_kern:.4f} ms "
           f"({flops / t_kern / 1e9:.1f} TFLOP/s), bound {bound:.5f} ms ({by}: "
           f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP), plain "
           f"{t_plain:.4f} ms, library (SDPA backward, not used by the port) "
@@ -3886,7 +3928,7 @@ def phase_train_split(model, opt, params, opt_state, smi: str,
     check(not any("flash_" in e.key and "_simt" in e.key for e in rows),
           "training step split: a CUDA-core flash kernel ran")
     fwd = part("flash_fwd_tc")
-    bwd = part("flash_bwd_dq_tc", "flash_bwd_dkdv_tc", "flash_bwd_sum_heads")
+    bwd = part("flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma")
     mm = part("gemm", "nvjet", "xmma", "cutlass")
     rec = "".join(f"; {r} range {ranges[r]:.1f} ms" for r in
                   ("mamba.ssd", "rwkv.wkv") if ranges.get(r))
@@ -4100,8 +4142,8 @@ def phase_train_whisper(smi: str):
     launch; each attention call (every encoder layer, every decoder
     layer's self and cross blocks) launches the flash forward twice a
     step (forward and remat recompute) and the backward once, the encoder
-    and cross calls on the non-causal route.  Returns the run's {kernel:
-    launches}."""
+    and cross calls on the non-causal route; then one step's time split.
+    Returns the run's {kernel: launches}."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataPipeline
@@ -4147,6 +4189,10 @@ def phase_train_whisper(smi: str):
           f"{c['noncausal']} = 2 x {noncausal} x {steps}), backward "
           f"{c['bwd']} (= {calls} x {steps}), CUDA-core 0; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{smi}]")
+    phase_train_split(model, tr.opt, tr.params, tr.opt_state, smi,
+                      batch=smoke_train_batch(cfg, 999, B, T),
+                      label=f"batch {B} x {T} with frames {src}",
+                      flash=(2 * calls, calls), reps=1)
     del tr, model
     _fresh_memory()
     return c
@@ -4584,13 +4630,17 @@ def main() -> int:
     model, params, forwards = full_width_model()
     paged_launches = phase_serve(model, params, forwards, smi)
     phase_split(model, params, smi)
+    lap("3-3b smollm slot_paged")
     fused = phase_serve_dense(model, params, forwards, smi)
     phase_split_dense(model, params, smi)
+    lap("4-4b smollm dense")
     paged_launches += phase_overload(model, params, forwards, smi)
+    lap("3c overload")
     paged_launches += phase_faults(model, params, forwards, smi)
+    lap("3d faults")
     paged_launches += phase_recovery(model, params, forwards, smi)
     del model, params
-    lap("3-4, 3c-3e smollm")
+    lap("3e recovery")
     paged_launches += phase_serve_olmoe(smi)
     lap("3f olmoe")
     gemma_paged, ring_launches = phase_serve_gemma(smi)

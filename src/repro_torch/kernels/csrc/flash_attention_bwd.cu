@@ -16,40 +16,60 @@
 //   dK = scale * dS^T q    (summed over the g query heads of a kv head)
 //   dQ = scale * dS k
 //
-// with the forward's causal-at-suffix, window, GQA and ragged-edge masks.
+// with the forward's causal-at-suffix, window, GQA and ragged-edge masks;
+// a row with no visible key gets 0.
 //
-// What bounds it on an H100: five products per visible (query, key)
-// pair against q, k, v, out, dout read once and dq, dk, dv written once,
-// so at the training shape (B=4, T=S=1024, 9/3 heads, hd 64) it is bound
-// by the tensor-core rate.
+// What bounds it on an H100: five products per visible (query, key) pair
+// against q, k, v, out, dout read once and dq, dk, dv written once, so at
+// the training shapes (B=4, T=S=1024: smollm's 9/3 heads of 64, zamba2's
+// 32/32 of 80) it is bound by the tensor-core rate (989 TFLOP/s bf16).
 //
-// Design: deterministic, two launches, no atomics.
-//   1. dQ pass, one block per (64 query rows, query head, b), 4 warps of
-//      16 rows: computes D of its rows (and writes it for pass 2), then
-//      walks the key tiles the rows can see through a 2-stage cp.async
-//      ring, recomputing S and P and accumulating dQ in registers.
-//   2. dK/dV pass, one block per (64 keys, query head, b), 4 warps of 16
-//      keys: walks every 64-query tile of its head that can see its keys
-//      through the same ring (q, dout, lse, D per tile), computing S^T
-//      and dP^T directly with the keys as rows, so P^T and dS^T are the A
-//      operands of dV += P^T dout and dK += dS^T q straight from
-//      registers.  With g > 1 query heads per kv head, each block writes
-//      its head's share in f32 and a third launch sums the g shares in a
-//      fixed order: a block per kv head would walk g times as many tiles
-//      in series (48 at the training shape), one per query head walks 16.
-// bf16 (head_dim 16/32/64/80/128, 16-byte aligned rows) runs on the
-// tensor cores (mma.sync.m16n8k16, f32 accumulation); as in the forward,
-// each tile costs one barrier, the softcap and the mask branch once per
-// tile outside the element loops, and exponentials use ex2.approx.  float32,
-// and bf16 outside those cases, runs a CUDA-core instance of the same
-// two passes (f32 FMA, no TF32) for the f32 checks, not for speed.
-// head_dim 80 (zamba2-2.7b's shared attention): a 160-byte row is ten
-// 16-byte copies, so flash::load_rows leaves idle the threads past a
-// whole number of rows; every other loop over a row's columns steps by
-// k-steps of 16 (HD / 16 = 5), n-tiles of 8 (NT = 10) or pairs of
-// columns, which 80 divides.
+// Design (bf16, head_dim 16/32/64/80/128, 16-byte aligned rows):
+// deterministic, two launches, no atomics, no scratch beyond each query
+// row's lse and D.  No producer warp: each consumer warpgroup feeds its
+// own ring of shared-memory slots by TMA (`cp.async.bulk.tensor.4d` over
+// (hd, heads, rows, batch), a box of one head x 64 rows, so a ragged T or
+// S arrives zero-filled), its first thread refilling a slot once the
+// warpgroup's products on it are done.  Products are `wgmma.mma_async`
+// m64nNk16 on 64 x 64 tiles with f32 accumulators in registers; a block
+// exits as soon as its tiles are done, so two or three blocks share an SM
+// and one's start and end run under another's products.
+//   1. dQ pass, one warpgroup per (64 query rows, query head, b),
+//      heaviest causal tiles first: computes D and lse (log2) of its rows
+//      and writes them, padded to whole 64-row tiles, for pass 2; holds Q
+//      and dO, walks the key tiles the rows can see (K, V through its
+//      ring of 3 slots, 2 at hd 128): S = Q K^T and dP = dO V^T from
+//      shared memory, dS in registers, then dQ += dS K with dS as the
+//      register A operand and K read MN-major (the descriptor's transpose
+//      bit, no copy).
+//   2. dK/dV pass, one block per (64 keys, kv head, b), heaviest first:
+//      holds K and V, walks the query tiles of the kv head's g query heads
+//      in head order (Q, dO, lse, D through the rings), computing S^T = K
+//      Q^T and dP^T = V dO^T with the keys as rows, so P^T and dS^T are the
+//      register A operands of dV += P^T dO and dK += dS^T Q (dO and Q
+//      MN-major).  dK and dV stay in registers across the g heads: no
+//      per-head partial, no third launch.  Under GQA (g > 1: smollm's
+//      9/3 heads), where a block's chain of tiles is g x T / 64, two
+//      warpgroups take alternate tiles, each its own ring, and their f32
+//      shares are summed in a fixed order at the end (warpgroup 0's +
+//      warpgroup 1's, through shared memory); with g = 1 (zamba2's
+//      32/32) one warpgroup takes them all.
+// Seven products per tile pair (S and dP are computed in both passes):
+// the price of summing dQ without atomics.  Tiles come as 64-column boxes
+// at the 128-byte swizzle, and the rest of head_dim (16 or 32 columns) as
+// one box at the 32- or 64-byte swizzle: hd 64 and 128 are one and two
+// wide boxes, hd 80 a wide box and 16 columns (the products over N = 80
+// are one over each box), hd 16 and 32 the rest alone.  Elementwise work
+// runs element by element into the A fragments of the next products:
+// exponentials by ex2.approx, the mask branch once per tile (selects on
+// edge tiles), the softcap (tanh by ex2.approx) in instances of its own.
+// float32, and bf16 outside those cases, runs a CUDA-core instance of the
+// same two passes (f32 FMA, no TF32) for the f32 checks, not for speed.
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -62,14 +82,13 @@ struct Params {
   const void* out;
   const void* dout;
   const float* lse;  // [B,H,T]
-  float* dsum;       // D, [B,H,T]: written by pass 1, read by pass 2
+  // Written by pass 1, read by pass 2: D [B,H,T] on the CUDA cores; on
+  // the tensor cores each 64-row query tile's lse (log2 units) and D,
+  // [B,H,ceil(T/64)][2][64], 0 past T.
+  float* dsum;
   void* dq;
   void* dk;
   void* dv;
-  // [2][B,S,H,hd] f32: each query head's share of dK (scaled) and dV,
-  // summed over the g heads of a kv head by flash_bwd_sum_heads; null
-  // when g == 1 (the dK/dV pass then writes dk and dv itself).
-  float* partial;
   int T, S, H, Hkv, hd;
   // Element strides (batch, sequence, head) of q, k, v, out, dout, dq,
   // dk, dv; every head_dim stride is 1.
@@ -94,466 +113,652 @@ __device__ __forceinline__ void query_range(const Params& p, int kb, int ke,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16 on the tensor cores: TMA + wgmma
 // ---------------------------------------------------------------------------
-constexpr int kBK = 64;
+namespace tc {
 
+constexpr int kRows = 64;          // rows of a tile: a wgmma's M, a box's rows
+constexpr int kWarpgroups = 2;     // per dK/dV block, each its own ring
+constexpr int kThreads = 128 * kWarpgroups;
+constexpr int kStatsFloats = 2 * kRows;  // a query tile's lse (log2) and D
+
+// A [64][HD] bf16 tile as TMA writes it into shared memory: HD / 64 wide
+// boxes of [64 rows][64 columns] (128-byte rows, 128-byte swizzle), then
+// the rest, R = HD % 64 columns (16 or 32), as one box of R columns at
+// the 32- or 64-byte swizzle.  hd 64 and 128 are one and two wide boxes,
+// hd 80 a wide box and 16 columns, hd 16 and 32 the rest alone.
+template <int HD>
+struct Tile {
+  static constexpr int kWide = HD / 64;
+  static constexpr int R = HD % 64;
+  static constexpr int kWideBox = kRows * 128;
+  static constexpr int kRestW = 2 * R;              // bytes a rest row
+  static constexpr uint32_t kRestLayout = R == 32 ? 2 : 3;
+  static constexpr int kBytes = kRows * HD * 2;
+  // Ring slots per warpgroup: three tiles in flight below hd 128, two at
+  // hd 128 (shared memory).
+  static constexpr int kSlots = HD >= 128 ? 2 : 3;
+  static_assert(R == 0 || R == 16 || R == 32, "head_dim 16/32/64/80/128");
+  static_assert(kBytes % 1024 == 0, "tiles keep 1024-byte alignment");
+};
+
+// The tensor maps of one operand: its wide boxes and its rest (either
+// unused where the head_dim has none).
+struct OperandMaps {
+  CUtensorMap wide, rest;
+};
+struct Maps {
+  OperandMaps q, k, v, dout;
+};
+
+// Shared memory of a pass: two fixed tiles, each warpgroup's ring of
+// two-tile slots, the dK/dV pass's row statistics per slot, and room to
+// align the tiles to 1024 bytes.
 template <int HD>
 constexpr int dq_smem_bytes() {
-  return (2 * 64 + 4 * kBK) * (HD + 8) * 2;  // Q, dO, 2 stages of K, V
+  using L = Tile<HD>;
+  return 2 * L::kBytes + L::kSlots * 2 * L::kBytes + 1024;
 }
 
 template <int HD>
-constexpr int dkdv_smem_bytes() {
-  return (2 * kBK + 4 * 64) * (HD + 8) * 2 + 4 * 64 * 4;  // + lse, D
+constexpr int dkdv_smem_bytes(int warpgroups) {
+  using L = Tile<HD>;
+  return 2 * L::kBytes + warpgroups * L::kSlots * 2 * L::kBytes +
+         warpgroups * L::kSlots * kStatsFloats * 4 + 1024;
 }
 
+// Descriptor of k-step kk of a tile used K-major (the product's k along
+// HD): 16 columns are 32 bytes into a box row, or the next box.
 template <int HD>
-__global__ void __launch_bounds__(128) flash_bwd_dq_tc(const Params p) {
-  constexpr int LD = HD + 8, KT = HD / 16, NT = HD / 8;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gr = lane >> 2, gc = lane & 3;
-  const int BQ = blockDim.x / 2;
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  using L = Tile<HD>;
+  const int col = 16 * kk;
+  if (col < 64 * L::kWide)
+    return hopper::smem_desc(tile + col / 64 * L::kWideBox + col % 64 * 2,
+                             16, 1024, 1);
+  return hopper::smem_desc(
+      tile + L::kWide * L::kWideBox + (col - 64 * L::kWide) * 2, 16,
+      8 * L::kRestW, L::kRestLayout);
+}
+
+// acc[64 x HD] += a[64 x 16] * tile[16 rows kk.. of 64][HD], the tile read
+// MN-major (trans-b): one product over the wide boxes (the next box along
+// N is the leading byte offset away), one over the rest.
+template <int HD>
+__device__ __forceinline__ void mma_mn(float (&acc)[HD / 2],
+                                       const uint32_t (&a)[4], uint32_t tile,
+                                       int kk) {
+  using L = Tile<HD>;
+  if constexpr (L::kWide > 0)
+    hopper::Wgmma<64 * L::kWide>::template rs<1, 0>(
+        acc, a, hopper::smem_desc(tile + kk * 16 * 128, L::kWideBox, 1024, 1),
+        1);
+  if constexpr (L::R > 0)
+    hopper::Wgmma<L::R>::template rs<1, 32 * L::kWide>(
+        acc, a,
+        hopper::smem_desc(tile + L::kWide * L::kWideBox + kk * 16 * L::kRestW,
+                          tc::kRows * L::kRestW, 8 * L::kRestW, L::kRestLayout),
+        1);
+}
+
+// TMA of rows row .. row + 63 of one head: every box of the tile.
+template <int HD>
+__device__ __forceinline__ void load_tile(unsigned char* dst,
+                                          const OperandMaps& maps, int head,
+                                          int row, int b, uint64_t* bar) {
+  using L = Tile<HD>;
+#pragma unroll
+  for (int i = 0; i < L::kWide; ++i)
+    hopper::tma_load_4d(dst + i * L::kWideBox, &maps.wide, 64 * i, head, row,
+                        b, bar);
+  if constexpr (L::R > 0)
+    hopper::tma_load_4d(dst + L::kWide * L::kWideBox, &maps.rest,
+                        64 * L::kWide, head, row, b, bar);
+}
+
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// tanh(x) = 1 - 2 / (2^(2 x log2 e) + 1) by ex2.approx and a fast
+// division: about 1e-6 absolute error, saturating to +-1 (2^+-inf), in far
+// fewer registers than tanhf.
+__device__ __forceinline__ float fast_tanh(float x) {
+  return 1.f - __fdividef(2.f, flash::fast_exp2(x * (2.f * flash::kLog2e)) +
+                                   1.f);
+}
+
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((1024 - (hopper::smem_addr(raw) & 1023)) & 1023);
+}
+
+// The two warpgroups' f32 shares of an accumulator are summed in a fixed
+// order (warpgroup 0's + warpgroup 1's): warpgroup 1 leaves its registers
+// in shared memory (its own ring, free once its tiles are done), and after
+// a barrier warpgroup 0 adds them.
+template <int N>
+__device__ __forceinline__ void put(const float (&acc)[N], float* red,
+                                    int tid) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) red[i * 128 + tid] = acc[i];
+}
+
+template <int N>
+__device__ __forceinline__ void add(float (&acc)[N], const float* red,
+                                    int tid) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] += red[i * 128 + tid];
+}
+
+// Store rows r0 (and r0 + 8) of a [64][HD] accumulator times `mul` as
+// bf16 rows of `dst` (row r at dst + r * stride), rows < valid only.
+template <int HD>
+__device__ __forceinline__ void store_rows(const float (&acc)[HD / 2],
+                                           bf16* dst, long long stride,
+                                           int r0, int valid, float mul) {
+  const int gc = threadIdx.x % 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (r >= valid) continue;
+    bf16* row = dst + r * stride;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * gc) = flash::pack_bf16(
+          acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
+  }
+}
+
+}  // namespace tc
+
+// Pass 1: dQ, and each query row's statistics for pass 2: one warpgroup
+// a block, which walks every key tile its rows see, so that two to three
+// blocks share an SM and one's start and end run under another's
+// products.  CAP: the scores carry a tanh softcap (an instance of its
+// own, so the common case holds no registers for it).
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(128)
+flash_bwd_dq_wgmma(const __grid_constant__ tc::Maps maps, const Params p) {
+  using L = tc::Tile<HD>;
+  constexpr int SL = L::kSlots, NA = HD / 2;
+  __shared__ __align__(8) uint64_t fixed_bar;
+  __shared__ __align__(8) uint64_t full[SL];
+  __shared__ float lse_s[tc::kRows], d_s[tc::kRows];
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s = tc::aligned_smem(smem_raw);
+  unsigned char* do_s = q_s + L::kBytes;
+  unsigned char* ring = do_s + L::kBytes;   // [slot][K, V]
+
   const int h = blockIdx.x, b = blockIdx.z;
-  const int t0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest first
+  const int t0 = (gridDim.y - 1 - blockIdx.y) * tc::kRows;  // heaviest first
   const int kvh = h / (p.H / p.Hkv);
-  const int tq = min(BQ, p.T - t0);
+  const int tq = min(tc::kRows, p.T - t0);
   const int off = p.S - p.T;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [64][LD]
-  bf16* do_s = q_s + 64 * LD;                     // [64][LD]
-  bf16* k_s = do_s + 64 * LD;                     // [2][kBK][LD]
-  bf16* v_s = k_s + 2 * kBK * LD;                 // [2][kBK][LD]
-
-  const bf16* qg = static_cast<const bf16*>(p.q) + at(p, kQ, b, t0, h);
-  const bf16* dog = static_cast<const bf16*>(p.dout) + at(p, kDO, b, t0, h);
-  const bf16* kg = static_cast<const bf16*>(p.k) + at(p, kK, b, 0, kvh);
-  const bf16* vg = static_cast<const bf16*>(p.v) + at(p, kV, b, 0, kvh);
-
   const int q_first = t0 + off, q_last = t0 + tq - 1 + off;
   const int k_end = p.causal ? min(p.S, q_last + 1) : p.S;
   const int k_begin = p.window > 0 ? max(0, q_first - p.window + 1) : 0;
-  const int n_kt = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
+  const int n_kt = k_end > k_begin ? (k_end - k_begin + 63) / 64 : 0;
 
-  auto load_kv = [&](int j) {
-    const int kb = k_begin + j * kBK, st = j & 1;
-    const int keys = min(kBK, p.S - kb);
-    flash::load_rows<HD>(k_s + st * kBK * LD, kg + kb * p.st[kK][1],
-                         p.st[kK][1], kBK, keys, p.k);
-    flash::load_rows<HD>(v_s + st * kBK * LD, vg + kb * p.st[kV][1],
-                         p.st[kV][1], kBK, keys, p.v);
+  // Key tile k into slot k % SL.
+  auto issue = [&](int k) {
+    const int s = k % SL, kb = k_begin + k * 64;
+    uint64_t* bar = &full[s];
+    unsigned char* dst = ring + s * 2 * L::kBytes;
+    hopper::mbar_arrive_expect_tx(bar, 2 * L::kBytes);
+    tc::load_tile<HD>(dst, maps.k, kvh, kb, b, bar);
+    tc::load_tile<HD>(dst + L::kBytes, maps.v, kvh, kb, b, bar);
   };
-  flash::load_rows<HD>(q_s, qg, p.st[kQ][1], BQ, tq, p.q);
-  flash::load_rows<HD>(do_s, dog, p.st[kDO][1], BQ, tq, p.dout);
-  if (n_kt > 0) load_kv(0);
-  flash::cp_async_commit();
-
-  const int w0 = warp * 16;
-  const bool active = w0 < tq;
-  const int wq_first = t0 + w0 + off, wq_last = wq_first + 15;
-  // D and lse (log2 units) of the thread's rows w0 + gr and w0 + gr + 8;
-  // 0 for rows past T, whose q and dout are zero and whose dS is then 0.
-  float d_row[2] = {0.f, 0.f}, lse_row[2] = {0.f, 0.f};
-  if (active) {
-    const bf16* og = static_cast<const bf16*>(p.out);
-    const bf16* dg = static_cast<const bf16*>(p.dout);
-    for (int r = 0; r < 16; ++r) {
-      const int t = t0 + w0 + r;
-      float part = 0.f;
-      if (t < p.T) {
-        const bf16* orow = og + at(p, kO, b, t, h);
-        const bf16* drow = dg + at(p, kDO, b, t, h);
-        for (int c = 2 * lane; c < HD; c += 64) {
-          const float2 x = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(orow + c));
-          const float2 y = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(drow + c));
-          part += x.x * y.x + x.y * y.y;
-        }
-      }
-      part = flash::warp_sum(part);
-      if (r == gr) d_row[0] = part;
-      if (r == gr + 8) d_row[1] = part;
-      if (t < p.T && lane == 0)
-        p.dsum[((long long)b * p.H + h) * p.T + t] = part;
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int t = t0 + w0 + gr + r * 8;
-      if (t < p.T)
-        lse_row[r] = p.lse[((long long)b * p.H + h) * p.T + t] *
-                     flash::kLog2e;
-    }
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&fixed_bar, 1);
+    for (int s = 0; s < SL; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && n_kt > 0) {
+    hopper::mbar_arrive_expect_tx(&fixed_bar, 2 * L::kBytes);
+    tc::load_tile<HD>(q_s, maps.q, h, t0, b, &fixed_bar);
+    tc::load_tile<HD>(do_s, maps.dout, h, t0, b, &fixed_bar);
+    for (int k = 0; k < min(SL, n_kt); ++k) issue(k);
   }
 
-  float dq[NT][4];
+  // D = rowsum(dout * out) and lse (log2 units) of the 64 rows; 0 for
+  // rows past T (their q and dout arrive as zeros, so their dS is 0).
+  // Every thread takes 16-byte chunks of the rows, all loads in flight at
+  // once; each row's chunks are then summed in chunk order.  Pass 2 reads
+  // both per query tile: stats [B,H,T/64][2][64].
+  constexpr int CH = HD / 8, NC = tc::kRows * CH;
+  __shared__ float part_s[NC];
+  const long long bh = (long long)b * p.H + h;
 #pragma unroll
-  for (int n = 0; n < NT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  for (int j = 0; j < (NC + 127) / 128; ++j) {
+    const int i = threadIdx.x + j * 128, r = i / CH, t = t0 + r;
+    if (i >= NC) break;
+    float part = 0.f;
+    if (t < p.T) {
+      const uint4 x = *reinterpret_cast<const uint4*>(
+          static_cast<const bf16*>(p.out) + at(p, kO, b, t, h) + 8 * (i % CH));
+      const uint4 y = *reinterpret_cast<const uint4*>(
+          static_cast<const bf16*>(p.dout) + at(p, kDO, b, t, h) +
+          8 * (i % CH));
+      const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+      const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 a = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&xs[e]));
+        const float2 c = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&ys[e]));
+        part += a.x * c.x + a.y * c.y;
+      }
+    }
+    part_s[i] = part;
+  }
+  __syncthreads();
+  if (threadIdx.x < tc::kRows) {
+    const int r = threadIdx.x, t = t0 + r;
+    float d = 0.f;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) d += part_s[r * CH + c];
+    const float l = t < p.T ? p.lse[bh * p.T + t] * flash::kLog2e : 0.f;
+    d_s[r] = d;
+    lse_s[r] = l;
+    float* rec = p.dsum + (bh * gridDim.y + t0 / tc::kRows) * tc::kStatsFloats;
+    rec[r] = l;
+    rec[tc::kRows + r] = d;
+  }
+  __syncthreads();
 
-  for (int j = 0; j < n_kt; ++j) {
-    flash::cp_async_wait<0>();  // tile j (and Q, dO) have landed
-    // Every warp is past tile j - 1, so its stage takes tile j + 1, whose
-    // copy then runs under the products of tile j.
+  // This thread's rows of the accumulators: qr0 and qr0 + 8.
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gr = lane / 4, gc = lane % 4;
+  const int qr0 = 16 * (warp % 4) + gr;
+  const float lse_r[2] = {lse_s[qr0], lse_s[qr0 + 8]};
+  const float d_r[2] = {d_s[qr0], d_s[qr0 + 8]};
+  const float sl2 = p.scale * flash::kLog2e;
+  const float inv_cap = CAP ? p.scale / p.softcap : 0.f;
+  const float cap2 = p.softcap * flash::kLog2e;
+
+  float dq[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) dq[i] = 0.f;
+  if (n_kt > 0) hopper::mbar_wait(&fixed_bar, 0);
+  const uint32_t q_addr = hopper::smem_addr(q_s);
+  const uint32_t do_addr = hopper::smem_addr(do_s);
+  float sa[32], pa[32];   // S; dP
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sa[i] = pa[i] = 0.f;
+
+  for (int k = 0; k < n_kt; ++k) {
+    const int s = k % SL, kb = k_begin + k * 64;
+    const uint32_t k_addr = hopper::smem_addr(ring + s * 2 * L::kBytes);
+    const uint32_t v_addr = k_addr + L::kBytes;
+    hopper::mbar_wait(&full[s], (k / SL) & 1);
+    // S = Q K^T and dP = dO V^T: 64 rows x 64 keys each.
+    hopper::fence_acc(sa);
+    hopper::fence_acc(pa);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hopper::Wgmma<64>::ss<0>(sa, tc::desc_k<HD>(q_addr, kk),
+                               tc::desc_k<HD>(k_addr, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hopper::Wgmma<64>::ss<0>(pa, tc::desc_k<HD>(do_addr, kk),
+                               tc::desc_k<HD>(v_addr, kk), kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_acc(sa);
+    hopper::fence_acc(pa);
+    // dS element by element: the score in log2 units (capped: c tanh(S /
+    // c), and dP - D times the cap's derivative 1 - tanh^2), -inf where
+    // masked, dS = exp2(S - lse) (dP - D).  The mask branches once per
+    // tile (only tiles on an edge test each element), the cap once per
+    // instance.
+    const bool full_tile = kb + 64 <= p.S &&
+                           (!p.causal || kb + 63 <= q_first) &&
+                           (p.window <= 0 || kb > q_last - p.window);
+    uint32_t df[4][4];
+    auto ds_rows = [&](auto masked) {
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int r = (i >> 1) & 1;
+        float ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x, dp = pa[i + e] - d_r[r];
+          if constexpr (CAP) {
+            const float t = tc::fast_tanh(sa[i + e] * inv_cap);
+            x = t * cap2;
+            dp *= 1.f - t * t;
+          } else {
+            x = sa[i + e] * sl2;
+          }
+          if constexpr (decltype(masked)::value) {
+            // Bitwise tests: selects, no branch per element.
+            const int kp = kb + 8 * (i >> 2) + 2 * gc + e;
+            const int qp = q_first + qr0 + 8 * r;
+            const bool ok = (kp < p.S) & (!p.causal | (kp <= qp)) &
+                            ((p.window <= 0) | (kp > qp - p.window));
+            x = ok ? x : -CUDART_INF_F;
+          }
+          ds[e] = flash::fast_exp2(x - lse_r[r]) * dp;
+        }
+        // dS straight into the A fragment of dQ's product.
+        df[i / 8][(i % 8) / 2] = flash::pack_bf16(ds[0], ds[1]);
+      }
+    };
+    if (full_tile)
+      ds_rows(std::false_type{});
+    else
+      ds_rows(std::true_type{});
+    // dQ += dS K: dS from registers, K MN-major (trans-b).
+    hopper::fence_acc(dq);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      tc::mma_mn<HD>(dq, df[kk], k_addr, kk);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_acc(dq);
+    // The slot's products are done in every warp: refill it.
     __syncthreads();
-    if (j + 1 < n_kt) load_kv(j + 1);
-    flash::cp_async_commit();
-    const int kb = k_begin + j * kBK;
-    if (active && !(p.causal && kb > wq_last)) {
-      const bf16* ks = k_s + (j & 1) * kBK * LD;
-      const bf16* vs = v_s + (j & 1) * kBK * LD;
-      float s[8][4], dp[8][4];
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-      // S = Q K^T and dP = dO V^T, 16 rows x 64 keys each.
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        uint32_t a[4], ad[4];
-        flash::load_a(a, q_s, LD, w0, kk * 16);
-        flash::load_a(ad, do_s, LD, w0, kk * 16);
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t bk[4], bv[4];
-          flash::load_b(bk, ks, LD, np * 16, kk * 16);
-          flash::load_b(bv, vs, LD, np * 16, kk * 16);
-          flash::mma(s[2 * np], a, bk[0], bk[1]);
-          flash::mma(s[2 * np + 1], a, bk[2], bk[3]);
-          flash::mma(dp[2 * np], ad, bv[0], bv[1]);
-          flash::mma(dp[2 * np + 1], ad, bv[2], bv[3]);
-        }
-      }
-      // dS, in place of S.  The softcap and the mask branch once per
-      // tile, outside the element loops: first the capped scores (and,
-      // under a cap, dP - D times its derivative 1 - tanh^2), then -inf
-      // where masked, then dS = exp(S - lse) (dP - D).
-      if (p.softcap > 0.f) {
-        const float inv_cap = p.scale / p.softcap;
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float t = tanhf(s[n][e] * inv_cap);
-            s[n][e] = t * p.softcap;
-            dp[n][e] = (dp[n][e] - d_row[e >> 1]) * (1.f - t * t);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            s[n][e] *= p.scale;
-            dp[n][e] -= d_row[e >> 1];
-          }
-        }
-      }
-      const bool full = kb + kBK <= p.S &&
-                        (!p.causal || kb + kBK - 1 <= wq_first) &&
-                        (p.window <= 0 || kb > wq_last - p.window);
-      if (!full) {
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int kp = kb + n * 8 + 2 * gc + (e & 1);
-            const int qp = wq_first + gr + (e >> 1) * 8;
-            if (kp >= p.S || !flash::visible(p.causal, p.window, kp, qp))
-              s[n][e] = -CUDART_INF_F;
-          }
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[n][e] = flash::fast_exp2(s[n][e] * flash::kLog2e -
-                                     lse_row[e >> 1]) * dp[n][e];
-      // dQ += dS K: dS from registers, K transposed by ldmatrix.
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t a[4];
-        flash::c_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-        for (int np = 0; np < HD / 16; ++np) {
-          uint32_t bfr[4];
-          flash::load_bt(bfr, ks, LD, kk * 16, np * 16);
-          flash::mma(dq[2 * np], a, bfr[0], bfr[1]);
-          flash::mma(dq[2 * np + 1], a, bfr[2], bfr[3]);
-        }
-      }
-    }
+    if (threadIdx.x == 0 && k + SL < n_kt) issue(k + SL);
   }
-  flash::cp_async_wait<0>();
 
-  if (!active) return;
-  bf16* dqg = static_cast<bf16*>(p.dq);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int t = t0 + w0 + gr + r * 8;
-    if (t >= p.T) continue;
-    bf16* row = dqg + at(p, kDQ, b, t, h);
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-      *reinterpret_cast<uint32_t*>(row + n * 8 + 2 * gc) = flash::pack_bf16(
-          dq[n][2 * r] * p.scale, dq[n][2 * r + 1] * p.scale);
-  }
+  tc::store_rows<HD>(dq, static_cast<bf16*>(p.dq) + at(p, kDQ, b, t0, h),
+                     p.st[kDQ][1], qr0, tq, p.scale);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(128) flash_bwd_dkdv_tc(const Params p) {
-  constexpr int LD = HD + 8, KT = HD / 16, NT = HD / 8;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gr = lane >> 2, gc = lane & 3;
-  const int h = blockIdx.x, b = blockIdx.z;
-  const int kb = blockIdx.y * kBK;  // causal: the first tiles are heaviest
-  const int keys = min(kBK, p.S - kb);
-  const int kvh = h / (p.H / p.Hkv);
-  const int off = p.S - p.T;
+// Pass 2: dK and dV of 64 keys of one kv head, summed over its g query
+// heads and every query tile that sees the keys, by one or two
+// warpgroups (blockDim.x / 128: the launch picks, see launch_tc).
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ tc::Maps maps,
+                     const Params p) {
+  using L = tc::Tile<HD>;
+  constexpr int SL = L::kSlots, NA = HD / 2;
+  __shared__ __align__(8) uint64_t fixed_bar;
+  __shared__ __align__(8) uint64_t full[tc::kWarpgroups][SL];
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* k_s = tc::aligned_smem(smem_raw);
+  unsigned char* v_s = k_s + L::kBytes;
+  const int NW = blockDim.x / 128;
+  unsigned char* ring = v_s + L::kBytes;   // [wg][slot][Q, dO]
+  float* stats_s = reinterpret_cast<float*>(
+      ring + NW * SL * 2 * L::kBytes);     // [wg][slot][2][64]
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [kBK][LD]
-  bf16* v_s = k_s + kBK * LD;                     // [kBK][LD]
-  bf16* q_s = v_s + kBK * LD;                     // [2][64][LD]
-  bf16* do_s = q_s + 2 * 64 * LD;                 // [2][64][LD]
-  float* lse_s = reinterpret_cast<float*>(do_s + 2 * 64 * LD);  // [2][64]
-  float* d_s = lse_s + 2 * 64;                                  // [2][64]
-
+  const int kvh = blockIdx.x, b = blockIdx.z;
+  const int kb = blockIdx.y * tc::kRows;  // causal: the first are heaviest
+  const int keys = min(tc::kRows, p.S - kb);
+  const int g = p.H / p.Hkv, off = p.S - p.T;
+  const int nqt = (p.T + tc::kRows - 1) / tc::kRows;
   int t_lo, t_hi;
   query_range(p, kb, kb + keys, t_lo, t_hi);
-  const int qi_lo = t_lo / 64;
-  const int n_it = t_hi > t_lo ? (t_hi + 63) / 64 - qi_lo : 0;
+  const int qi_lo = t_lo / tc::kRows;
+  const int n_it = t_hi > t_lo ? (t_hi + tc::kRows - 1) / tc::kRows - qi_lo
+                               : 0;
+  // The (query head, query tile) pairs in head order; warpgroup wg takes
+  // pairs wg, wg + NW, ...
+  const int n_tiles = g * n_it;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int n_mine = (n_tiles - wg + NW - 1) / NW;
 
-  auto load_q = [&](int it) {
-    const int t0 = (qi_lo + it) * 64;
-    const int st = it & 1, rows = min(64, p.T - t0);
-    flash::load_rows<HD>(q_s + st * 64 * LD,
-                         static_cast<const bf16*>(p.q) + at(p, kQ, b, t0, h),
-                         p.st[kQ][1], 64, rows, p.q);
-    flash::load_rows<HD>(
-        do_s + st * 64 * LD,
-        static_cast<const bf16*>(p.dout) + at(p, kDO, b, t0, h),
-        p.st[kDO][1], 64, rows, p.dout);
-    const long long row0 = ((long long)b * p.H + h) * p.T + t0;
-    for (int i = threadIdx.x; i < 64; i += blockDim.x) {
-      const bool ok = i < rows;
-      flash::cp_async4(lse_s + st * 64 + i, ok ? p.lse + row0 + i : p.lse,
-                       ok);
-      flash::cp_async4(d_s + st * 64 + i, ok ? p.dsum + row0 + i : p.dsum,
-                       ok);
-    }
+  auto issue = [&](int k) {
+    const int n = wg + NW * k, s = k % SL;
+    const int h = kvh * g + n / n_it, t0 = (qi_lo + n % n_it) * tc::kRows;
+    uint64_t* bar = &full[wg][s];
+    unsigned char* dst = ring + (wg * SL + s) * 2 * L::kBytes;
+    hopper::mbar_arrive_expect_tx(bar,
+                                  2 * L::kBytes + tc::kStatsFloats * 4);
+    tc::load_tile<HD>(dst, maps.q, h, t0, b, bar);
+    tc::load_tile<HD>(dst + L::kBytes, maps.dout, h, t0, b, bar);
+    hopper::bulk_copy(
+        stats_s + (wg * SL + s) * tc::kStatsFloats,
+        p.dsum + (((long long)b * p.H + h) * nqt + t0 / tc::kRows) *
+                     tc::kStatsFloats,
+        tc::kStatsFloats * 4, bar);
   };
-  flash::load_rows<HD>(k_s,
-                       static_cast<const bf16*>(p.k) + at(p, kK, b, kb, kvh),
-                       p.st[kK][1], kBK, keys, p.k);
-  flash::load_rows<HD>(v_s,
-                       static_cast<const bf16*>(p.v) + at(p, kV, b, kb, kvh),
-                       p.st[kV][1], kBK, keys, p.v);
-  if (n_it > 0) load_q(0);
-  flash::cp_async_commit();
-
-  // This warp's keys: kp0 .. kp0+15; the thread's are kp0 + gr (+ 8).
-  const int w0 = warp * 16, kp0 = kb + w0;
-  const bool active = w0 < keys;
-  float dk[NT][4], dv[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  for (int it = 0; it < n_it; ++it) {
-    flash::cp_async_wait<0>();  // tile it (and K, V) have landed
-    __syncthreads();            // every warp is past tile it - 1
-    if (it + 1 < n_it) load_q(it + 1);
-    flash::cp_async_commit();
-    const int t0 = (qi_lo + it) * 64, st = it & 1;
-    const int qp_first = t0 + off, qp_last = qp_first + 63;
-    // Skip when every query of the tile precedes this warp's first key
-    // (causal) or lies past the window of its last key.
-    const bool run = active && !(p.causal && qp_last < kp0) &&
-                     !(p.window > 0 && qp_first > kp0 + 15 + p.window - 1);
-    if (run) {
-      const bf16* qs = q_s + st * 64 * LD;
-      const bf16* dos = do_s + st * 64 * LD;
-      const float* lses = lse_s + st * 64;
-      const float* dss = d_s + st * 64;
-      float s[8][4], dp[8][4];
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 64 queries.
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        uint32_t ak[4], av[4];
-        flash::load_a(ak, k_s, LD, w0, kk * 16);
-        flash::load_a(av, v_s, LD, w0, kk * 16);
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t bq[4], bd[4];
-          flash::load_b(bq, qs, LD, np * 16, kk * 16);
-          flash::load_b(bd, dos, LD, np * 16, kk * 16);
-          flash::mma(s[2 * np], ak, bq[0], bq[1]);
-          flash::mma(s[2 * np + 1], ak, bq[2], bq[3]);
-          flash::mma(dp[2 * np], av, bd[0], bd[1]);
-          flash::mma(dp[2 * np + 1], av, bd[2], bd[3]);
-        }
-      }
-      // P^T into dp, dS^T into s.  The softcap and the mask branch once
-      // per tile, outside the element loops, as in the dQ pass.
-      if (p.softcap > 0.f) {
-        const float inv_cap = p.scale / p.softcap;
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int tl = n * 8 + 2 * gc + (e & 1);
-            const float t = tanhf(s[n][e] * inv_cap);
-            s[n][e] = t * p.softcap;
-            dp[n][e] = (dp[n][e] - dss[tl]) * (1.f - t * t);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int tl = n * 8 + 2 * gc + (e & 1);
-            s[n][e] *= p.scale;
-            dp[n][e] -= dss[tl];
-          }
-        }
-      }
-      const bool full = kp0 + 16 <= p.S && t0 + 64 <= p.T &&
-                        (!p.causal || qp_first >= kp0 + 15) &&
-                        (p.window <= 0 || qp_last < kp0 + p.window);
-      if (!full) {
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int tl = n * 8 + 2 * gc + (e & 1);
-            const int kp = kp0 + gr + (e >> 1) * 8;
-            if (kp >= p.S || t0 + tl >= p.T ||
-                !flash::visible(p.causal, p.window, kp, qp_first + tl))
-              s[n][e] = -CUDART_INF_F;
-          }
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int tl = n * 8 + 2 * gc + (e & 1);
-          const float pr =
-              flash::fast_exp2((s[n][e] - lses[tl]) * flash::kLog2e);
-          s[n][e] = pr * dp[n][e];
-          dp[n][e] = pr;
-        }
-      }
-      // dV += P^T dO and dK += dS^T Q, the queries as the k dimension.
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t ap[4], as[4];
-        flash::c_to_a(ap, dp[2 * kk], dp[2 * kk + 1]);
-        flash::c_to_a(as, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-        for (int np = 0; np < HD / 16; ++np) {
-          uint32_t bd[4], bq[4];
-          flash::load_bt(bd, dos, LD, kk * 16, np * 16);
-          flash::load_bt(bq, qs, LD, kk * 16, np * 16);
-          flash::mma(dv[2 * np], ap, bd[0], bd[1]);
-          flash::mma(dv[2 * np + 1], ap, bd[2], bd[3]);
-          flash::mma(dk[2 * np], as, bq[0], bq[1]);
-          flash::mma(dk[2 * np + 1], as, bq[2], bq[3]);
-        }
-      }
-    }
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&fixed_bar, 1);
+    for (int w = 0; w < tc::kWarpgroups; ++w)
+      for (int s = 0; s < SL; ++s) hopper::mbar_init(&full[w][s], 1);
+    hopper::mbar_init_fence();
   }
-  flash::cp_async_wait<0>();
-
-  if (!active) return;
-  bf16* dkg = static_cast<bf16*>(p.dk);
-  bf16* dvg = static_cast<bf16*>(p.dv);
-  const long long part = (long long)p.S * p.H * HD * gridDim.z;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int kp = kp0 + gr + r * 8;
-    if (kp >= p.S) continue;
-    if (p.partial != nullptr) {
-      float* krow = p.partial + (((long long)b * p.S + kp) * p.H + h) * HD;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        *reinterpret_cast<float2*>(krow + n * 8 + 2 * gc) = make_float2(
-            dk[n][2 * r] * p.scale, dk[n][2 * r + 1] * p.scale);
-        *reinterpret_cast<float2*>(krow + part + n * 8 + 2 * gc) =
-            make_float2(dv[n][2 * r], dv[n][2 * r + 1]);
-      }
-      continue;
-    }
-    bf16* krow = dkg + at(p, kDK, b, kp, kvh);
-    bf16* vrow = dvg + at(p, kDV, b, kp, kvh);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      *reinterpret_cast<uint32_t*>(krow + n * 8 + 2 * gc) = flash::pack_bf16(
-          dk[n][2 * r] * p.scale, dk[n][2 * r + 1] * p.scale);
-      *reinterpret_cast<uint32_t*>(vrow + n * 8 + 2 * gc) =
-          flash::pack_bf16(dv[n][2 * r], dv[n][2 * r + 1]);
-    }
+  __syncthreads();
+  if (threadIdx.x == 0 && n_tiles > 0) {
+    hopper::mbar_arrive_expect_tx(&fixed_bar, 2 * L::kBytes);
+    tc::load_tile<HD>(k_s, maps.k, kvh, kb, b, &fixed_bar);
+    tc::load_tile<HD>(v_s, maps.v, kvh, kb, b, &fixed_bar);
   }
+  if (tid == 0)
+    for (int k = 0; k < min(SL, n_mine); ++k) issue(k);
+
+  // This thread's keys: kr0 and kr0 + 8 of the tile; its queries of a
+  // tile: columns 8 j + 2 gc (+ 1).
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gr = lane / 4, gc = lane % 4;
+  const int kr0 = 16 * (warp % 4) + gr;
+  const float sl2 = p.scale * flash::kLog2e;
+  const float inv_cap = CAP ? p.scale / p.softcap : 0.f;
+  const float cap2 = p.softcap * flash::kLog2e;
+  float dk[NA], dv[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) dk[i] = dv[i] = 0.f;
+  // A block exits only when its copies have landed: warpgroup 0 waits
+  // for the fixed tiles whenever they were loaded.
+  if (n_mine > 0) hopper::mbar_wait(&fixed_bar, 0);
+  const uint32_t k_addr = hopper::smem_addr(k_s);
+  const uint32_t v_addr = hopper::smem_addr(v_s);
+  float sa[32], pa[32];   // S^T; dP^T
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sa[i] = pa[i] = 0.f;
+
+  for (int k = 0; k < n_mine; ++k) {
+    const int n = wg + NW * k, s = k % SL;
+    const int t0 = (qi_lo + n % n_it) * tc::kRows;
+    const uint32_t q_addr =
+        hopper::smem_addr(ring + (wg * SL + s) * 2 * L::kBytes);
+    const uint32_t do_addr = q_addr + L::kBytes;
+    hopper::mbar_wait(&full[wg][s], (k / SL) & 1);
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries each.
+    hopper::fence_acc(sa);
+    hopper::fence_acc(pa);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hopper::Wgmma<64>::ss<0>(sa, tc::desc_k<HD>(k_addr, kk),
+                               tc::desc_k<HD>(q_addr, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hopper::Wgmma<64>::ss<0>(pa, tc::desc_k<HD>(v_addr, kk),
+                               tc::desc_k<HD>(do_addr, kk), kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_acc(sa);
+    hopper::fence_acc(pa);
+    // P^T and dS^T, as in pass 1 with the queries as columns (their lse
+    // and D come with the tile), element by element in pairs packed
+    // straight into the A fragments of dV's and dK's products.  Registers
+    // i, i + 1 (i even) hold columns 8 (i / 4) + 2 gc (+ 1): one float2 of
+    // lse and of D each.
+    const float* lse_t = stats_s + (wg * SL + s) * tc::kStatsFloats;
+    const float* d_t = lse_t + tc::kRows;
+    const int qp0 = t0 + off;
+    const bool full_tile = kb + 64 <= p.S && t0 + 64 <= p.T &&
+                           (!p.causal || qp0 >= kb + 63) &&
+                           (p.window <= 0 || qp0 + 63 < kb + p.window);
+    uint32_t pf[4][4], df[4][4];
+    auto p_ds = [&](auto masked) {
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int col = 8 * (i >> 2) + 2 * gc;
+        const float2 lse2 = *reinterpret_cast<const float2*>(lse_t + col);
+        const float2 dd = *reinterpret_cast<const float2*>(d_t + col);
+        float pr[2], ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x, dp = pa[i + e] - (e ? dd.y : dd.x);
+          if constexpr (CAP) {
+            const float t = tc::fast_tanh(sa[i + e] * inv_cap);
+            x = t * cap2;
+            dp *= 1.f - t * t;
+          } else {
+            x = sa[i + e] * sl2;
+          }
+          if constexpr (decltype(masked)::value) {
+            const int tl = col + e;
+            const int kp = kb + kr0 + 8 * ((i >> 1) & 1), qp = qp0 + tl;
+            const bool ok = (kp < p.S) & (t0 + tl < p.T) &
+                            (!p.causal | (kp <= qp)) &
+                            ((p.window <= 0) | (kp > qp - p.window));
+            x = ok ? x : -CUDART_INF_F;
+          }
+          pr[e] = flash::fast_exp2(x - (e ? lse2.y : lse2.x));
+          ds[e] = pr[e] * dp;
+        }
+        pf[i / 8][(i % 8) / 2] = flash::pack_bf16(pr[0], pr[1]);
+        df[i / 8][(i % 8) / 2] = flash::pack_bf16(ds[0], ds[1]);
+      }
+    };
+    if (full_tile)
+      p_ds(std::false_type{});
+    else
+      p_ds(std::true_type{});
+    // dV += P^T dO and dK += dS^T Q: the queries as k, A from registers,
+    // dO and Q MN-major (trans-b).
+    hopper::fence_acc(dv);
+    hopper::fence_acc(dk);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      tc::mma_mn<HD>(dv, pf[kk], do_addr, kk);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      tc::mma_mn<HD>(dk, df[kk], q_addr, kk);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_acc(dv);
+    hopper::fence_acc(dk);
+    tc::warpgroup_sync(wg);
+    if (tid == 0 && k + SL < n_mine) issue(k + SL);
+  }
+
+  if (NW == 2) {
+    float* red = reinterpret_cast<float*>(ring + SL * 2 * L::kBytes);
+    if (wg == 1) {
+      tc::put(dk, red, tid);
+      tc::put(dv, red + NA * 128, tid);
+    }
+    __syncthreads();
+    if (wg == 1) return;
+    tc::add(dk, red, tid);
+    tc::add(dv, red + NA * 128, tid);
+  }
+  tc::store_rows<HD>(dk, static_cast<bf16*>(p.dk) + at(p, kDK, b, kb, kvh),
+                     p.st[kDK][1], kr0, keys, p.scale);
+  tc::store_rows<HD>(dv, static_cast<bf16*>(p.dv) + at(p, kDV, b, kb, kvh),
+                     p.st[kDV][1], kr0, keys, 1.f);
 }
 
-// dk and dv from the per-query-head shares: for each (b, key, kv head,
-// d), the sum over the g heads of the kv head in head order, cast to bf16.
-__global__ void __launch_bounds__(256) flash_bwd_sum_heads(const Params p,
-                                                           int B) {
-  const int g = p.H / p.Hkv, hd = p.hd;
-  const long long n = (long long)B * p.S * p.Hkv * hd;
-  const long long part = (long long)B * p.S * p.H * hd;
-  bf16* dk = static_cast<bf16*>(p.dk);
-  bf16* dv = static_cast<bf16*>(p.dv);
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int d = i % hd;
-    long long rest = i / hd;
-    const int kvh = rest % p.Hkv;
-    rest /= p.Hkv;
-    const int s = rest % p.S, b = rest / p.S;
-    const float* src =
-        p.partial + (((long long)b * p.S + s) * p.H + kvh * g) * hd + d;
-    float sk = 0.f, sv = 0.f;
-    for (int gi = 0; gi < g; ++gi) {
-      sk += src[gi * hd];
-      sv += src[part + gi * hd];
+// A 4-D tensor map of a [B, rows, heads, HD] bf16 operand with element
+// strides st (batch, sequence, head) and a unit head_dim stride, over
+// (HD, heads, rows, B), read in boxes of one head x 64 rows x `cols`
+// columns at swizzle `sw`.  Rows past `rows` arrive as zeros; the strides
+// must be 16-byte multiples (a dimension of size 1 takes any).
+bool tile_map(CUtensorMap* map, const void* base, int hd, int B, int rows,
+              int heads, const long long (&st)[3], int cols,
+              CUtensorMapSwizzle sw) {
+  hopper::EncodeTiledFn fn = hopper::encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)rows, (cuuint64_t)B};
+  const long long sizes[3] = {heads, rows, B};
+  const long long elems[3] = {st[2], st[1], st[0]};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i) {
+    const long long bytes = elems[i] * 2;
+    if (bytes <= 0 || bytes % 16) {
+      if (sizes[i] > 1) return false;
+      strides[i] = 16;
+    } else {
+      strides[i] = (cuuint64_t)bytes;
     }
-    dk[at(p, kDK, b, s, kvh) + d] = __float2bfloat16(sk);
-    dv[at(p, kDV, b, s, kvh) + d] = __float2bfloat16(sv);
   }
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, tc::kRows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The maps of one operand for the boxes of tc::Tile<HD>.
+template <int HD>
+bool operand_maps(tc::OperandMaps* m, const void* base, int B, int rows,
+                  int heads, const long long (&st)[3]) {
+  using L = tc::Tile<HD>;
+  if (L::kWide > 0 && !tile_map(&m->wide, base, HD, B, rows, heads, st, 64,
+                                CU_TENSOR_MAP_SWIZZLE_128B))
+    return false;
+  return L::R == 0 ||
+         tile_map(&m->rest, base, HD, B, rows, heads, st, L::R,
+                  L::R == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                             : CU_TENSOR_MAP_SWIZZLE_32B);
+}
+
+template <int HD, bool CAP>
+cudaError_t launch_tc(const Params& p, int B, cudaStream_t stream) {
+  constexpr int dq_smem = tc::dq_smem_bytes<HD>();
+  constexpr int dkdv_smem = tc::dkdv_smem_bytes<HD>(tc::kWarpgroups);
+  static_assert(dkdv_smem <= flash::kMaxSmemBytes, "exceeds shared memory");
+  // The dynamic shared memory each pass asks for (their static barriers
+  // count against the same limit, so not the sm_90 maximum).
+  static bool attr = false;
+  if (!attr) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dq_wgmma<HD, CAP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma<HD, CAP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               dkdv_smem);
+    if (e != cudaSuccess) return e;
+    attr = true;
+  }
+  // A stride TMA cannot take (the wrapper copies such operands first).
+  tc::Maps maps = {};
+  if (!operand_maps<HD>(&maps.q, p.q, B, p.T, p.H, p.st[kQ]) ||
+      !operand_maps<HD>(&maps.k, p.k, B, p.S, p.Hkv, p.st[kK]) ||
+      !operand_maps<HD>(&maps.v, p.v, B, p.S, p.Hkv, p.st[kV]) ||
+      !operand_maps<HD>(&maps.dout, p.dout, B, p.T, p.H, p.st[kDO]))
+    return cudaErrorInvalidPitchValue;
+  const int nqt = (p.T + tc::kRows - 1) / tc::kRows;
+  const int nkt = (p.S + tc::kRows - 1) / tc::kRows;
+  // The dK/dV pass's warpgroups a block.  A block walks the query tiles
+  // of its kv head's g query heads in series, g times as many under GQA
+  // as without; two warpgroups halve that chain and share the block's K
+  // and V, one lets two blocks share an SM, so that one's start and end
+  // run under the other's products.  Two when g > 1, one when g = 1 (on
+  // an H100 at B=4, T=S=1024: smollm's 9/3 heads take 0.079 ms with two,
+  // 0.093 with one; zamba2's 32/32 0.270 with one, 0.304 with two;
+  // PERF.md §6).  The choice, and with it the order of the f32 sums,
+  // depends on g alone: not on the batch or the card.
+  const int nw = p.H / p.Hkv > 1 ? tc::kWarpgroups : 1;
+  flash_bwd_dq_wgmma<HD, CAP><<<dim3(p.H, nqt, B), 128, dq_smem, stream>>>(
+      maps, p);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  flash_bwd_dkdv_wgmma<HD, CAP><<<dim3(p.Hkv, nkt, B), 128 * nw,
+                                  tc::dkdv_smem_bytes<HD>(nw),
+                             stream>>>(maps, p);
+  return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_tc(const Params& p, int B, cudaStream_t stream) {
-  static bool attr_dq = false, attr_dkdv = false;
-  cudaError_t e = flash::allow_max_smem(flash_bwd_dq_tc<HD>, attr_dq);
-  if (e != cudaSuccess) return e;
-  e = flash::allow_max_smem(flash_bwd_dkdv_tc<HD>, attr_dkdv);
-  if (e != cudaSuccess) return e;
-  const int warps = min(4, (p.T + 15) / 16);
-  const int bq = 16 * warps;
-  flash_bwd_dq_tc<HD><<<dim3(p.H, (p.T + bq - 1) / bq, B), 32 * warps,
-                        dq_smem_bytes<HD>(), stream>>>(p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  flash_bwd_dkdv_tc<HD><<<dim3(p.H, (p.S + kBK - 1) / kBK, B), 128,
-                          dkdv_smem_bytes<HD>(), stream>>>(p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || p.partial == nullptr) return e;
-  const long long n = (long long)B * p.S * p.Hkv * HD;
-  const long long want = (n + 255) / 256;
-  const int blocks = want < 132 * 16 ? (int)want : 132 * 16;
-  flash_bwd_sum_heads<<<blocks, 256, 0, stream>>>(p, B);
-  return cudaGetLastError();
+  return p.softcap > 0.f ? launch_tc<HD, true>(p, B, stream)
+                         : launch_tc<HD, false>(p, B, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -801,26 +1006,23 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  route: 0 = CUDA cores, 1 = tensor
 // cores (bf16, hd 16/32/64/80/128, every row 16-byte aligned: the wrapper
-// checks).  lse: the forward's [B,H,T] f32; dsum: [B,H,T] f32 scratch;
-// partial: [2,B,S,H,hd] f32 scratch for the tensor-core route when
-// H > Hkv (else null).
+// checks).  lse: the forward's [B,H,T] f32; dsum: f32 scratch, [B,H,T]
+// on the CUDA cores, [B,H,ceil(T/64),2,64] on the tensor cores.
 // strides: 24 element strides, (batch, sequence, head) of q, k, v, out,
 // dout, dq, dk, dv in that order; every head_dim stride is 1.  Launches
-// the dQ pass, then the dK/dV pass (then the sum of the heads' shares,
-// when partial is given), on `stream`.  Returns a cudaError_t
+// the dQ pass, then the dK/dV pass, on `stream`.  Returns a cudaError_t
 // (0 = ok).
 int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* dsum, void* dq, void* dk,
-    void* dv, void* partial, int dtype, int route, int B, int T, int S,
-    int H, int Hkv, int hd, const long long* strides, int causal, int window, float softcap,
+    void* dv, int dtype, int route, int B, int T, int S, int H, int Hkv,
+    int hd, const long long* strides, int causal, int window, float softcap,
     float scale, void* stream) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.out = out; p.dout = dout;
   p.lse = static_cast<const float*>(lse);
   p.dsum = static_cast<float*>(dsum);
   p.dq = dq; p.dk = dk; p.dv = dv;
-  p.partial = static_cast<float*>(partial);
   p.T = T; p.S = S; p.H = H; p.Hkv = Hkv; p.hd = hd;
   for (int i = 0; i < 8; ++i)
     for (int j = 0; j < 3; ++j) p.st[i][j] = strides[3 * i + j];
@@ -830,8 +1032,7 @@ int flash_attention_bwd_launch(
   if (Hkv <= 0 || H % Hkv) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 1) {
-    if (dtype != 1 || (H > Hkv) != (partial != nullptr))
-      return cudaErrorInvalidValue;
+    if (dtype != 1) return cudaErrorInvalidValue;
     switch (hd) {
       case 16: return launch_tc<16>(p, B, s);
       case 32: return launch_tc<32>(p, B, s);

@@ -65,13 +65,15 @@
 // K * sizeof(T) and N * sizeof(T) must be multiples of 16 (the wrapper
 // checks; this entry point refuses).
 
-#include <cuda.h>            // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
+using namespace hopper;
 typedef __nv_bfloat16 bf16;
 
 struct Tile {
@@ -85,57 +87,6 @@ constexpr Tile kTiles[3] = {
 };
 constexpr int kMaxSmemBytes = 232448;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-// Arrive once and add `bytes` to the transactions the phase waits for.
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
-                                                      uint32_t bytes) {
-  asm volatile(
-      "{\n"
-      ".reg .b64 st;\n"
-      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n"
-      "}\n" ::"r"(smem_addr(bar)), "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile(
-      "{\n"
-      ".reg .b64 st;\n"
-      "mbarrier.arrive.shared::cta.b64 st, [%0];\n"
-      "}\n" ::"r"(smem_addr(bar))
-      : "memory");
-}
-
-// Spin until the phase of parity `parity` has completed.  A hand-off
-// that never comes (a lost arrive, a copy that faulted) traps after 2^26
-// polls, each of which try_wait may suspend for a while, so a broken ring
-// fails the launch instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (polls == (1u << 26)) asm volatile("trap;");
-  }
-}
-
 __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty,
                                           int slots, uint32_t consumers) {
   if (threadIdx.x == 0) {
@@ -143,7 +94,7 @@ __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty,
       mbar_init(&full[s], 1);            // the producer's arrive
       mbar_init(&empty[s], consumers);   // one arrive per consumer
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
   // No block-wide barrier past this point: the two roles run apart.
@@ -163,17 +114,6 @@ constexpr int kSimtLda = kSimtK + 4;
 constexpr int kSimtLdb = kSimtN;
 constexpr int kSimtASlot = kSimtM * kSimtLda;
 constexpr int kSimtBSlot = kSimtK * kSimtLdb;
-
-// Global -> shared copy by the copy engine; completion is counted in
-// bytes on `bar`.  dst, src and bytes must be multiples of 16.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
 
 __global__ void __launch_bounds__(kSimtThreads)
 nbb_simt_kernel(const float* __restrict__ a, const float* __restrict__ b,
@@ -276,109 +216,6 @@ constexpr int kBK = 64;      // K step: one 128-byte swizzle row of bf16
 constexpr int kBoxN = 64;    // B arrives in boxes of 64 columns (128 bytes)
 constexpr int kBoxBytes = kBK * kBoxN * 2;
 
-// TMA: the 2-D box at (c0 inner, c1 outer) of `map` into shared memory at
-// dst; completion is counted in bytes on `bar`.  Out-of-bounds elements
-// arrive as zeros and count toward the bytes.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-
-// wgmma matrix descriptor of a 128-byte-swizzled tile at shared address
-// `addr`: leading and stride byte offsets in 16-byte units, layout type 1
-// (128B swizzle) in bits 62-63.  K-major A: the stride byte offset steps
-// 8 rows (1024 bytes), the leading one is unused (1).  N-major B: the
-// stride byte offset steps 8 rows of K (1024 bytes), the leading one the
-// next 64-column box.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Pin the accumulator's registers at this point of the program: no read
-// or copy of them moves across (their values are the hardware's while
-// products are in flight).
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d[64 x BN] += A[64 x 16] (K-major) * B[16 x BN] (N-major: trans-b 1).
-template <int BN>
-__device__ __forceinline__ void wgmma_bf16(float (&d)[BN / 2], uint64_t da,
-                                           uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t da,
-                                               uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t da,
-                                                uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, "
-      "1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
 template <int BM, int BN, int S>
 struct WgmmaRing {
   static constexpr int consumers = BM / 64;          // warpgroups
@@ -444,8 +281,9 @@ nbb_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     for (int kk = 0; kk < kBK / 16; ++kk) {
       // A: 16 columns of K are 32 bytes into each swizzled 128-byte row;
       // B: 16 rows of K are 16 x 128 bytes further into each box.
-      wgmma_bf16<BN>(acc, sw128_desc(a_addr + kk * 32, 16, 1024),
-                     sw128_desc(b_addr + kk * 16 * 128, kBoxBytes, 1024));
+      Wgmma<BN>::template ss<1>(
+          acc, smem_desc(a_addr + kk * 32, 16, 1024, 1),
+          smem_desc(b_addr + kk * 16 * 128, kBoxBytes, 1024, 1), 1);
     }
     wgmma_commit();
     fence_acc(acc);
@@ -475,32 +313,6 @@ nbb_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       }
     }
   }
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime has loaded.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
 }
 
 // A tensor map of a row-major bf16 [rows, cols] matrix, read in boxes of

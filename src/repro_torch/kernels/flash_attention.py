@@ -69,7 +69,7 @@ def _declare(lib: ctypes.CDLL) -> None:
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_bwd_launch.argtypes = (
-        [ptr] * 11 + [i32] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+        [ptr] * 10 + [i32] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
         + [i32, i32, f32, f32, ptr])
     lib.flash_attention_bwd_launch.restype = ctypes.c_int
 
@@ -78,7 +78,8 @@ def tensor_core_route(*tensors: torch.Tensor) -> bool:
     """Whether a kernel takes its tensor-core instance for these
     operands: bf16, a head_dim in ``TC_HEAD_DIMS``, and every row 16-byte
     aligned (the data pointer, and the batch, sequence and head strides a
-    multiple of 8 elements), as the 16-byte ``cp.async`` copies need.
+    multiple of 8 elements), as the forward's 16-byte ``cp.async`` copies
+    and the backward's TMA tensor maps need.
     Otherwise the CUDA-core instance runs."""
     first = tensors[0]
     if first.dtype != torch.bfloat16 or first.shape[-1] not in TC_HEAD_DIMS:
@@ -213,11 +214,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradient of :func:`flash_attention`: (dq, dk, dv) from the
     forward's inputs, its output ``out``, its log-sum-exp ``lse`` [B, H,
     T] f32 and the cotangent ``dout`` [B, T, H, hd].  On the card, a dQ
-    pass, then a dK/dV pass (and, on the tensor-core route with several
-    query heads per kv head, a fixed-order sum of the heads' shares): no
-    atomics, so repeated calls are bit-identical, and nothing of size
-    [T, S] is written.  dq, dk and dv are contiguous, in the dtypes of q,
-    k, v.  One call counts one backward launch."""
+    pass, then a dK/dV pass that sums the query heads of each kv head in
+    registers: no atomics, so repeated calls are bit-identical, and
+    nothing of size [T, S] is written.  dq, dk and dv are contiguous, in
+    the dtypes of q, k, v.  One call counts one backward launch."""
     global bwd_launches, simt_launches
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
@@ -236,40 +236,45 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention_bwd: lse must be a contiguous "
                          "[B, H, T] float32 tensor beside q")
     # The cotangent may come broadcast (a sum's gradient); the kernels
-    # read rows with a unit head_dim stride.
-    if out.stride(3) != 1:
-        out = out.contiguous()
-    if dout.stride(3) != 1:
-        dout = dout.contiguous()
+    # read rows with a unit head_dim stride, and TMA takes no zero stride.
+    q, k, v, out, dout = (_rows_readable(t) for t in (q, k, v, out, dout))
     lib = kbuild.load(BWD_SOURCE, _declare_bwd)
     dq = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, S, Hkv, hd), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, S, Hkv, hd), dtype=v.dtype, device=q.device)
-    dsum = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     ops = (q, k, v, out, dout, dq, dk, dv)
     strides = (ctypes.c_longlong * 24)(*[st for t in ops
                                          for st in t.stride()[:3]])
     route = tensor_core_route(q, k, v, out, dout)
-    # The tensor-core dK/dV pass runs a block per query head; with several
-    # query heads per kv head their f32 shares go to this scratch (2 x B x
-    # S x H x hd f32: 151 MB at B=4, S=1024, H=9, hd=64) and a third
-    # launch sums them in a fixed order.
-    partial = (torch.empty((2, B, S, H, hd), dtype=torch.float32,
-                           device=q.device) if route and H > Hkv else None)
+    # Each query row's D (and, on the tensor cores, its lse in log2 units,
+    # both padded to whole 64-row tiles), written by the dQ pass for the
+    # dK/dV pass.
+    dsum = torch.empty((B, H, -(-T // 64), 2, 64) if route else (B, H, T),
+                       dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(),
-        None if partial is None else partial.data_ptr(), _DTYPES[q.dtype],
-        int(route), B, T, S, H, Hkv, hd, strides, int(causal), int(window),
-        float(softcap), float(hd ** -0.5), stream)
+        dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], int(route), B, T,
+        S, H, Hkv, hd, strides, int(causal), int(window), float(softcap),
+        float(hd ** -0.5), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd: kernel launch failed "
                            f"(cudaError {err})")
     bwd_launches += 1
     simt_launches += 0 if route else 1
     return dq, dk, dv
+
+
+def _rows_readable(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or its contiguous copy where the backward could not read it
+    in place: a head_dim stride other than 1, or a zero stride over more
+    than one element (a broadcast, which a TMA tensor map cannot
+    describe)."""
+    if t.stride(3) != 1 or any(st == 0 and n > 1
+                               for st, n in zip(t.stride(), t.shape)):
+        return t.contiguous()
+    return t
 
 
 class _FlashTrainable(torch.autograd.Function):

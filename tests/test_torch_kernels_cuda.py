@@ -19,7 +19,9 @@ backward kernel against
 smollm's training shape, at zamba2-2.7b's head_dim 80 (32/32 heads at
 its training shape; 32/8 ragged with window + softcap) and whisper-tiny's
 non-causal cross read (T=448, S=1500), each of the last three with a
-dropped tile its bound must reject, bit-identical from call to call; and
+dropped tile its bound must reject, bit-identical from call to call at
+head dims 64, 80 and 128, with no per-head f32 partial allocated at g =
+3, and with a broadcast cotangent; and
 ``flash_attention_trainable``'s gradients (1e-4).  NBB matmul: the
 reference test shapes and tolerances, one and 13 kernel K tiles, ragged
 edges, refused operands; in bf16, each tile instance's ring at 1, S-1,
@@ -851,8 +853,8 @@ def _within(got, want, atol, rtol) -> bool:
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_bwd_training_cases_on_card(cuda_device, name, dtype):
     """The kernel against the plain backward on the plain forward's
-    residuals (bf16 on the tensor cores: zamba's g = 1 takes no
-    sum-heads launch, its g = 4 does; f32 on the CUDA cores within 2e-5);
+    residuals (bf16 on the tensor cores, zamba's g = 1 and g = 4 alike;
+    f32 on the CUDA cores within 2e-5);
     each bound must reject the kernel's gradients with the case's tile
     left out."""
     B, T, S, H, Hkv, hd, kw, (rows, keys) = BWD_TRAIN_CASES[name]
@@ -879,10 +881,13 @@ def test_flash_bwd_training_cases_on_card(cuda_device, name, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd,H,Hkv", [(64, 9, 3), (80, 32, 32), (128, 8, 2)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_bwd_is_deterministic_on_card(cuda_device, dtype):
-    """Two passes, no atomics: repeated calls are bit-identical."""
-    q, k, v, dout = _bwd_inputs("repeat", 2, 256, 256, 9, 3, 64,
+def test_flash_bwd_is_deterministic_on_card(cuda_device, dtype, hd, H, Hkv):
+    """Two passes, no atomics, the g query heads of a kv head summed in
+    one fixed order: repeated calls are bit-identical (smollm's 9/3 heads
+    of 64, zamba2's 32/32 of 80, g = 4 at 128)."""
+    q, k, v, dout = _bwd_inputs("repeat", 2, 256, 256, H, Hkv, hd,
                                 getattr(torch, dtype), cuda_device)
     out, lse = fa_mod.flash_attention_fwd(q, k, v, window=100)
     first = fa_mod.flash_attention_bwd(q, k, v, out, lse, dout, window=100)
@@ -891,6 +896,69 @@ def test_flash_bwd_is_deterministic_on_card(cuda_device, dtype):
                                            window=100)
         for a, b in zip(first, again):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,H,Hkv", [(64, 9, 3), (80, 32, 32)])
+def test_flash_bwd_batch_rows_match_alone_on_card(cuda_device, hd, H, Hkv):
+    """The order of every f32 sum depends on the shape of one batch row
+    and g, not on the batch: a row's bf16 gradients from a batch of 4 are
+    bit-identical to the same row's computed alone (a data-parallel
+    rank's local batch against the full one)."""
+    q, k, v, dout = _bwd_inputs("rows", 4, 1024, 1024, H, Hkv, hd,
+                                torch.bfloat16, cuda_device)
+    out, lse = fa_mod.flash_attention_fwd(q, k, v)
+    whole = fa_mod.flash_attention_bwd(q, k, v, out, lse, dout)
+    for b in (0, 3):
+        one = [x[b:b + 1].contiguous() for x in (q, k, v, out)]
+        alone = fa_mod.flash_attention_bwd(
+            *one, lse[b:b + 1].contiguous(), dout[b:b + 1].contiguous())
+        for a, w in zip(alone, whole):
+            assert torch.equal(a[0], w[b])
+
+
+@pytest.mark.cuda
+def test_flash_bwd_allocates_no_per_head_partial(cuda_device):
+    """At g = 3 the tensor-core backward sums the query heads of a kv head
+    in registers: one call allocates dq, dk, dv and the rows' lse and D
+    (2 x 64-row tiles of f32 per head), nowhere near the [2, B, S, H, hd]
+    f32 partial (18.9 MB at B=4, S=1024, 9 heads of 64) of the design
+    before."""
+    B, T, H, Hkv, hd = 4, 1024, 9, 3, 64
+    q, k, v, dout = _bwd_inputs("partial", B, T, T, H, Hkv, hd,
+                                torch.bfloat16, cuda_device)
+    out, lse = fa_mod.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = fa_mod.flash_attention_bwd(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    outputs = sum(t.numel() * t.element_size() for t in grads)
+    stats = B * H * -(-T // 64) * 2 * 64 * 4
+    partial = 2 * B * T * H * hd * 4
+    assert grown <= outputs + stats + 2 * 512 * 4, (grown, outputs, stats)
+    assert grown < partial
+
+
+@pytest.mark.cuda
+def test_flash_bwd_broadcast_dout_on_card(cuda_device):
+    """A broadcast cotangent (an ``expand``ed tensor, zero strides over
+    heads and tokens), which a TMA tensor map cannot describe, is copied
+    by the wrapper and gives the plain version's gradients."""
+    B, T, H, Hkv, hd = 2, 96, 6, 2, 64
+    q, k, v, _ = _bwd_inputs("broadcast", B, T, T, H, Hkv, hd,
+                             torch.bfloat16, cuda_device)
+    row = torch.randn((B, 1, 1, hd), device=cuda_device).to(torch.bfloat16)
+    dout = row.expand(B, T, H, hd)
+    assert dout.stride(1) == dout.stride(2) == 0
+    out, lse = tref.flash_attention_fwd_ref(q, k, v)
+    got = fa_mod.flash_attention_bwd(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    want = tref.flash_attention_bwd_ref(q, k, v, out, lse,
+                                        dout.contiguous())
+    for a, b in zip(got, want):
+        _bf16_grad_close(a, b)
 
 
 @pytest.mark.cuda

@@ -120,8 +120,14 @@ def test_tile_constant_matches_the_source():
     """The wrapper's per-instance tiles are the source's ``kTiles``, and
     the source builds the NBB ring the way the wrapper documents it: TMA
     tensor maps filling full/empty mbarrier slots for the bf16 ``wgmma``
-    instances, row-wise bulk copies for the f32 one."""
+    instances, row-wise bulk copies for the f32 one.  The PTX of those
+    pieces may sit in a header the source includes (``hopper.cuh``, shared
+    with the flash backward)."""
     src = nbb_mod.SOURCE.read_text()
+    headers = re.findall(r'#include "(\w+\.cuh)"', src)
+    assert headers, "no shared header included"
+    text = src + "".join((nbb_mod.SOURCE.parent / h).read_text()
+                         for h in headers)
     rows = re.findall(r"\{(\d+), (\d+), (\d+), (\d+)\},\s+// (\d): (\w+)",
                       src)
     assert [int(r[4]) for r in rows] == list(range(len(nbb_mod.INSTANCES)))
@@ -137,7 +143,7 @@ def test_tile_constant_matches_the_source():
                    "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16",
                    "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
                    "CU_TENSOR_MAP_SWIZZLE_128B"):
-        assert needle in src, needle
+        assert needle in text, needle
 
 
 @pytest.mark.parametrize("dtype,M,N,want", [
