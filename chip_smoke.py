@@ -8,9 +8,13 @@ each of which fails the run hard:
    versions, and the build of every kernel from ``src/repro_torch`` (one
    ``nvcc`` per source, all started together), with the count of
    tensor-core instructions (HMMA/HGMMA in ``cuobjdump -sass``) in each
-   kernel: every bf16 tensor-core kernel (flash at head_dim 16/32/64/80/
-   128, the paged chunk kernel at the same five) must have some, every
-   NBB ``wgmma`` instance HGMMA, every float32 (CUDA-core) one none;
+   kernel: every bf16 ``mma.sync`` kernel (the flash forward's split
+   route and the paged chunk kernel, at head_dim 16/32/64/80/128) must
+   have some, every ``wgmma`` instance HGMMA (the flash forward's at the
+   five head dims with and without a softcap, the backward's, the NBB
+   matmul's), no forward or backward instance a spill or a ``wgmma``
+   that ptxas serialized, the forward's ``mma.sync`` tile kernel
+   (``flash_fwd_tc``) gone, every float32 (CUDA-core) one none;
 2. each kernel against its plain PyTorch version on the card: paged
    attention at the reference test shapes and the paged main path's (a
    strided per-layer view of a [512, 16, 30, 3, 64] pool), then its
@@ -29,9 +33,16 @@ each of which fails the run hard:
    flash
    attention at the reference test shapes, ragged T and S, and the dense
    main path's (B=1 causal prefills of 64/256/512 tokens over a ring
-   slice, a T=1 decode at S=513 over a strided B=4 ring slice); and the
-   dense decode read — the paged kernel over a [4, 1024] ring viewed as
-   identity pages — against both plain versions; (2c) the NBB matmul at
+   slice, a T=1 decode at S=513 over a strided B=4 ring slice); the
+   flash forward's split route (the wave's decode, llama-vision's and
+   whisper's cross decodes, a window at T=1, 4 tokens x g 4 with softcap,
+   S under one split, S=20000, queries with no key) against the plain
+   version and the plain split form at the wrapper's plan, counted in
+   ``split_launches``, repeats and batch rows alone bit-identical, its
+   arrival counters back at 0, the bound rejecting a dropped key tile;
+   and the dense decode read — the paged kernel over a [4, 1024] ring
+   viewed as identity pages — against both plain versions; (2c) the NBB
+   matmul at
    the reference test shapes in f32 and bf16, the f32 instance's one and
    13 K tiles, each bf16 instance's ring at 1, S-1, S+1 and 2S+1 K steps,
    ragged edges and the kernel benchmark's 512 x 1024 x 512 bf16, each
@@ -71,12 +82,13 @@ each of which fails the run hard:
    launched 30 times per model forward and its split-KV combine 30 times
    per one-token decode forward; then where one dispatch's time
    goes.  In every served and trained run, every flash launch takes the
-   tensor-core instance (none the CUDA-core one);
+   split or the ``wgmma`` route (none the CUDA-core one);
 4. the dense main path at full width: the same 16 requests under
    ``slot_fused`` (flash launches = 30 x prefills, paged launches and
    combines = 30 x decode steps), then 4 requests each under
-   ``slot_chunked`` and ``wave``; then where a prefill's and a decode
-   block's time goes;
+   ``slot_chunked`` and ``wave`` (its prefills on flash's ``wgmma``
+   route, its decode steps on the split route: split launches = 30 x
+   decode steps); then where a prefill's and a decode block's time goes;
 3c-3e. the robustness paths of ``slot_paged`` at full width (30 layers,
    d=576, bf16, seed-0 weights; ``max_len=1024``, 16-token pages,
    ``chunk_tokens=64``, ``k_max=8``), each run driven inline, every kernel
@@ -133,7 +145,8 @@ each of which fails the run hard:
    equal to ``cross_kv`` of the images; the last position's logits over
    the filled caches within 2^-8 x max |logit| of the cache-less
    ``forward(tokens, extras)``'s), tokens that differ from those with zero
-   images, non-causal flash launches = 8 x forwards and the self
+   images, non-causal flash launches = 8 x forwards (the decode steps'
+   one-token cross reads on the split route: 8 x steps) and the self
    layers' (flash prefill, paged decode) = 32 x forwards; (b)
    ``slot_chunked`` (``max_batch=4``, ``max_len=2048``,
    ``chunk_tokens=64``, ``k_max=8``) on 4 requests of 100-1000 tokens,
@@ -146,15 +159,16 @@ each of which fails the run hard:
    bf16): ``prefill`` with seeded frames [4, 1500, 384] (the encoder on
    the non-causal route, 4 launches a prefill) and 16 decode steps at
    ``max_len`` 448, every cross cache equal to ``cross_kv`` of the
-   encoder's output; ``slot_chunked`` on 4 requests; the engine refusing
-   ``slot_fused``;
+   encoder's output, the decode steps' cross reads on flash's split
+   route (4 x steps); ``slot_chunked`` on 4 requests (split launches = 4
+   x one-token forwards); the engine refusing ``slot_fused``;
 3j. the zamba_hybrid family at full width: ``zamba2-2.7b`` (54 mamba2
    layers in 9 superblocks, each opened by the one shared attention block
    over its own ring; d=2560, 32/32 heads of 80, vocab 32000; bf16,
    seed-0 weights, 2,340,750,240 parameters built where ``param_count()``
-   claims 5,092,515,840; no cut): a B=2 prefill of 124 tokens (the
+   claims 5,092,515,840; no cut): a B=2 prefill of 60 tokens (the
    recurrence's scan) + 4 teacher-forced decode steps against the
-   cache-less forward over the 128 tokens (its chunked form), logits
+   cache-less forward over the 64 tokens (its chunked form), logits
    within 2^-2 of the largest in bf16 and 2^-12 with the weights in
    float32; ``slot_fused`` (the launcher's fallback: neither chunkable
    nor pageable; ``max_batch=4``, ``max_len=1024``) on 4 requests of
@@ -181,9 +195,12 @@ each of which fails the run hard:
    chunk, slot_fused's dense-ring decode, olmoe's T=1 and T=64 with
    ``kv_lens``; the ring bound at gemma's T=1 and T=64; non-causal
    flash at llama-vision's cross decode and chunk and whisper's
-   encoder; head_dim 80 at zamba's B=1 T=S=256 prefill and B=4
-   dense-ring decode, and the trainable flash forward + backward and the
-   backward alone at zamba's training shape), beside each kernel's bound,
+   encoder and cross decode; the flash forward's training shapes with
+   lse at head_dim 64 and 80; head_dim 80 at zamba's B=1 T=S=256 prefill
+   and B=4 dense-ring decode, and the trainable flash forward + backward
+   and the backward alone at zamba's training shape; every flash forward
+   row also with the host's µs to enqueue a call), beside each kernel's
+   bound,
    its plain version and the one PyTorch call that computes the same
    function
    where there is one (``scaled_dot_product_attention`` forward, backward,
@@ -263,7 +280,9 @@ each of which fails the run hard:
 Phase 7 runs before the timing of phase 6, which reports its launch
 count; the paged row's launches add phases 3c-3g's to phase 3's, the
 ring row's are 3g's launches under the ring bound, the non-causal
-flash row's are 3h's and 3i's non-causal launches, the hd 80 serving
+flash row's are 3h's and 3i's non-causal launches, the split route's
+row's are its launches in phase 4's wave run, 3h and 3i (whisper's cross
+decode row: 3i's), the hd 80 serving
 rows' are 3j's served launches, the trainable flash and flash backward
 rows' are phase 7's, 7d's and 10b's, and the hd 80 training rows' are
 7b's.
@@ -366,11 +385,12 @@ def spin(ms: float) -> None:
     torch.cuda._sleep(int(ms * _SPIN["cycles_per_ms"]))
 
 
-def timed(fn, reps: int = 5, inner: int = 50) -> float:
+def timed(fn, reps: int = 5, inner: int = 50, with_host: bool = False):
     """Median device ms per call over ``reps`` CUDA-event windows of
     ``inner`` calls, after a warm-up.  Each window is enqueued behind a
     device-side spin longer than the host takes to enqueue it, so the
-    events time the card's work, not the host's launch rate."""
+    events time the card's work, not the host's launch rate.  With
+    ``with_host``, (ms, the host's µs per call to enqueue one)."""
     import torch
     for _ in range(5):
         fn(0)
@@ -391,7 +411,15 @@ def timed(fn, reps: int = 5, inner: int = 50) -> float:
         b.record()
         b.synchronize()
         samples.append(a.elapsed_time(b) / inner)
+    if with_host:
+        return statistics.median(samples), host_ms * 1e3 / inner
     return statistics.median(samples)
+
+
+# The flash forward's split-route launches in the served runs that make
+# them (phase 4's wave decode steps, the cross reads of 3h's and 3i's
+# one-token forwards), for phase 6's rows.
+SPLIT_SERVED = {"wave": 0, "vlm": 0, "whisper": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -462,13 +490,14 @@ def phase_build():
                 if "wgmma" in line and "serialized" in line:
                     serialized.add(kernel)
     # Tensor-core instructions in the SASS: each bf16 tensor-core instance
-    # must issue them (the flash forward's flash_fwd_tc<hd>, the paged
-    # chunk kernel paged_chunk_tc<hd>; HGMMA, wgmma, in each of the flash
+    # must issue them (the flash forward's split route flash_fwd_split<hd>
+    # and the paged chunk kernel paged_chunk_tc<hd>; HGMMA, wgmma, in each
+    # of the flash forward's flash_fwd_wgmma<hd, softcap>, the flash
     # backward's flash_bwd_{dq,dkdv}_wgmma<hd> and the NBB matmul's
     # nbb_wgmma_kernel<...>), each float32 instance none (flash_*_simt<T>,
     # paged_split<float, hd>, paged_simt<float>, nbb_simt_kernel): no TF32.
     rules = {  # source: (tensor-core needle, least count, f32 needles, least)
-        "flash_attention": ("_tcI", 5, ("_simtI",), 2),
+        "flash_attention": ("_fwd_wgmmaI", 10, ("_simtI",), 2),
         "flash_attention_bwd": ("_wgmmaI", 20, ("_simtI",), 2),
         "paged_attention": ("paged_chunk_tcI", 5,
                             ("paged_splitIf", "paged_simtIf"), 6),
@@ -482,10 +511,30 @@ def phase_build():
               f"{name}: a tensor-core kernel without HMMA/HGMMA: {tc}")
         check(len(f32) >= n_f32 and not any(f32.values()),
               f"{name}: a float32 kernel with HMMA/HGMMA: {f32}")
-        if name in ("flash_attention_bwd", "nbb_matmul"):
+        if name in ("flash_attention", "flash_attention_bwd", "nbb_matmul"):
             hgmma = tensor_core_counts(libs[name], ("HGMMA",))
             check(all(hgmma[f] > 0 for f in tc),
                   f"{name}: a wgmma instance without HGMMA: {hgmma}")
+        if name == "flash_attention":
+            # The forward's routes: a wgmma instance at each of the five
+            # head dims, with and without a softcap, and a split instance
+            # (mma.sync) at each; the mma.sync tile kernel of before is
+            # gone; no spill, no serialized wgmma.
+            dims = {int(re.search(r"ILi(\d+)E", f)[1]) for f in tc}
+            split = {f: n for f, n in counts.items() if "_fwd_splitI" in f}
+            check(dims == {16, 32, 64, 80, 128} and len(tc) == 10,
+                  f"flash_attention: the wgmma instances "
+                  f"{sorted(map(demangle, tc))}")
+            check(len(split) == 5 and all(split.values()),
+                  f"flash_attention: the split instances {split}")
+            check(not any("_fwd_tcI" in f for f in counts),
+                  "flash_attention: flash_fwd_tc is still built")
+            spilled = {k: n for k, n in spills.items()
+                       if "flash_fwd_" in k and n}
+            check(not spilled, f"flash_attention: spills {spilled}")
+            check(not any("flash_fwd_" in k for k in serialized),
+                  f"flash_attention: ptxas serialized the wgmma of "
+                  f"{sorted(serialized)}")
         if name == "flash_attention_bwd":
             # Every head dim of the route, zamba's 80 included, in both
             # passes, with and without a softcap; no per-head partial sum
@@ -509,7 +558,8 @@ def phase_build():
 
 
 def demangle(mangled: str) -> str:
-    """``flash_fwd_tc<64>`` for a kernel's mangled name (``c++filt``)."""
+    """``flash_fwd_wgmma<64, false>`` for a kernel's mangled name
+    (``c++filt``)."""
     full = subprocess.run(["c++filt", mangled], capture_output=True,
                           text=True, check=True).stdout
     return full.replace("(anonymous namespace)::", "").split("(")[0] \
@@ -979,6 +1029,101 @@ def phase_compare_flash():
     return main_err
 
 
+# The forward's split route (label, B, T, S, H, Hkv, hd, kwargs): the
+# wave's decode over ring slices, the cross decodes of llama-3.2-vision-
+# 11b (S=1600, g 4, hd 128) and whisper-tiny (S=1500, g 1), a window at
+# T=1 (the first split starts at its edge), 4 tokens x g 4 (16 rows),
+# S shorter than one split, a long S (splits of 3 chunks), queries with
+# no key (S < T).
+FLASH_SPLIT_CASES = [
+    ("wave decode", 4, 1, 513, 9, 3, 64, {}),
+    ("llama cross decode", 4, 1, 1600, 32, 8, 128, {"causal": False}),
+    ("whisper cross decode", 4, 1, 1500, 6, 6, 64, {"causal": False}),
+    ("window 256", 2, 1, 1024, 4, 4, 64, {"window": 256}),
+    ("T=4 x g 4, softcap", 2, 4, 300, 16, 4, 80, {"softcap": 30.0}),
+    ("S < one split", 3, 1, 50, 9, 3, 64, {}),
+    ("S=20000", 1, 1, 20000, 8, 1, 64, {}),
+    ("no key", 2, 4, 2, 4, 2, 16, {}),
+]
+
+
+def phase_compare_flash_split():
+    """The flash forward's split route against the plain version and the
+    plain split form at the wrapper's own plan (bf16: 3e-2 x max |plain|,
+    a mean over many keys; lse 1e-4), K/V read in place from [B, S + 64]
+    rings; its launch counted in ``split_launches`` and in no CUDA-core
+    count; two calls bit-identical; the first and last batch rows alone
+    bit-identical to the same rows in the batch; queries with no key
+    exactly 0 with lse -1e30; the arrival counters back at 0; and the
+    bound rejecting the output with the last key tile dropped.  Returns
+    the max error."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(700)
+    worst, lines = 0.0, []
+    for label, B, T, S, H, Hkv, hd, kw in FLASH_SPLIT_CASES:
+        q = torch.randn((B, T, H, hd), generator=g, device="cuda").to(
+            torch.bfloat16)
+        rk, rv = (torch.randn((B, S + 64, Hkv, hd), generator=g,
+                              device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        k, v = rk[:, :S], rv[:, :S]
+        way, plan = fa.forward_route(T, S, H, Hkv, hd, q.dtype,
+                                     fa.tensor_core_route(q, k, v),
+                                     kw.get("window", 0))
+        check(way == "split", f"flash split {label}: route {way}")
+        before = (fa.launches, fa.split_launches, fa.simt_launches)
+        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        again = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check((fa.launches - before[0], fa.split_launches - before[1],
+               fa.simt_launches - before[2]) == (2, 2, 0),
+              f"flash split {label}: launches")
+        check(torch.equal(out, again), f"flash split {label}: two calls "
+                                       "differ")
+        for b in {0, B - 1}:
+            alone = fa.flash_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                       **kw)
+            check(torch.equal(alone[0], out[b]),
+                  f"flash split {label}: row {b} alone differs")
+        want, want_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
+        split_out, split_lse = ref.flash_attention_split_ref(
+            q, k, v, plan[1], **kw)
+        seen = split_lse > -1e29                        # [B, H, T]
+        rows = seen.permute(0, 2, 1)[..., None]
+        want = torch.where(rows, want.float(), 0.0)
+        bound = 3e-2 * max(want.abs().max().item(), 1e-6)
+        err = max((out.float() - w.float()).abs().max().item()
+                  for w in (want, split_out))
+        lerr = max((torch.where(seen, lse - want_lse, 0.0)).abs().max().item(),
+                   (lse - split_lse).abs().max().item())
+        check(err <= bound and lerr <= 1e-4,
+              f"flash split {label}: err {err} (bound {bound}), lse {lerr}")
+        check(torch.count_nonzero(out * ~rows) == 0
+              and bool((lse[~seen] == -1e30).all()),
+              f"flash split {label}: a query with no key is not 0")
+        check(all(int(c.abs().sum()) == 0 for c in fa._COUNTERS.values()),
+              f"flash split {label}: a counter was left set")
+        bad = "-"
+        if bool(seen.all()):
+            cut = S - (S % KEY_TILE or KEY_TILE)
+            e = (fa.flash_attention(q, k[:, :cut], v[:, :cut], **kw).float()
+                 - want).abs().max().item()
+            check(e > bound, f"flash split {label}: bound {bound} misses "
+                             f"the dropped last key tile (err {e})")
+            bad = f"{e:.3g}"
+        worst = max(worst, err)
+        lines.append(f"{label} (B={B} T={T} S={S} {H}/{Hkv} hd {hd}, plan "
+                     f"{plan}) err {err:.3g} <= {bound:.3g}, lse {lerr:.2g}, "
+                     f"tile dropped {bad}")
+        del q, rk, rv, k, v, out, again, want, split_out
+    print("flash split route vs plain and plain split form (bf16, 3e-2 x "
+          "max |plain|; repeats and rows alone bit-identical): "
+          + "; ".join(lines))
+    return worst
+
+
 def phase_compare_dense_decode():
     """The dense decode read: the paged kernel over a [4, 1024] ring
     viewed as identity-mapped 64-token pages with per-row lengths, held
@@ -1403,6 +1548,7 @@ def serve_run(eng, prompts, max_tokens: int, forwards, smi: str,
     dt = time.monotonic() - t0
     launches = {"flash_attention": fa.launches,
                 "flash_noncausal": fa.noncausal_launches,
+                "flash_split": fa.split_launches,
                 "paged_attention": pa.launches,
                 "paged_combine": pa.combine_launches,
                 "paged_ring": pa.ring_launches}
@@ -1828,7 +1974,8 @@ def phase_compare_hd80():
     identity pages, split-KV decode at B=4 (rows at lens 0, 1, 63, 64,
     then 700, 64, 1000, 129, also against the plain split-KV version)
     and the T=64 chunk (lens 64, 300, 700, 1024).  bf16 takes the
-    tensor-core instances (flash_fwd_tc<80>, paged_chunk_tc<80>) and the
+    tensor-core instances (flash_fwd_wgmma<80>, paged_chunk_tc<80>), the
+    flash split route's flash_fwd_split<80> (the T=1 read) and the
     bf16 split, each called twice, bit-identical; f32 the CUDA-core ones
     (TF32 off).  Each bound must also reject the kernel's output with its
     last key tile dropped (flash: :func:`flash_tile_dropped`; paged:
@@ -1930,7 +2077,7 @@ def phase_compare_hd80():
             del q, kp, vp, out
     for line in lines:
         print(f"  {line}")
-    print(f"hd 80 vs plain (2f): flash_fwd_tc<80> max err "
+    print(f"hd 80 vs plain (2f): flash_fwd_wgmma<80> and _split<80> max err "
           f"{worst['flash']:.3g}, paged split + chunk_tc<80> max err "
           f"{worst['paged']:.3g} (bf16: 3e-2 x max |plain| for the T=1 "
           "flash read of 513 keys, else 3e-2; f32 on the CUDA-core "
@@ -1949,14 +2096,15 @@ def _fresh_memory():
 
 def _counts():
     """{kernel: launches} of flash (causal and non-causal forwards apart,
-    and its backward), paged and its combine, and the CUDA-core launches
-    of either."""
+    the forwards on the split route, and its backward), paged and its
+    combine, and the CUDA-core launches of either."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     torch.cuda.synchronize()
     return dict(causal=fa.launches - fa.noncausal_launches,
                 noncausal=fa.noncausal_launches, bwd=fa.bwd_launches,
+                split=fa.split_launches,
                 paged=pa.launches, combine=pa.combine_launches,
                 simt=fa.simt_launches + pa.simt_launches)
 
@@ -2103,7 +2251,11 @@ def phase_serve_vlm(smi: str):
           f"{err:.4g} of the cache-less forward's (bound 2^-8 x max "
           f"|logit| {scale:.3f}); "
           f"{differ} of {toks.numel()} tokens differ from zero images'")
+    check(got["split"] == n_cross * steps,
+          f"vlm model path: split-route launches {got['split']} != "
+          f"{n_cross} x {steps} decode steps' cross reads")
     noncausal = got["noncausal"]
+    SPLIT_SERVED["vlm"] = got["split"]
     del caches, hidden
     # (b) served.
     work = gemma_workload(cfg.vocab_size, (1000, 100, 640, 300))
@@ -2121,11 +2273,13 @@ def phase_serve_vlm(smi: str):
     nc = launches["flash_noncausal"]
     check(n_fwd > 0 and nc == n_cross * n_fwd
           and launches["flash_attention"] == nc
+          and launches["flash_split"] == n_cross * forwards[1]
           and launches["paged_attention"] == n_self * n_fwd
           and launches["paged_combine"] == n_self * forwards[1],
           f"vlm slot_chunked: launches {launches}, forwards {n_fwd} "
           f"({forwards[1]} one-token)")
     noncausal += nc
+    SPLIT_SERVED["vlm"] += launches["flash_split"]
     print(f"  vlm slot_chunked: forwards {n_fwd} ({forwards[1]} one-token), "
           f"non-causal flash {nc} = {n_cross} x {n_fwd}, dense cache "
           f"{dense / 1e6:.1f} MB ({self_b / 1e6:.1f} MB of self rings, "
@@ -2206,12 +2360,13 @@ def phase_serve_whisper(smi: str):
     n_fwd = forwards[0]
     check(n_fwd == steps + 1 and got["noncausal"] == Le + L * n_fwd
           and got["causal"] == L and got["paged"] == L * steps
-          and got["simt"] == 0,
+          and got["split"] == L * steps and got["simt"] == 0,
           f"whisper model path: launches {got}, forwards {n_fwd}")
     check_cross_filled(model, params, caches, frames, "whisper")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           "whisper: token out of range")
     noncausal = got["noncausal"]
+    SPLIT_SERVED["whisper"] = got["split"]
     print(f"whisper main path: whisper-tiny ({Le} encoder + {L} decoder "
           f"layers, d={cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
           f"heads of {cfg.head_dim_}, vocab {cfg.vocab_size}, "
@@ -2228,9 +2383,12 @@ def phase_serve_whisper(smi: str):
     nc = launches["flash_noncausal"]
     check(n_fwd > 0 and nc == L * n_fwd
           and launches["flash_attention"] == nc
+          and launches["flash_split"] == L * forwards[1]
           and launches["paged_attention"] == L * n_fwd,
-          f"whisper slot_chunked: launches {launches}, forwards {n_fwd}")
+          f"whisper slot_chunked: launches {launches}, forwards {n_fwd} "
+          f"({forwards[1]} one-token)")
     noncausal += nc
+    SPLIT_SERVED["whisper"] += launches["flash_split"]
     print(f"  whisper slot_chunked: forwards {n_fwd}, non-causal flash {nc}"
           f", dense cache {eng.dense_cache_bytes() / 1e6:.1f} MB")
     del eng
@@ -2318,9 +2476,9 @@ def phase_serve_recurrent(arch: str, smi: str):
     7168, vocab 65536 untied) at full width, bf16, seed-0 weights drawn on
     the card a layer at a time; no cut.  (a) A plumbing check of the
     port against itself (its values are held to the reference on the CPU
-    and in phase 5): the logits of a B=2 prefill of 124 tokens plus 4
+    and in phase 5): the logits of a B=2 prefill of 60 tokens plus 4
     teacher-forced decode steps within ``PLUMB_TOL`` of the largest
-    logit of the cache-less forward over the same 128 tokens, which runs
+    logit of the cache-less forward over the same 64 tokens, which runs
     the chunked form, so both recurrence forms run on the card, in bf16
     and with the same weights in float32 (the CUDA-core instances); zamba's
     cached path launches flash once per superblock in the prefill and
@@ -2363,7 +2521,7 @@ def phase_serve_recurrent(arch: str, smi: str):
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card; "
           f"{before / 1e9:.2f} GB held before [{smi}]")
     # (a) plumbing, in bf16 and with the weights in float32.
-    T0, steps = 124, 4
+    T0, steps = 60, 4
     got, err, scale, same = recurrent_plumbing(model, params, T0, steps,
                                                forwards)
     check(got["forwards"] == steps + 1 and got["causal"] == n_attn
@@ -2479,48 +2637,126 @@ def parity_cross(arch: str, scale: float = 3.0):
 
 def phase_timing_noncausal(launches: int, max_err: float, smi: str):
     """Non-causal flash at the cross-attention families' shapes, bf16:
-    llama-3.2-vision-11b's cross read at a decode step (B=4, T=1, S=1600)
-    and a 64-token chunk, whisper-tiny's encoder (B=4, T=S=1500), beside
-    the byte or operation bound, the plain version and one
+    llama-3.2-vision-11b's cross read at a decode step (B=4, T=1, S=1600:
+    the split route) and a 64-token chunk (wgmma), whisper-tiny's encoder
+    (B=4, T=S=1500: wgmma) and its cross decode (B=4, T=1, S=1500:
+    split), beside the byte or operation bound, the plain version and one
     ``scaled_dot_product_attention`` call (non-causal, GQA) on the same
-    inputs.  The JSON row is the cross decode's, the commonest call (8
-    per llama decode forward)."""
+    inputs.  The JSON rows are llama's cross decode, the commonest call
+    (8 per llama decode forward), and whisper's, with the split-route
+    launches of 3i."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     rows = {}
     for i, name in enumerate(("llama cross decode", "llama cross chunk",
-                              "whisper encoder")):
+                              "whisper encoder", "whisper cross decode")):
         B, T, S, H, Hkv, hd = NONCAUSAL[name]
         q, kv = (t.to(torch.bfloat16) for t in noncausal_inputs(
             torch, B, T, S, H, Hkv, hd, seed=400 + i))
         k, v = kv[0][1], kv[1][1]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        before = (fa.launches, fa.noncausal_launches)
-        t_kern = timed(lambda _: fa.flash_attention(q, k, v, causal=False))
-        t_plain = timed(lambda _: ref.flash_attention_ref(q, k, v,
-                                                          causal=False),
-                        inner=10)
-        t_sdpa = timed(lambda _: F.scaled_dot_product_attention(
-            qt, kt, vt, enable_gqa=True), inner=10)
-        fa.launches, fa.noncausal_launches = before    # not counted
-        nbytes = (2 * B * T * H * hd + 2 * B * S * Hkv * hd) * 2
-        flops = 4 * hd * H * B * T * S
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-        by = "bytes" if t_bytes >= t_ops else "operations"
-        bound = max(t_bytes, t_ops)
-        print(f"flash_attention non-causal, {name}: B={B} T={T} S={S} "
-              f"(H={H}, Hkv={Hkv}, hd={hd}, bf16): kernel {t_kern:.4f} ms "
-              f"({flops / t_kern / 1e9:.1f} TFLOP/s), bound {bound:.5f} ms "
-              f"({by}: {nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP), "
-              f"plain {t_plain:.4f} ms, library (SDPA, not used by the "
-              f"port) {t_sdpa:.4f} ms [{smi}]")
-        rows[name] = (t_kern, t_plain, bound, by, t_sdpa)
+        way = fa.forward_route(T, S, H, Hkv, hd, q.dtype, True)[0]
+        before = (fa.launches, fa.noncausal_launches, fa.split_launches)
+        rows[name] = flash_timing(
+            f"flash_attention non-causal, {name}: B={B} T={T} S={S} (H={H}, "
+            f"Hkv={Hkv}, hd={hd}, bf16, {way} route)",
+            lambda _: fa.flash_attention(q, k, v, causal=False),
+            lambda _: ref.flash_attention_ref(q, k, v, causal=False),
+            lambda _: F.scaled_dot_product_attention(qt, kt, vt,
+                                                     enable_gqa=True),
+            (2 * B * T * H * hd + 2 * B * S * Hkv * hd) * 2,
+            4 * hd * H * B * T * S, smi)
+        (fa.launches, fa.noncausal_launches,
+         fa.split_launches) = before                   # not counted
         del q, kv, k, v, qt, kt, vt
-    t_kern, t_plain, bound, by, t_sdpa = rows["llama cross decode"]
-    return {"name": "flash_attention_noncausal", "route": "cuda",
+    return [flash_json("flash_attention_noncausal", rows["llama cross decode"],
+                       launches, max_err),
+            flash_json("flash_attention_cross_decode_whisper",
+                       rows["whisper cross decode"],
+                       SPLIT_SERVED["whisper"], max_err)]
+
+
+def flash_timing(label: str, kern, plain, sdpa, nbytes: int, flops: int,
+                 smi: str):
+    """One flash shape in phase 6: the kernel's device ms and the host's
+    µs to enqueue a call, its plain version's ms and one SDPA call's,
+    beside the bound (the larger of ``nbytes`` at the memory rate and
+    ``flops`` at the bf16 tensor-core peak); prints the row and returns
+    (ms, plain ms, bound ms, bound by, SDPA ms, host µs)."""
+    t_kern, host_us = timed(kern, with_host=True)
+    t_plain = timed(plain, inner=10)
+    t_sdpa = timed(sdpa, inner=10)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    bound = max(t_bytes, t_ops)
+    print(f"{label}: kernel {t_kern:.4f} ms ({flops / t_kern / 1e9:.1f} "
+          f"TFLOP/s; host {host_us:.1f} us a call), bound {bound:.5f} ms "
+          f"({by}: {nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP), plain "
+          f"{t_plain:.4f} ms, library (SDPA, not used by the port) "
+          f"{t_sdpa:.4f} ms [{smi}]")
+    return t_kern, t_plain, bound, by, t_sdpa, host_us
+
+
+# The flash forward's shapes of phase 6 (label, B, T, S, H, Hkv, hd,
+# kwargs): the B=1 prefills, the wave's decode, the training shapes with
+# lse, zamba's prefill, the cross reads of llama-vision and whisper and
+# whisper's encoder.
+FLASH_FORWARD_SHAPES = [
+    ("prefill 64", 1, 64, 64, 9, 3, 64, {}),
+    ("prefill 256", 1, 256, 256, 9, 3, 64, {}),
+    ("prefill 512", 1, 512, 512, 9, 3, 64, {}),
+    ("wave decode", 4, 1, 513, 9, 3, 64, {}),
+    ("train hd64 lse", 4, 1024, 1024, 9, 3, 64, {}),
+    ("train hd80 lse", 4, 1024, 1024, 32, 32, 80, {}),
+    ("prefill hd80 256", 1, 256, 256, 32, 32, 80, {}),
+    ("llama cross decode", 4, 1, 1600, 32, 8, 128, {"causal": False}),
+    ("llama cross chunk", 4, 64, 1600, 32, 8, 128, {"causal": False}),
+    ("whisper encoder", 4, 1500, 1500, 6, 6, 64, {"causal": False}),
+    ("whisper cross decode", 4, 1, 1500, 6, 6, 64, {"causal": False}),
+]
+
+
+def flash_forward_times(label: str = "") -> str:
+    """The flash forward's device ms and the host's µs a call at
+    ``FLASH_FORWARD_SHAPES`` (K/V cycled over ring slices, as phase 6
+    reads them), as one printed line: the quick comparison of two
+    versions of the kernel, run in turns within one call (phase 6 adds
+    bounds, plain versions and SDPA).  Whichever ``repro_torch`` is on
+    the path is timed; not part of :func:`main`."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    build.build(fa.SOURCE)
+    g = torch.Generator(device="cuda").manual_seed(200)
+    out = []
+    for name, B, T, S, H, Hkv, hd, kw in FLASH_FORWARD_SHAPES:
+        n = 30 if hd == 64 and kw.get("causal", True) else (
+            9 if hd == 80 else 2)
+        rk, rv = (torch.randn((n, B, max(1024, S), Hkv, hd), generator=g,
+                              device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        views = [(rk[i][:, :S], rv[i][:, :S]) for i in range(n)]
+        q = torch.randn((B, T, H, hd), generator=g, device="cuda").to(
+            torch.bfloat16)
+        fwd = fa.flash_attention_fwd if "lse" in name else fa.flash_attention
+        ms, host = timed(lambda i: fwd(q, *views[i % n], **kw),  # noqa: B023
+                         with_host=True)
+        out.append(f"{name} {ms:.4f} ms host {host:.1f} us")
+        del rk, rv, views, q
+    line = f"flash forward times {label} [{nvidia_smi_line()}]: " + \
+        "; ".join(out)
+    print(line, flush=True)
+    return line
+
+
+def flash_json(name: str, row, launches: int, max_err: float) -> dict:
+    """The kernel JSON row of a flash forward shape timed by
+    :func:`flash_timing`."""
+    t_kern, t_plain, bound, by, t_sdpa, _ = row
+    return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:137",
             "launches": launches, "max_abs_err": max_err, "ms": t_kern,
@@ -2560,9 +2796,11 @@ def phase_serve_dense(model, params, forwards, smi: str):
               f"{launches['paged_combine']} != {want_combine} ({L} x "
               f"{forwards[1]} decode forwards)")
         if sched == "slot_fused":
-            check(fl == L * st["prefills"] and st["prefills"] == len(work),
+            check(fl == L * st["prefills"] and st["prefills"] == len(work)
+                  and launches["flash_split"] == 0,
                   f"slot_fused: flash launches {fl} != {L} x "
-                  f"{st['prefills']} prefills")
+                  f"{st['prefills']} prefills (split route "
+                  f"{launches['flash_split']}, none expected)")
             check(pl > 0 and pl == L * st["decode_steps"]
                   and n_fwd == st["prefills"] + st["decode_steps"],
                   f"slot_fused: paged launches {pl} != {L} x "
@@ -2572,9 +2810,14 @@ def phase_serve_dense(model, params, forwards, smi: str):
             check(fl == 0 and pl == L * n_fwd and pl > 0,
                   f"slot_chunked: launches {launches}, forwards {n_fwd}")
         else:
+            # The prefills take the wgmma route, the one-token decode
+            # steps the split route.
             check(pl == 0 and fl == L * n_fwd
-                  and n_fwd == st["prefills"] + st["decode_steps"],
-                  f"wave: launches {launches}, forwards {n_fwd}")
+                  and n_fwd == st["prefills"] + st["decode_steps"]
+                  and launches["flash_split"] == L * st["decode_steps"] > 0,
+                  f"wave: launches {launches}, forwards {n_fwd}, decode "
+                  f"steps {st['decode_steps']}")
+            SPLIT_SERVED["wave"] = launches["flash_split"]
         del eng
     return fused_launches
 
@@ -2620,7 +2863,7 @@ def profile_split(cases, smi: str):
         check(not any("paged_simt" in e.key for e in rows),
               f"time split, {name}: the CUDA-core paged kernel ran")
         kern = {k: sum(dev_us(e) for e in rows if needle in e.key) / 1e3
-                for k, needle in (("flash_attention", "flash_fwd_tc"),
+                for k, needle in (("flash_attention", "flash_fwd_"),
                                   ("paged_attention", "paged_"))}
         top = sorted(rows, key=dev_us, reverse=True)[:5]
         ranges = range_ms(prof)
@@ -2721,7 +2964,7 @@ def zero_counts(forwards):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     fa.launches = fa.simt_launches = fa.noncausal_launches = 0
-    fa.bwd_launches = 0
+    fa.bwd_launches = fa.split_launches = 0
     pa.launches = pa.combine_launches = pa.simt_launches = 0
     pa.ring_launches = 0
     forwards[0] = forwards[1] = 0
@@ -3447,14 +3690,19 @@ def flash_work(B: int, T: int, S: int, H: int, Hkv: int, hd: int,
     return nbytes, 4 * hd * H * visible
 
 
-def phase_timing_flash(launches: int, max_err: float, smi: str):
-    """Flash at the dense main path's shapes: B=1 causal prefills (T=S)
-    and the wave's B=4 one-token decode at S=513, bf16, over ring slices
-    (the 30 layers' slices are cycled, as the served model reads them);
-    then the training shape (B=4, T=S=1024) as training runs it, with the
-    log-sum-exp (``flash_attention_fwd``).  The yardstick is one
-    ``scaled_dot_product_attention`` call on the same inputs (GQA, causal
-    at T == S); the port never calls it."""
+def phase_timing_flash(launches: int, max_err: float, split_err: float,
+                       train_hd80: int, smi: str):
+    """Flash at the dense main path's shapes: B=1 causal prefills (T=S,
+    the wgmma route) and the wave's B=4 one-token decode at S=513 (the
+    split route), bf16, over ring slices (the 30 layers' slices are
+    cycled, as the served model reads them); then the training shapes
+    (B=4, T=S=1024: smollm's 9/3 heads of 64, zamba2-2.7b's 32/32 of 80)
+    as training runs them, with the log-sum-exp (``flash_attention_fwd``).
+    The yardstick is one ``scaled_dot_product_attention`` call on the
+    same inputs (GQA, causal at T == S); the port never calls it.
+    Returns the JSON rows of the T=256 prefill (the commonest bucket),
+    the wave decode (with every served run's split-route launches) and
+    the hd 80 training forward (7b's forward launches)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -3462,50 +3710,43 @@ def phase_timing_flash(launches: int, max_err: float, smi: str):
     d = DENSE
     g = torch.Generator(device="cuda").manual_seed(200)
     rows = {}
-    tr = TRAIN_ATTN
-    shapes = ([(1, T, T) for T in d["prefill"]] + [(d["B"], 1, d["decode_S"])]
-              + [(tr["B"], tr["T"], tr["T"])])
-    for B, T, S in shapes:
-        rk, rv = dense_ring(torch, B, seed=201 + T)
-        views = [(rk[li][:, :S], rv[li][:, :S]) for li in range(d["L"])]
-        q = torch.randn((B, T, d["H"], d["hd"]), generator=g,
+    tr, zt = TRAIN_ATTN, ZAMBA_ATTN
+    shapes = ([(1, T, T, d) for T in d["prefill"]]
+              + [(d["B"], 1, d["decode_S"], d), (tr["B"], tr["T"], tr["T"], d),
+                 (zt["B"], zt["T"], zt["T"], zt)])
+    for B, T, S, m in shapes:
+        H, Hkv, hd = m["H"], m["Hkv"], m["hd"]
+        n = d["L"] if m is d else 9
+        shape = (n, B, d["size"], Hkv, hd)
+        rk, rv = (torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        views = [(rk[li][:, :S], rv[li][:, :S]) for li in range(n)]
+        q = torch.randn((B, T, H, hd), generator=g,
                         device="cuda").to(torch.bfloat16)
         tviews = [(k.transpose(1, 2), v.transpose(1, 2)) for k, v in views]
         qt = q.transpose(1, 2)
-        kern = lambda i: fa.flash_attention(q, *views[i % d["L"]])  # noqa
-        if T == tr["T"]:
-            kern = lambda i: fa.flash_attention_fwd(  # noqa: E731
-                q, *views[i % d["L"]])
-        plain = lambda i: ref.flash_attention_ref(  # noqa: E731
-            q, *views[i % d["L"]])
-        sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
-            qt, *tviews[i % d["L"]], is_causal=T > 1, enable_gqa=True)
-        before = fa.launches
-        t_kern = timed(kern)
-        t_plain = timed(plain, inner=10)
-        t_sdpa = timed(sdpa, inner=10)
-        fa.launches = before                # timing launches are not counted
-        nbytes, flops = flash_work(B, T, S, d["H"], d["Hkv"], d["hd"], 2)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-        by = "bytes" if t_bytes >= t_ops else "operations"
-        bound = max(t_bytes, t_ops)
-        what = ("training shape, with lse" if T == tr["T"]
-                else "ring slice")
-        print(f"flash_attention B={B} T={T} S={S} (H=9, Hkv=3, hd=64, "
-              f"causal, bf16, {what}): kernel {t_kern:.4f} ms "
-              f"({flops / t_kern / 1e9:.1f} TFLOP/s), bound "
-              f"{bound:.5f} ms ({by}: {nbytes / 1e6:.3f} MB, "
-              f"{flops / 1e9:.4f} GFLOP), plain {t_plain:.4f} ms, library "
-              f"(SDPA, not used by the port) {t_sdpa:.4f} ms [{smi}]")
-        rows[T] = (t_kern, t_plain, bound, by, t_sdpa)
-    t_kern, t_plain, bound, by, t_sdpa = rows[256]   # the commonest bucket
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:137",
-            "launches": launches, "max_abs_err": max_err, "ms": t_kern,
-            "plain_ms": t_plain, "bound_ms": bound, "bound_by": by,
-            "library_ms": t_sdpa}
+        train = T == tr["T"]
+        fwd = fa.flash_attention_fwd if train else fa.flash_attention
+        way = fa.forward_route(T, S, H, Hkv, hd, q.dtype, True)[0]
+        what = ("training shape, with lse" if train else "ring slice")
+        before = (fa.launches, fa.split_launches)
+        rows[(T, hd)] = flash_timing(
+            f"flash_attention B={B} T={T} S={S} (H={H}, Hkv={Hkv}, hd={hd}, "
+            f"causal, bf16, {what}, {way} route)",
+            lambda i: fwd(q, *views[i % n]),  # noqa: B023
+            lambda i: ref.flash_attention_ref(q, *views[i % n]),  # noqa: B023
+            lambda i: F.scaled_dot_product_attention(  # noqa: B023
+                qt, *tviews[i % n], is_causal=T > 1, enable_gqa=True),
+            *flash_work(B, T, S, H, Hkv, hd, 2), smi)
+        fa.launches, fa.split_launches = before   # timing is not counted
+        del rk, rv, views, tviews, q, qt
+    return [flash_json("flash_attention", rows[(256, 64)], launches,
+                       max_err),
+            flash_json("flash_attention_split", rows[(1, 64)],
+                       sum(SPLIT_SERVED.values()), split_err),
+            flash_json("flash_attention_hd80_train_forward",
+                       rows[(zt["T"], 80)], train_hd80, max_err)]
+
 
 def phase_timing_hd80(launches: dict, flash_err: float, paged_err: float,
                       smi: str):
@@ -3539,29 +3780,17 @@ def phase_timing_hd80(launches: dict, flash_err: float, paged_err: float,
         torch.bfloat16)
     qt = q.transpose(1, 2)
     before = fa.launches
-    t_kern = timed(lambda i: fa.flash_attention(q, *views[i % n]))
-    t_plain = timed(lambda i: ref.flash_attention_ref(q, *views[i % n]),
-                    inner=10)
-    t_sdpa = timed(lambda i: F.scaled_dot_product_attention(
-        qt, *tviews[i % n], is_causal=True), inner=10)
+    row = flash_timing(
+        f"flash_attention hd 80, zamba prefill B=1 T={T} S={S} (H={H}, "
+        f"Hkv={Hkv}, hd={hd}, causal, bf16, ring slice, wgmma route)",
+        lambda i: fa.flash_attention(q, *views[i % n]),
+        lambda i: ref.flash_attention_ref(q, *views[i % n]),
+        lambda i: F.scaled_dot_product_attention(
+            qt, *tviews[i % n], is_causal=True),
+        *flash_work(1, T, S, H, Hkv, hd, 2), smi)
     fa.launches = before                    # timing launches are not counted
-    nbytes, flops = flash_work(1, T, S, H, Hkv, hd, 2)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-    by = "bytes" if t_bytes >= t_ops else "operations"
-    bound = max(t_bytes, t_ops)
-    print(f"flash_attention hd 80, zamba prefill B=1 T={T} S={S} (H={H}, "
-          f"Hkv={Hkv}, hd={hd}, causal, bf16, ring slice): kernel "
-          f"{t_kern:.4f} ms ({flops / t_kern / 1e9:.1f} TFLOP/s), bound "
-          f"{bound:.5f} ms ({by}: {nbytes / 1e6:.3f} MB, "
-          f"{flops / 1e9:.4f} GFLOP), plain {t_plain:.4f} ms, library "
-          f"(SDPA, not used by the port) {t_sdpa:.4f} ms [{smi}]")
-    flash_row = {"name": "flash_attention_hd80", "route": "cuda",
-                 "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-                 "replaces": "src/repro/kernels/flash_attention.py:137",
-                 "launches": launches["flash"], "max_abs_err": flash_err,
-                 "ms": t_kern, "plain_ms": t_plain, "bound_ms": bound,
-                 "bound_by": by, "library_ms": t_sdpa}
+    flash_row = flash_json("flash_attention_hd80", row, launches["flash"],
+                           flash_err)
     del rk, rv, views, tviews, q, qt
     B = 4
     rk, rv = rings(B)
@@ -3927,7 +4156,7 @@ def phase_train_split(model, opt, params, opt_state, smi: str,
 
     check(not any("flash_" in e.key and "_simt" in e.key for e in rows),
           "training step split: a CUDA-core flash kernel ran")
-    fwd = part("flash_fwd_tc")
+    fwd = part("flash_fwd_split", "flash_fwd_wgmma")
     bwd = part("flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma")
     mm = part("gemm", "nvjet", "xmma", "cutlass")
     rec = "".join(f"; {r} range {ranges[r]:.1f} ms" for r in
@@ -4619,6 +4848,7 @@ def main() -> int:
     paged_err = phase_compare()
     ring_err = phase_compare_ring()
     flash_err = phase_compare_flash()
+    split_flash_err = phase_compare_flash_split()
     phase_compare_dense_decode()
     nbb_err, nbb_launches = phase_compare_nbb()
     trainable_errs = phase_compare_trainable()
@@ -4679,9 +4909,11 @@ def main() -> int:
     hd80_out_err, hd80_grad_err = trainable_errs["hd80"]
     kernels = [phase_timing_paged(paged_launches, paged_err, smi),
                phase_timing_ring(ring_launches, ring_err, smi),
-               phase_timing_flash(fused["flash_attention"], flash_err, smi),
-               phase_timing_noncausal(noncausal_launches, noncausal_err,
-                                      smi),
+               *phase_timing_flash(fused["flash_attention"], flash_err,
+                                   split_flash_err, zamba_train["causal"],
+                                   smi),
+               *phase_timing_noncausal(noncausal_launches, noncausal_err,
+                                       smi),
                phase_timing_trainable(
                    train_launches + whisper_train["causal"]
                    + whisper_train["noncausal"] + e2e_launches,

@@ -58,8 +58,8 @@
 //   the row's key end (key_end: min(lens, P*ps, kv_lens)) writes nothing
 //   and the combine does not read it; a row with no visible key has l = 0
 //   everywhere and gets zeros.
-// * chunk_tc (bf16, g*T > kSplitRows: chunked prefill): the tensor-core
-//   design of flash_attention.cu's flash_fwd_tc.  One block per (64 query
+// * chunk_tc (bf16, g*T > kSplitRows: chunked prefill): mma.sync tiles.
+//   One block per (64 query
 //   tokens, query head, b), heaviest causal tiles first; K/V tiles of 64
 //   keys gathered page by page through the block table by a 3-stage
 //   cp.async ring; S = Q K^T and O += P V by mma.sync.m16n8k16 with

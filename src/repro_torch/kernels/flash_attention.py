@@ -13,10 +13,15 @@ Dispatch is by where the tensors lie: a CPU ``q`` runs the plain
 PyTorch versions (``ref.flash_attention_ref``, ``ref.
 flash_attention_fwd_ref``, ``ref.flash_attention_bwd_ref``); a CUDA
 ``q`` launches a kernel on ``torch.cuda.current_stream()`` or raises.
-There is no fallback.  On the card, bf16 with 16-byte aligned rows takes
-the tensor-core instance of each kernel (:func:`tensor_core_route`) at
-head_dim 16/32/64/80/128; float32 and other bf16 inputs take the
-CUDA-core instance (f32 FMA, no TF32).
+There is no fallback.  On the card the forward takes one of three
+routes (:func:`forward_route`): bf16 with 16-byte aligned rows at
+head_dim 16/32/64/80/128 takes ``split`` when the g*T query rows of a kv
+head fit one 16-row tile (one-token reads: one block per key split,
+merged in split order by the split that finishes last, in the same
+launch) and ``wgmma`` otherwise (prefills, chunks, training: TMA-fed
+``wgmma`` tiles); float32 and other bf16 inputs take ``simt`` (f32 FMA,
+no TF32).  The backward takes its tensor-core instance where
+:func:`tensor_core_route` holds.
 
 :func:`flash_attention_trainable` is the forward with a gradient (the
 JAX package's ``custom_vjp`` at ``flash_attention.py:164``).
@@ -35,35 +40,57 @@ SOURCE = kbuild.CSRC / "flash_attention.cu"
 BWD_SOURCE = kbuild.CSRC / "flash_attention_bwd.cu"
 
 # Kernel launches made by the forward (:func:`flash_attention` and the
-# trainable forward) and by the backward (:func:`flash_attention_bwd`: one
-# per call, which runs its passes in turn), CUDA tensors only, those of
-# either that took the CUDA-core instance, and the forward launches that
-# were non-causal (cross-attention, the bidirectional encoder).  Callers
-# reset them to 0 and read them to show a run went through the kernels,
-# and through which.
+# trainable forward: one per call, whatever the route) and by the
+# backward (:func:`flash_attention_bwd`: one per call, which runs its
+# passes in turn), CUDA tensors only; those of either that took the
+# CUDA-core instance; the forward launches that took the split route; and
+# the forward launches that were non-causal (cross-attention, the
+# bidirectional encoder).  Callers reset them to 0 and read them to show
+# a run went through the kernels, and through which.
 launches = 0
 bwd_launches = 0
 simt_launches = 0
+split_launches = 0
 noncausal_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Head dims with a tensor-core instance, forward and backward (80:
 # zamba2-2.7b's shared attention).
 TC_HEAD_DIMS = (16, 32, 64, 80, 128)
+ROUTES = ("simt", "split", "wgmma")
 # Query rows (g * block_q) a block of the CUDA-core forward aims for:
 # enough rows to reuse each K/V tile, few enough that a prefill spreads
 # over many blocks.
 _TARGET_ROWS = 64
+# The split route's limits, fixed in the source (checked at load): the
+# query rows g*T of a kv head one block holds (one 16-row mma tile), the
+# keys a block stages at once (split_keys is a multiple of them).
+SPLIT_ROWS = 16
+SPLIT_CHUNK = 64
+# The splits a row's keys are cut into, about: each split streams a few
+# chunks (the next loads while one is multiplied), and the last merges
+# few partials.  On an H100 the best run grows with S: 64 keys at the
+# wave's S=513, 192 at whisper's 1500, 192-512 at llama-vision's 1600
+# (PERF.md §6).
+SPLITS = 8
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attention_max_rows.argtypes = [ctypes.c_int]
     lib.flash_attention_max_rows.restype = ctypes.c_int
+    lib.flash_attention_split_limit.argtypes = [ctypes.c_int]
+    lib.flash_attention_split_limit.restype = ctypes.c_int
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
     lib.flash_attention_launch.argtypes = (
-        [ptr] * 5 + [i32] * 9 + [i64] * 12 + [i32, i32, f32, f32, ptr])
+        [ptr] * 7 + [i32] * 12 + [i64] * 12 + [i32, i32, f32, f32, ptr])
     lib.flash_attention_launch.restype = ctypes.c_int
+    limits = (lib.flash_attention_split_limit(0),
+              lib.flash_attention_split_limit(1))
+    if limits != (SPLIT_ROWS, SPLIT_CHUNK):
+        raise RuntimeError(f"flash_attention: the built kernel's split "
+                           f"limits {limits} are not "
+                           f"{(SPLIT_ROWS, SPLIT_CHUNK)}")
 
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
@@ -75,18 +102,48 @@ def _declare_bwd(lib: ctypes.CDLL) -> None:
 
 
 def tensor_core_route(*tensors: torch.Tensor) -> bool:
-    """Whether a kernel takes its tensor-core instance for these
-    operands: bf16, a head_dim in ``TC_HEAD_DIMS``, and every row 16-byte
-    aligned (the data pointer, and the batch, sequence and head strides a
-    multiple of 8 elements), as the forward's 16-byte ``cp.async`` copies
-    and the backward's TMA tensor maps need.
-    Otherwise the CUDA-core instance runs."""
+    """Whether a kernel takes a tensor-core instance for these operands:
+    bf16, a head_dim in ``TC_HEAD_DIMS``, and every row 16-byte aligned
+    (the data pointer, and the batch, sequence and head strides a
+    multiple of 8 elements), as the split route's 16-byte ``cp.async``
+    copies and the TMA tensor maps of the ``wgmma`` route and the
+    backward need.  Otherwise the CUDA-core instance runs."""
     first = tensors[0]
     if first.dtype != torch.bfloat16 or first.shape[-1] not in TC_HEAD_DIMS:
         return False
     return all(t.data_ptr() % 16 == 0
                and all(st % 8 == 0 for st in t.stride()[:-1])
                for t in tensors)
+
+
+def split_plan(T: int, S: int, window: int = 0) -> tuple:
+    """(k_begin, split_keys, n_split) of the split route: the keys any
+    query can see, [k_begin, S) (a window moves the left edge to the
+    first query's ``S - T - window + 1``), cut into ``n_split`` runs of
+    ``split_keys`` keys from k_begin: whole ``SPLIT_CHUNK``s, as many as
+    make about ``SPLITS`` runs.  A function of T, S and the window alone:
+    never of the batch or the card, so a batch row's sums run in the same
+    order alone as in any batch."""
+    k_begin = max(0, S - T - window + 1) if window > 0 else 0
+    n_keys = max(0, S - k_begin)
+    chunks = max(1, -(-n_keys // SPLIT_CHUNK))
+    split_keys = SPLIT_CHUNK * max(1, (chunks + SPLITS // 2) // SPLITS)
+    return k_begin, split_keys, max(1, -(-n_keys // split_keys))
+
+
+def forward_route(T: int, S: int, H: int, Hkv: int, hd: int,
+                  dtype: torch.dtype, aligned: bool, window: int = 0):
+    """(route, split plan or None) of the forward on the card: ``split``
+    (with :func:`split_plan`) for bf16 whose g*T query rows of a kv head
+    fit one ``SPLIT_ROWS``-row tile, ``wgmma`` for the rest of bf16, both
+    at a head_dim in ``TC_HEAD_DIMS`` with 16-byte aligned rows
+    (``aligned``: :func:`tensor_core_route`'s stride test); ``simt``
+    otherwise."""
+    if dtype != torch.bfloat16 or hd not in TC_HEAD_DIMS or not aligned:
+        return "simt", None
+    if (H // Hkv) * T <= SPLIT_ROWS:
+        return "split", split_plan(T, S, window)
+    return "wgmma", None
 
 
 def block_q_for(T: int, g: int, max_rows: int) -> int:
@@ -167,20 +224,42 @@ def _cuda(q: torch.Tensor, what: str) -> None:
                         f"local shards")
 
 
+# The split route's arrival counters, one int32 array per (device index,
+# stream); see :func:`_counter`.
+_COUNTERS: dict = {}
+
+
+def _counter(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The split route's arrival counters of ``stream``: int32 zeros, at
+    least ``n``, owned by this module per (device, stream) so that two
+    streams never share one.  The split that finishes last resets its
+    counter to 0, so a call leaves them as it found them."""
+    key = (device.index, stream)
+    c = _COUNTERS.get(key)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[key] = c
+    return c
+
+
 def _forward(q, k, v, causal: bool, window: int, softcap: float,
              lse: torch.Tensor | None) -> torch.Tensor:
     """Launch the forward kernel; ``lse`` ([B, H, T] f32) receives each
     row's log-sum-exp when given."""
-    global launches, simt_launches, noncausal_launches
+    global launches, simt_launches, split_launches, noncausal_launches
     _cuda(q, "flash_attention")
     _check(q, k, v, window)
     lib = kbuild.load(SOURCE, _declare)
     B, T, H, hd = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
-    route = tensor_core_route(q, k, v)
+    way, plan = forward_route(T, S, H, Hkv, hd, q.dtype,
+                              tensor_core_route(q, k, v), window)
+    if way == "wgmma":
+        # TMA takes no zero stride (a broadcast operand): copy it first.
+        q, k, v = _rows_readable(q), _rows_readable(k), _rows_readable(v)
     bq = 0
-    if not route:
+    if way == "simt":
         max_rows = lib.flash_attention_max_rows(hd)
         if max_rows < g:
             raise ValueError(f"flash_attention: head_dim {hd} with {g} "
@@ -189,10 +268,21 @@ def _forward(q, k, v, causal: bool, window: int, softcap: float,
         bq = block_q_for(T, g, max_rows)
     out = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    k_begin, split_keys, n_split = plan or (0, 0, 0)
+    part = count = None
+    if way == "split" and n_split > 1:
+        # Each split's f32 accumulator [16, hd] and (max, sum) [2, 16].
+        # n_split stays under the kernel's 64 (split_plan's runs).
+        part = torch.empty(B * Hkv * n_split * SPLIT_ROWS * (hd + 2),
+                           dtype=torch.float32, device=q.device)
+        count = _counter(q.device, stream, B * Hkv)
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        _DTYPES[q.dtype], int(route), B, T, S, H, Hkv, hd, bq,
+        None if part is None else part.data_ptr(),
+        None if count is None else count.data_ptr(),
+        _DTYPES[q.dtype], ROUTES.index(way), B, T, S, H, Hkv, hd, bq,
+        k_begin, split_keys, n_split,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
@@ -202,7 +292,8 @@ def _forward(q, k, v, causal: bool, window: int, softcap: float,
         raise RuntimeError(f"flash_attention: kernel launch failed "
                            f"(cudaError {err})")
     launches += 1
-    simt_launches += 0 if route else 1
+    simt_launches += way == "simt"
+    split_launches += way == "split"
     noncausal_launches += 0 if causal else 1
     return out
 
@@ -271,8 +362,9 @@ def _rows_readable(t: torch.Tensor) -> torch.Tensor:
     in place: a head_dim stride other than 1, or a zero stride over more
     than one element (a broadcast, which a TMA tensor map cannot
     describe)."""
-    if t.stride(3) != 1 or any(st == 0 and n > 1
-                               for st, n in zip(t.stride(), t.shape)):
+    st = t.stride()
+    if st[3] != 1 or (0 in st and any(x == 0 and n > 1
+                                      for x, n in zip(st, t.shape))):
         return t.contiguous()
     return t
 

@@ -71,6 +71,54 @@ def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor,
             torch.logsumexp(scores, dim=-1).reshape(B, H, T))
 
 
+def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, split_keys: int,
+                              causal: bool = True, window: int = 0,
+                              softcap: float = 0.0):
+    """:func:`flash_attention_fwd_ref` in the split-KV form the forward's
+    split route computes: the keys any query sees, ``[k_begin, S)`` with
+    ``k_begin`` the first query's window edge (0 without a window), cut
+    into runs of ``split_keys`` keys from ``k_begin``; for each run and
+    query row the max m of its visible scores (-1e30 where it has none),
+    l = sum exp(s - m) and the unnormalised accumulator; then the runs
+    merged in split order, M = max m, out = sum acc exp(m - M) / sum l
+    exp(m - M), lse = M + log(sum l exp(m - M)).  A row that sees no key
+    gets exact zeros and lse -1e30, as the kernels give (the dense plain
+    version gives such a row the mean of v).  Returns (out [B, T, H, hd]
+    in q.dtype, lse [B, H, T] f32).  Used by nothing on the main path: it
+    is the plain version of the kernel's arithmetic."""
+    B, T, H, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    _, scores, mask = _flash_scores(q, k, causal, window, softcap)
+    k_begin = max(0, S - T - window + 1) if window > 0 else 0
+    v = v.float()
+    parts = []
+    for k0 in range(k_begin, max(S, k_begin + 1), split_keys):
+        sl = slice(k0, min(S, k0 + split_keys))
+        sc, mk = scores[..., sl], mask[:, sl]
+        m = torch.where(mk, sc, torch.full_like(sc, -1e30)).amax(-1)
+        p = torch.where(mk, torch.exp(sc - m[..., None]),
+                        torch.zeros_like(sc))
+        parts.append((m, p.sum(-1),
+                      torch.einsum("bkgts,bskh->bkgth", p, v[:, sl])))
+    big = torch.stack([m for m, _, _ in parts]).amax(0)
+    den = torch.zeros_like(big)
+    num = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:                    # in split order
+        w = torch.exp(m - big)
+        den = den + l * w
+        num = num + acc * w[..., None]
+    seen = den > 0
+    out = torch.where(seen[..., None],
+                      num / torch.where(seen, den, 1.0)[..., None],
+                      torch.zeros_like(num))
+    lse = torch.where(seen, big + torch.log(torch.where(seen, den, 1.0)),
+                      torch.full_like(big, -1e30))
+    return (out.permute(0, 3, 1, 2, 4).reshape(B, T, H, hd).to(q.dtype),
+            lse.reshape(B, H, T))
+
+
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, out: torch.Tensor,
                             lse: torch.Tensor, dout: torch.Tensor,

@@ -8,7 +8,13 @@ ps=64 identity pages of a dense ring), the T=64 tensor-core chunk with
 softcap, bit-identical repeats.  Flash: the cases of the JAX package's
 flash tests, ragged T and S, a strided ring slice, rows that see no key,
 the forward's log-sum-exp, the non-causal route at the cross and encoder
-shapes of llama-3.2-vision-11b and whisper-tiny; paged attention's written-key bound
+shapes of llama-3.2-vision-11b and whisper-tiny; the forward's split and
+``wgmma`` routes at the served and trained shapes over ring slices (the
+wave's decode, the cross decodes and chunk, the encoder, training at
+head_dim 64 and 80, the B=1 prefills, an hd 128 prefill under a 1024
+window), each bit-identical twice and batch row by batch row, each bound
+rejecting a dropped key tile, rows without keys exactly 0 on both, the
+split route's counters per stream; paged attention's written-key bound
 (``kv_lens``) at olmoe-1b-7b's shapes on all three routes, and its ring
 bound (a sliding-window ring read with wrap-around) at gemma3-27b's
 local-layer shapes on all three; the head_dim 80 instances (flash's
@@ -485,6 +491,7 @@ FLASH_LARGE_CASES = {
                              dict(window=90, softcap=30.0)),
     "large_noncausal_hd32": (16, 200, 200, 12, 4, 32, dict(causal=False)),
     "large_training": (4, 1024, 1024, 9, 3, 64, {}),
+    "large_training_hd80": (4, 1024, 1024, 32, 32, 80, {}),
 }
 
 
@@ -510,6 +517,7 @@ FLASH_CROSS_CASES = {
     "llama_cross_decode": (4, 1, 1600, 32, 8, 128),
     "llama_cross_chunk": (4, 64, 1600, 32, 8, 128),
     "whisper_encoder": (2, 1500, 1500, 6, 6, 64),
+    "whisper_cross_decode": (4, 1, 1500, 6, 6, 64),
     "whisper_smoke_t_gt_s": (1, 40, 24, 4, 4, 8),
 }
 
@@ -963,9 +971,11 @@ def test_flash_bwd_broadcast_dout_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_flash_route_on_card(cuda_device):
-    """bf16 at head_dim 64 takes the tensor-core instance; an unaligned
-    row stride or float32 takes the CUDA-core one, which alone counts in
-    ``simt_launches``, and both agree with the plain version."""
+    """bf16 at head_dim 64 takes the split route for a one-token read and
+    the ``wgmma`` route for a prefill; an unaligned row stride or float32
+    takes the CUDA-core instance, which alone counts in
+    ``simt_launches`` (the split route in ``split_launches``), and all
+    agree with the plain version."""
     q, k, v = (t.to(torch.bfloat16) for t in _torch(
         *_flash_inputs(5, 1, 64, 64, 4, 2, 64), device=cuda_device))
     assert fa_mod.tensor_core_route(q, k, v)
@@ -975,15 +985,164 @@ def test_flash_route_on_card(cuda_device):
     wide[..., :64] = k
     k_odd = wide[..., :64]                      # row stride 68: not 16-byte
     assert not fa_mod.tensor_core_route(q, k_odd, v)
-    before = fa_mod.simt_launches
+    counts = lambda: (fa_mod.simt_launches,  # noqa: E731
+                      fa_mod.split_launches)
+    before = counts()
     fast = fa_mod.flash_attention(q, k, v)
-    assert fa_mod.simt_launches == before
+    one = fa_mod.flash_attention(q[:, -1:], k, v)
+    assert counts() == (before[0], before[1] + 1)
     out = fa_mod.flash_attention(q, k_odd, v)
-    assert fa_mod.simt_launches == before + 1
+    assert counts() == (before[0] + 1, before[1] + 1)
     want = tref.flash_attention_ref(q, k, v)
     for got in (fast, out):
         torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
                                    rtol=3e-2)
+    torch.testing.assert_close(one.float(), want[:, -1:].float(), atol=3e-2,
+                               rtol=3e-2)
+
+
+# The forward's two bf16 routes at the served and trained shapes, K/V
+# read in place from [B, S + 64] rings: (B, T, S, H, Hkv, hd, kwargs,
+# route).  The wave's decode (9/3 heads over a ring of 513), llama-
+# vision's and whisper's cross decodes (split); llama-vision's cross
+# chunk, whisper's encoder, the training shapes at head_dim 64 and 80,
+# the B=1 prefills of the dense path and zamba2's, a gemma-style hd 128
+# prefill under a 1024-token window (wgmma).
+NC = dict(causal=False)
+FWD_ROUTE_CASES = {
+    "wave_decode": (4, 1, 513, 9, 3, 64, {}, "split"),
+    "llama_cross_decode": (4, 1, 1600, 32, 8, 128, NC, "split"),
+    "whisper_cross_decode": (4, 1, 1500, 6, 6, 64, NC, "split"),
+    "llama_cross_chunk": (4, 64, 1600, 32, 8, 128, NC, "wgmma"),
+    "whisper_encoder": (4, 1500, 1500, 6, 6, 64, NC, "wgmma"),
+    "training_hd64": (4, 1024, 1024, 9, 3, 64, {}, "wgmma"),
+    "training_hd80": (4, 1024, 1024, 32, 32, 80, {}, "wgmma"),
+    "prefill_64": (1, 64, 64, 9, 3, 64, {}, "wgmma"),
+    "prefill_256": (1, 256, 256, 9, 3, 64, {}, "wgmma"),
+    "prefill_512": (1, 512, 512, 9, 3, 64, {}, "wgmma"),
+    "prefill_hd80_256": (1, 256, 256, 32, 32, 80, {}, "wgmma"),
+    "gemma_window_hd128": (1, 1500, 1500, 32, 16, 128, dict(window=1024),
+                           "wgmma"),
+}
+
+
+def _ring_operands(name, B, T, S, H, Hkv, hd, device):
+    """bf16 q and K/V slices ``ring[:, :S]`` of [B, S + 64] rings."""
+    g = torch.Generator(device=device).manual_seed(len(name))
+    q = torch.randn((B, T, H, hd), generator=g, device=device)
+    rk, rv = (torch.randn((B, S + 64, Hkv, hd), generator=g, device=device)
+              for _ in range(2))
+    return (q.to(torch.bfloat16), rk.to(torch.bfloat16)[:, :S],
+            rv.to(torch.bfloat16)[:, :S])
+
+
+def _fwd_bound(T, kw, want):
+    """bf16: 3e-2 where an output is a mean over many keys (a one-token
+    read, a non-causal read), of the output's own scale (max |plain|);
+    3e-2 absolute for causal prefills, whose early rows read few keys."""
+    mean = T == 1 or not kw.get("causal", True)
+    return 3e-2 * (want.abs().max().item() if mean else 1.0)
+
+
+def _tile_dropped(q, k, v, kw):
+    """The kernel's output with a key tile left out: the last one (the
+    ragged one where S is no multiple of 64) for a one-token or
+    non-causal read; each 64-query tile's diagonal one for a causal T=S
+    prefill (the first tile then sees no key)."""
+    T, S = q.shape[1], k.shape[1]
+    if T == 1 or not kw.get("causal", True):
+        cut = S - (S % 64 or 64)
+        return fa_mod.flash_attention(q, k[:, :cut], v[:, :cut], **kw)
+    w = kw.get("window", 0)
+    out = [torch.zeros_like(q[:, :64])]
+    for t0 in range(64, T, 64):
+        lo = max(0, t0 + 64 - w) if w else 0   # the tile's last row's edge
+        out.append(fa_mod.flash_attention(
+            q[:, t0:t0 + 64], k[:, lo:t0], v[:, lo:t0], causal=False,
+            softcap=kw.get("softcap", 0.0)))
+    return torch.cat(out, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FWD_ROUTE_CASES))
+def test_flash_forward_routes_on_card(cuda_device, name):
+    """Each shape takes its route (one launch; ``split_launches`` counts
+    the split route, ``simt_launches`` none), matches the plain version
+    (out within :func:`_fwd_bound`, lse 1e-4) and, on the split route,
+    the plain split form at the wrapper's own plan; two calls are
+    bit-identical, the first and last batch rows alone bit-identical to
+    the same rows in the batch; the bound rejects the output with a key
+    tile dropped."""
+    B, T, S, H, Hkv, hd, kw, route = FWD_ROUTE_CASES[name]
+    q, k, v = _ring_operands(name, B, T, S, H, Hkv, hd, cuda_device)
+    assert B == 1 or not k.is_contiguous()
+    way, plan = fa_mod.forward_route(T, S, H, Hkv, hd, q.dtype,
+                                     fa_mod.tensor_core_route(q, k, v),
+                                     kw.get("window", 0))
+    assert way == route
+    before = (fa_mod.launches, fa_mod.split_launches, fa_mod.simt_launches)
+    out, lse = fa_mod.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (fa_mod.launches - before[0], fa_mod.split_launches - before[1],
+            fa_mod.simt_launches - before[2]) == (1, int(way == "split"), 0)
+    want, want_lse = tref.flash_attention_fwd_ref(q, k, v, **kw)
+    want = want.float()
+    bound = _fwd_bound(T, kw, want)
+    assert (out.float() - want).abs().max().item() <= bound
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+    if way == "split":
+        split_out, split_lse = tref.flash_attention_split_ref(
+            q, k, v, plan[1], **kw)
+        assert (out.float() - split_out.float()).abs().max().item() <= bound
+        torch.testing.assert_close(lse, split_lse, atol=1e-4, rtol=1e-4)
+    assert torch.equal(out, fa_mod.flash_attention(q, k, v, **kw))
+    for b in {0, B - 1} if B > 1 else ():
+        alone = fa_mod.flash_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                       **kw)
+        assert torch.equal(alone[0], out[b])
+    bad = _tile_dropped(q, k, v, kw)
+    assert (bad.float() - want).abs().max().item() > bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,S,H,Hkv,hd,route", [
+    (2, 4, 2, 4, 2, 64, "split"),        # 8 rows; queries 0, 1 see no key
+    (2, 100, 40, 9, 3, 80, "wgmma"),     # queries 0 .. 59 see no key
+])
+def test_flash_rows_without_keys_on_routes(cuda_device, B, T, S, H, Hkv, hd,
+                                           route):
+    """Causal with S < T on each bf16 route: the first T - S queries see
+    no key and get exact zeros and lse -1e30 (the split route's merge and
+    the wgmma route's l == 0 step); the rest match the plain version."""
+    q, k, v = _ring_operands("nokey", B, T, S, H, Hkv, hd, cuda_device)
+    way, _ = fa_mod.forward_route(T, S, H, Hkv, hd, q.dtype, True)
+    assert way == route
+    out, lse = fa_mod.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(out[:, :T - S]) == 0
+    assert (lse[:, :, :T - S] == -1e30).all()
+    want, want_lse = tref.flash_attention_fwd_ref(q[:, T - S:], k, v)
+    torch.testing.assert_close(out[:, T - S:].float(), want.float(),
+                               atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(lse[:, :, T - S:], want_lse, atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_split_counters_are_per_stream(cuda_device):
+    """The split route's arrival counters belong to a (device, stream):
+    the same call on two streams, one after the other, uses two counter
+    arrays, each left at 0, and gives the same bits."""
+    q, k, v = _ring_operands("streams", 4, 1, 1600, 32, 8, 128, cuda_device)
+    outs = []
+    for stream in (torch.cuda.Stream(), torch.cuda.Stream()):
+        with torch.cuda.stream(stream):
+            outs.append(fa_mod.flash_attention(q, k, v, causal=False))
+        stream.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    mine = [c for (dev, _), c in fa_mod._COUNTERS.items()
+            if dev == q.device.index]
+    assert len(mine) >= 2 and all(int(c.abs().sum()) == 0 for c in mine)
 
 
 # ---------------------------------------------------------------------------
@@ -1028,7 +1187,8 @@ def _hd80_ring(B, device, seed):
 @pytest.mark.parametrize("B,T,S", [(1, 64, 64), (1, 257, 257),
                                    (4, 1, 513)])
 def test_flash_hd80_on_card(cuda_device, B, T, S):
-    """bf16 at hd 80 takes ``flash_fwd_tc<80>`` (no CUDA-core launch),
+    """bf16 at hd 80 takes a tensor-core route (the split route at T=1,
+    ``flash_fwd_wgmma<80>`` otherwise; no CUDA-core launch),
     bit-identical twice, within 3e-2 (3e-2 x max |plain| for the T=1
     read, a mean over 513 keys) of the plain version over a ring slice;
     the bound rejects the output with the last key tile dropped.  f32
