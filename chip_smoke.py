@@ -18,14 +18,15 @@ each of which fails the run hard:
 2. each kernel against its plain PyTorch version on the card: paged
    attention at the reference test shapes and the paged main path's (a
    strided per-layer view of a [512, 16, 30, 3, 64] pool), then its
-   split-KV decode (with a lens=0 row and rows shorter than one split)
-   and tensor-core T=64 chunk (with softcap), each twice, bit-identical,
+   split-KV decode (with a lens=0 row and rows shorter than one run) and
+   wgmma T=64 chunk (with softcap), each one launch a pass, twice,
+   bit-identical, its arrival counters back at 0,
    then both at olmoe-1b-7b's shapes (hd 128, 16 kv heads, g 1) without
    and with the written-key bound ``kv_lens`` (rows of 0, below and equal
    to lens) against both plain versions; then the ring bound (a
-   sliding-window ring read with wrap-around) on every route (split +
-   combine and simt in f32, split + combine and the tensor-core chunk in
-   bf16) at gemma3-27b's local-layer shapes (B=4, ring 1024 as 16 pages of
+   sliding-window ring read with wrap-around) on every route (simt in
+   f32, the split decode and the wgmma chunk in bf16) at gemma3-27b's
+   local-layer shapes (B=4, ring 1024 as 16 pages of
    64, 16 kv heads of 128, g 2, rows at n = 700/1024/1500/2047, T=1 and
    T=64, with and without ``kv_lens``, windows 1024 and 200) against both
    plain versions (f32 2e-5, bf16 3e-2), queries with no key exactly 0,
@@ -79,13 +80,13 @@ each of which fails the run hard:
 3. the paged main path at full width: ``smollm-135m`` (random weights
    from a seed) served by the ``slot_paged`` engine to 4 client sessions
    x 4 requests, every stream complete and exactly-once, the paged kernel
-   launched 30 times per model forward and its split-KV combine 30 times
+   launched 30 times per model forward, on its split-KV route 30 times
    per one-token decode forward; then where one dispatch's time
    goes.  In every served and trained run, every flash launch takes the
    split or the ``wgmma`` route (none the CUDA-core one);
 4. the dense main path at full width: the same 16 requests under
    ``slot_fused`` (flash launches = 30 x prefills, paged launches and
-   combines = 30 x decode steps), then 4 requests each under
+   paged split launches = 30 x decode steps), then 4 requests each under
    ``slot_chunked`` and ``wave`` (its prefills on flash's ``wgmma``
    route, its decode steps on the split route: split launches = 30 x
    decode steps); then where a prefill's and a decode block's time goes;
@@ -93,7 +94,8 @@ each of which fails the run hard:
    d=576, bf16, seed-0 weights; ``max_len=1024``, 16-token pages,
    ``chunk_tokens=64``, ``k_max=8``), each run driven inline, every kernel
    counter zeroed before it and read after it (paged launches = 30 x
-   forwards, combines = 30 x one-token forwards, no flash, no CUDA-core
+   forwards, paged split launches = 30 x one-token forwards, no flash,
+   no CUDA-core
    route); every served run of phases 3-5 without a fault plan must end
    with 0 watchdog catches and 0 failed requests in ``fault_report()``,
    so a device error cannot hide behind the watchdog: (3c) overload —
@@ -118,7 +120,8 @@ each of which fails the run hard:
    weights) under ``slot_paged`` (``max_batch=8``, 512 pages,
    ``chunk_tokens=64``, ``k_max=8``) on the same 16 requests: every
    stream complete and exactly-once, paged launches = 16 x forwards,
-   combines = 16 x one-token forwards, no CUDA-core route, no watchdog
+   paged split launches = 16 x one-token forwards, no CUDA-core route,
+   no watchdog
    catch; then where a decode block's and a chunk's time goes;
 3g. the local:global family at full width: ``gemma3-27b`` (62 layers: 10
    superblocks of 5 local layers with a 1024-token window and 1 global,
@@ -129,7 +132,8 @@ each of which fails the run hard:
    with prompts of 1100 and 1500 tokens so every local ring wraps in
    prefill and in decode, two of 480 and 40, 32 new tokens each: every
    stream complete and exactly-once, paged launches = 62 x forwards, ring
-   launches = 52 x forwards, combines = 62 x one-token forwards, no
+   launches = 52 x forwards, paged split launches = 62 x one-token
+   forwards, no
    CUDA-core route, no watchdog catch; ``slot_fused`` on 2 requests (1100
    and 300 tokens): flash on the 10 global layers of the wrapped prefill
    and all 62 of the other, the ring bound on its 52 local layers and on
@@ -490,17 +494,17 @@ def phase_build():
                 if "wgmma" in line and "serialized" in line:
                     serialized.add(kernel)
     # Tensor-core instructions in the SASS: each bf16 tensor-core instance
-    # must issue them (the flash forward's split route flash_fwd_split<hd>
-    # and the paged chunk kernel paged_chunk_tc<hd>; HGMMA, wgmma, in each
-    # of the flash forward's flash_fwd_wgmma<hd, softcap>, the flash
+    # must issue them (HMMA, mma.sync, in the flash forward's and paged
+    # attention's split routes, flash_fwd_split<hd> and paged_split<hd>;
+    # HGMMA, wgmma, in each of the flash forward's flash_fwd_wgmma<hd,
+    # softcap>, paged attention's paged_chunk<hd, softcap>, the flash
     # backward's flash_bwd_{dq,dkdv}_wgmma<hd> and the NBB matmul's
     # nbb_wgmma_kernel<...>), each float32 instance none (flash_*_simt<T>,
-    # paged_split<float, hd>, paged_simt<float>, nbb_simt_kernel): no TF32.
+    # paged_simt<float>, nbb_simt_kernel): no TF32.
     rules = {  # source: (tensor-core needle, least count, f32 needles, least)
         "flash_attention": ("_fwd_wgmmaI", 10, ("_simtI",), 2),
         "flash_attention_bwd": ("_wgmmaI", 20, ("_simtI",), 2),
-        "paged_attention": ("paged_chunk_tcI", 5,
-                            ("paged_splitIf", "paged_simtIf"), 6),
+        "paged_attention": ("paged_chunkI", 10, ("paged_simtIf",), 1),
         "nbb_matmul": ("nbb_wgmma_kernelI", 2, ("nbb_simt_kernel",), 1)}
     for name, (tc_needle, n_tc, f32_needles, n_f32) in rules.items():
         counts = tensor_core_counts(libs[name])
@@ -511,10 +515,28 @@ def phase_build():
               f"{name}: a tensor-core kernel without HMMA/HGMMA: {tc}")
         check(len(f32) >= n_f32 and not any(f32.values()),
               f"{name}: a float32 kernel with HMMA/HGMMA: {f32}")
-        if name in ("flash_attention", "flash_attention_bwd", "nbb_matmul"):
-            hgmma = tensor_core_counts(libs[name], ("HGMMA",))
-            check(all(hgmma[f] > 0 for f in tc),
-                  f"{name}: a wgmma instance without HGMMA: {hgmma}")
+        hgmma = tensor_core_counts(libs[name], ("HGMMA",))
+        check(all(hgmma[f] > 0 for f in tc),
+              f"{name}: a wgmma instance without HGMMA: {hgmma}")
+        if name == "paged_attention":
+            # The chunk route's wgmma at each head dim, with and without a
+            # softcap; the split route's mma.sync at each; no combine
+            # kernel, no mma.sync chunk kernel; no spill in either route.
+            dims = {int(re.search(r"ILi(\d+)E", f)[1]) for f in tc}
+            split = {f: n for f, n in counts.items() if "paged_splitI" in f}
+            check(dims == {16, 32, 64, 80, 128} and len(tc) == 10,
+                  f"paged_attention: the wgmma instances "
+                  f"{sorted(map(demangle, tc))}")
+            check(len(split) == 5 and all(split.values())
+                  and not any(hgmma[f] for f in split),
+                  f"paged_attention: the split instances {split}")
+            check(not any("paged_combine" in f or "chunk_tc" in f
+                          for f in counts),
+                  "paged_attention: paged_combine or paged_chunk_tc is "
+                  "still built")
+            spilled = {k: n for k, n in spills.items()
+                       if ("paged_chunk" in k or "paged_split" in k) and n}
+            check(not spilled, f"paged_attention: spills {spilled}")
         if name == "flash_attention":
             # The forward's routes: a wgmma instance at each of the five
             # head dims, with and without a softcap, and a split instance
@@ -686,10 +708,10 @@ def phase_compare():
 
 
 # (label, B, T, lens, softcap): the split-KV decode at the paged main
-# path's table (B=8, ps=16, P=64: 16 splits of 64 keys) with a lens=0
-# row, rows shorter than one split and one that ends on a split's edge;
-# the T=64 tensor-core chunk with a row shorter than T, one past the
-# table, and softcap.
+# path's table (B=8, ps=16, P=64: 8 runs of 128 keys) with a lens=0
+# row, rows shorter than one run and one that ends on a run's edge; the
+# T=64 wgmma chunk (2 runs of 512) with a row shorter than T, one past
+# the table, and softcap.
 SPLIT_CASES = [
     ("split decode", 8, 1, [0, 5, 63, 64, 65, 300, 545, 1024], 0.0),
     ("split decode softcap", 8, 1, [1, 17, 128, 129, 700, 64, 1000, 2],
@@ -700,11 +722,12 @@ SPLIT_CASES = [
 
 
 def phase_compare_split():
-    """The redesigned routes at the paged main path's shapes (a strided
-    layer view of the bf16 pool): each against the plain version (and the
-    split decode against the plain split-KV version, which merges the
-    splits as the kernel does), its route and launch counts, and two calls
-    bit-identical.  Returns the max bf16 error."""
+    """The tensor-core routes at the paged main path's shapes (a strided
+    layer view of the bf16 pool): each against the plain version and the
+    plain split-KV version at the wrapper's plan (which merges the runs as
+    the kernel does), its route and launch counts (one launch a pass, the
+    merge in it), two calls bit-identical, and the arrival counters back
+    at 0.  Returns the max bf16 error."""
     import torch
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
@@ -719,23 +742,23 @@ def phase_compare_split():
         ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
         blk = block[:B]
         way = pa.route(q, kview, vview)
-        check(way == ("split" if T == 1 else "chunk_tc"),
+        check(way == ("split" if T == 1 else "wgmma"),
               f"{label}: route {way}")
-        before = (pa.launches, pa.combine_launches)
+        before = (pa.launches, pa.split_launches)
         out = pa.paged_attention(q, kview, vview, blk, ln, softcap=cap)
         again = pa.paged_attention(q, kview, vview, blk, ln, softcap=cap)
         torch.cuda.synchronize()
-        combines = 2 if way == "split" else 0
-        check((pa.launches - before[0], pa.combine_launches - before[1])
-              == (2, combines), f"{label}: launches")
+        splits = 2 if way == "split" else 0
+        check((pa.launches - before[0], pa.split_launches - before[1])
+              == (2, splits), f"{label}: launches")
+        check(counters_at_zero(), f"{label}: arrival counters not at 0")
         check(torch.equal(out, again), f"{label}: two calls differ")
         want = ref.paged_attention_ref(q, kview, vview, blk, ln, softcap=cap)
         err = (out.float() - want.float()).abs().max().item()
-        if way == "split":
-            split_keys = pa.split_plan(B, m["Hkv"], m["P"], m["ps"])[1]
-            want2 = ref.paged_attention_split_ref(q, kview, vview, blk, ln,
-                                                  split_keys, softcap=cap)
-            err = max(err, (out.float() - want2.float()).abs().max().item())
+        split_keys = pa.plan(q, kview, vview, blk)[1][0]
+        want2 = ref.paged_attention_split_ref(q, kview, vview, blk, ln,
+                                              split_keys, softcap=cap)
+        err = max(err, (out.float() - want2.float()).abs().max().item())
         check(err <= TOLS["bfloat16"], f"{label}: err {err}")
         check(torch.count_nonzero(out[ln <= 0]) == 0,
               f"{label}: a lens=0 row is not zero")
@@ -757,11 +780,11 @@ OLMOE_KV_LENS = {1: lambda lens: [0, 0] + [max(0, n - 1) for n in lens[2:5]]
 def phase_compare_olmoe():
     """The paged kernel at olmoe-1b-7b's main-path shapes (hd 128, 16 kv
     heads, g 1; strided layer views of a [512, 16, 16, 16, 128] bf16
-    pool): the T=1 split-KV decode (8 splits of 128 keys + combine) and
-    the T=64 tensor-core chunk, without and with ``kv_lens`` (rows of 0,
-    below and equal to lens), against both plain versions; zero rows
-    exact, two calls bit-identical, kv_lens = lens bit-identical to no
-    kv_lens.  Returns the max bf16 error."""
+    pool): the T=1 split-KV decode (8 runs of 128 keys, merged in the
+    launch) and the T=64 wgmma chunk, without and with ``kv_lens`` (rows
+    of 0, below and equal to lens), against both plain versions; zero
+    rows exact, two calls bit-identical, kv_lens = lens bit-identical to
+    no kv_lens.  Returns the max bf16 error."""
     import torch
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
@@ -771,32 +794,31 @@ def phase_compare_olmoe():
         q, pk, pv, block, lens = main_path_inputs(torch, T, 50 + T, m)
         kview, vview = pk[:, :, 5], pv[:, :, 5]
         way = pa.route(q, kview, vview)
-        check(way == ("split" if T == 1 else "chunk_tc"),
+        check(way == ("split" if T == 1 else "wgmma"),
               f"olmoe T={T}: route {way}")
-        if way == "split":
-            plan = pa.split_plan(m["B"], m["Hkv"], m["P"], m["ps"])
-            check(plan[0] > 1, f"olmoe T=1: split plan {plan} does not "
-                               "split")
+        split_keys, n_split = pa.plan(q, kview, vview, block)[1]
+        check(n_split > 1, f"olmoe T={T}: split plan "
+                           f"{(split_keys, n_split)} does not split")
         kl = torch.tensor(OLMOE_KV_LENS[T](lens.tolist()), dtype=torch.int32,
                           device="cuda")
         for kv_lens in (None, kl):
-            before = (pa.launches, pa.combine_launches, pa.simt_launches)
+            before = (pa.launches, pa.split_launches, pa.simt_launches)
             out = pa.paged_attention(q, kview, vview, block, lens,
                                      kv_lens=kv_lens)
             again = pa.paged_attention(q, kview, vview, block, lens,
                                        kv_lens=kv_lens)
             torch.cuda.synchronize()
             split = way == "split"
-            check((pa.launches - before[0], pa.combine_launches - before[1],
+            check((pa.launches - before[0], pa.split_launches - before[1],
                    pa.simt_launches - before[2]) == (2, 2 * split, 0),
                   f"olmoe T={T}: launches")
+            check(counters_at_zero(), f"olmoe T={T}: arrival counters not "
+                                      "at 0")
             check(torch.equal(out, again), f"olmoe T={T}: two calls differ")
             want = ref.paged_attention_ref(q, kview, vview, block, lens,
                                            kv_lens=kv_lens)
             want2 = ref.paged_attention_split_ref(
-                q, kview, vview, block, lens,
-                pa.split_plan(m["B"], m["Hkv"], m["P"], m["ps"])[1],
-                kv_lens=kv_lens)
+                q, kview, vview, block, lens, split_keys, kv_lens=kv_lens)
             err = max((out.float() - w.float()).abs().max().item()
                       for w in (want, want2))
             check(err <= TOLS["bfloat16"], f"olmoe T={T} kv_lens "
@@ -868,8 +890,8 @@ def ring_inputs(torch, T: int, n_valid, seed: int, dt):
 
 def phase_compare_ring():
     """The ring bound (a sliding-window ring read with wrap-around) on
-    every route at gemma3-27b's local-layer shapes: T=1 (split + combine,
-    f32 and bf16), T=64 (``chunk_tc`` in bf16, ``simt`` in f32), with and
+    every route at gemma3-27b's local-layer shapes: T=1 and T=64 on
+    ``split`` and ``wgmma`` in bf16 and ``simt`` in f32, with and
     without ``kv_lens``, window 1024 and a window of 200 inside it; each
     against both plain versions, queries that see no key exactly 0, two
     calls bit-identical; and ring = P * ps with window 0 over rows that
@@ -891,25 +913,28 @@ def phase_compare_ring():
                 q, lens, kv_lens = ring_inputs(torch, T, n_valid, 61 + T, dt)
                 kw = dict(kv_lens=kv_lens, ring=d["size"], window=window)
                 way = pa.route(q, k, v)
-                want_way = ("split" if T == 1 else
-                            "chunk_tc" if dt_name == "bfloat16" else "simt")
+                want_way = ("simt" if dt_name == "float32" else
+                            "split" if T == 1 else "wgmma")
                 check(way == want_way, f"ring {label} {dt_name}: route {way}")
-                before = (pa.launches, pa.combine_launches,
+                before = (pa.launches, pa.split_launches,
                           pa.simt_launches, pa.ring_launches)
                 out = pa.paged_attention(q, k, v, block, lens, **kw)
                 again = pa.paged_attention(q, k, v, block, lens, **kw)
                 torch.cuda.synchronize()
                 # simt splits a long chunk along T: several passes a call.
                 n = pa.launches - before[0]
-                check(n >= 2 and (pa.combine_launches - before[1],
+                check(n >= 2 and (pa.split_launches - before[1],
                                   pa.simt_launches - before[2],
                                   pa.ring_launches - before[3])
-                      == (n * (way == "split"), n * (way == "simt"), n),
+                      == (n * (way == "split"), n * (way == "simt"), n)
+                      and (way == "simt" or n == 2),
                       f"ring {label} {dt_name}: launches")
                 check(torch.equal(out, again),
                       f"ring {label} {dt_name}: two calls differ")
-                split_keys = pa.split_plan(d["B"], d["Hkv"],
-                                           block.shape[1], d["ps"])[1]
+                check(counters_at_zero(), f"ring {label} {dt_name}: "
+                                          "arrival counters not at 0")
+                split_keys = pa.split_plan(T, block.shape[1] * d["ps"],
+                                           d["size"], window)[0]
                 wants = (ref.paged_attention_ref(q, k, v, block, lens, **kw),
                          ref.paged_attention_split_ref(
                              q, k, v, block, lens, split_keys, **kw))
@@ -1550,7 +1575,7 @@ def serve_run(eng, prompts, max_tokens: int, forwards, smi: str,
                 "flash_noncausal": fa.noncausal_launches,
                 "flash_split": fa.split_launches,
                 "paged_attention": pa.launches,
-                "paged_combine": pa.combine_launches,
+                "paged_split": pa.split_launches,
                 "paged_ring": pa.ring_launches}
     simt = fa.simt_launches
     paged_simt = pa.simt_launches
@@ -1589,8 +1614,8 @@ def serve_run(eng, prompts, max_tokens: int, forwards, smi: str,
           f"{n_tok / dt:.1f} tok/s, TTFT p50 {ttft_ms:.0f} ms, forwards "
           f"{n_fwd} ({1e3 * dt / max(n_fwd, 1):.1f} ms of wall time each), "
           f"launches flash_attention {launches['flash_attention']} "
-          f"paged_attention {launches['paged_attention']} (combine "
-          f"{launches['paged_combine']}) [{smi}]")
+          f"paged_attention {launches['paged_attention']} (split route "
+          f"{launches['paged_split']}) [{smi}]")
     print(f"  {label} stats: {eng.stats}")
     return launches, n_fwd, dt, n_tok / dt, ttft_ms
 
@@ -1613,11 +1638,11 @@ def phase_serve(model, params, forwards, smi: str):
           f"paged_attention launches {launches['paged_attention']} != "
           f"{cfg.num_layers} x {n_fwd} forwards")
     check(launches["flash_attention"] == 0, "slot_paged launched flash")
-    # Each decode forward's 30 passes take the split route and one
-    # combine each; the T=64 chunks none.
-    check(forwards[1] > 0 and launches["paged_combine"]
+    # Each decode forward's 30 passes take the split route, one launch
+    # each; the T=64 chunks the wgmma route.
+    check(forwards[1] > 0 and launches["paged_split"]
           == cfg.num_layers * forwards[1],
-          f"paged combine launches {launches['paged_combine']} != "
+          f"paged split launches {launches['paged_split']} != "
           f"{cfg.num_layers} x {forwards[1]} decode forwards")
     check(eng.stats["prefix_hits"] > 0, "the shared prefix never hit")
     print(f"  prefix_hits {eng.stats['prefix_hits']}, "
@@ -1629,10 +1654,10 @@ def phase_serve_olmoe(smi: str):
     """3f: ``olmoe-1b-7b`` at full width (16 layers, d=2048, 16/16 heads
     of 128, 64 experts top-8, vocab 50304, bf16, seed-0 weights) under
     ``slot_paged`` on the main workload's 16 requests: every stream
-    complete and exactly-once, paged launches = 16 x forwards, combines =
-    16 x one-token forwards, no flash, no CUDA-core route, no watchdog
-    catch; then where a decode block's and a chunk's time goes.  Returns
-    the paged launches."""
+    complete and exactly-once, paged launches = 16 x forwards, paged
+    split launches = 16 x one-token forwards, no flash, no CUDA-core
+    route, no watchdog catch; then where a decode block's and a chunk's
+    time goes.  Returns the paged launches."""
     import torch
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.train import tree
@@ -1661,8 +1686,8 @@ def phase_serve_olmoe(smi: str):
     check(n_fwd > 0 and launches["paged_attention"] == L * n_fwd,
           f"olmoe: paged launches {launches['paged_attention']} != {L} x "
           f"{n_fwd} forwards")
-    check(forwards[1] > 0 and launches["paged_combine"] == L * forwards[1],
-          f"olmoe: combine launches {launches['paged_combine']} != {L} x "
+    check(forwards[1] > 0 and launches["paged_split"] == L * forwards[1],
+          f"olmoe: split launches {launches['paged_split']} != {L} x "
           f"{forwards[1]} decode forwards")
     check(launches["flash_attention"] == 0, "olmoe slot_paged launched "
                                             "flash")
@@ -1700,8 +1725,8 @@ def phase_serve_gemma(smi: str):
     launcher's fallback: not pageable) serves 4 requests, two with
     prompts of 1100-1500 tokens so every local ring wraps in prefill and
     decode, two of 40-480: every stream complete and exactly-once, paged
-    launches = 62 x forwards, combines = 62 x one-token forwards, no
-    CUDA-core route, no watchdog catch.  ``slot_fused`` serves 2
+    launches = 62 x forwards, paged split launches = 62 x one-token
+    forwards, no CUDA-core route, no watchdog catch.  ``slot_fused`` serves 2
     requests, one prompt past 1024: flash carries the unwrapped prefill
     layers, the paged ring bound the wrapped ones.  Then where a decode
     block's and a chunk's time goes, and the peak device memory.
@@ -1749,9 +1774,10 @@ def phase_serve_gemma(smi: str):
                                         f"gemma {sched}")
         st = eng.stats
         pl, fl = launches["paged_attention"], launches["flash_attention"]
-        check(launches["paged_combine"] == L * forwards[1]
+        check(launches["paged_split"] == L * forwards[1]
               and forwards[1] > 0,
-              f"gemma {sched}: combines {launches['paged_combine']} != {L} "
+              f"gemma {sched}: split launches {launches['paged_split']} "
+              f"!= {L} "
               f"x {forwards[1]} one-token forwards")
         rl = launches["paged_ring"]
         ring_launches += rl
@@ -1974,7 +2000,7 @@ def phase_compare_hd80():
     identity pages, split-KV decode at B=4 (rows at lens 0, 1, 63, 64,
     then 700, 64, 1000, 129, also against the plain split-KV version)
     and the T=64 chunk (lens 64, 300, 700, 1024).  bf16 takes the
-    tensor-core instances (flash_fwd_wgmma<80>, paged_chunk_tc<80>), the
+    tensor-core instances (flash_fwd_wgmma<80>, paged_chunk<80>), the
     flash split route's flash_fwd_split<80> (the T=1 read) and the
     bf16 split, each called twice, bit-identical; f32 the CUDA-core ones
     (TF32 off).  Each bound must also reject the kernel's output with its
@@ -2045,14 +2071,14 @@ def phase_compare_hd80():
             kp = rk.to(dt).view(B * P, ps, h["Hkv"], hd)
             vp = rv.to(dt).view(B * P, ps, h["Hkv"], hd)
             way = pa.route(q, kp, vp)
-            want_way = ("split" if T == 1 else
-                        "chunk_tc" if dt_name == "bfloat16" else "simt")
+            want_way = ("simt" if dt_name == "float32" else
+                        "split" if T == 1 else "wgmma")
             check(way == want_way, f"hd 80 paged T={T} {dt_name}: route "
                                    f"{way}, not {want_way}")
-            before = (pa.launches, pa.combine_launches, pa.simt_launches)
+            before = (pa.launches, pa.split_launches, pa.simt_launches)
             out = pa.paged_attention(q, kp, vp, block, ln)
             torch.cuda.synchronize()
-            check((pa.launches - before[0], pa.combine_launches - before[1])
+            check((pa.launches - before[0], pa.split_launches - before[1])
                   == (1, int(way == "split")), f"hd 80 paged T={T}: launches")
             if dt_name == "bfloat16":
                 check(pa.simt_launches == before[2],
@@ -2067,8 +2093,8 @@ def phase_compare_hd80():
                  ref.paged_attention_ref(q, kp, vp, block, ln),
                  pa.paged_attention(q, kp, vp, block, ln, kv_lens=short),
                  mean=False)
-            if way == "split":
-                keys = pa.split_plan(B, h["Hkv"], P, ps)[1]
+            if way != "simt":
+                keys = pa.plan(q, kp, vp, block)[1][0]
                 held(label + " vs split plain", "paged", dt_name, out,
                      ref.paged_attention_split_ref(q, kp, vp, block, ln,
                                                    keys),
@@ -2078,11 +2104,20 @@ def phase_compare_hd80():
     for line in lines:
         print(f"  {line}")
     print(f"hd 80 vs plain (2f): flash_fwd_wgmma<80> and _split<80> max err "
-          f"{worst['flash']:.3g}, paged split + chunk_tc<80> max err "
+          f"{worst['flash']:.3g}, paged_split<80> and paged_chunk<80> max err "
           f"{worst['paged']:.3g} (bf16: 3e-2 x max |plain| for the T=1 "
           "flash read of 513 keys, else 3e-2; f32 on the CUDA-core "
           "instances 2e-5); every dropped last key tile rejected")
     return worst["flash"], worst["paged"]
+
+
+def counters_at_zero() -> bool:
+    """Every split-KV arrival counter (flash's and paged attention's)
+    back at 0, as the run of each row that arrives last leaves it."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    torch.cuda.synchronize()
+    return all(int(c.abs().sum()) == 0 for c in fa._COUNTERS.values())
 
 
 def _fresh_memory():
@@ -2097,7 +2132,7 @@ def _fresh_memory():
 def _counts():
     """{kernel: launches} of flash (causal and non-causal forwards apart,
     the forwards on the split route, and its backward), paged and its
-    combine, and the CUDA-core launches of either."""
+    split-route launches, and the CUDA-core launches of either."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
@@ -2105,7 +2140,7 @@ def _counts():
     return dict(causal=fa.launches - fa.noncausal_launches,
                 noncausal=fa.noncausal_launches, bwd=fa.bwd_launches,
                 split=fa.split_launches,
-                paged=pa.launches, combine=pa.combine_launches,
+                paged=pa.launches, psplit=pa.split_launches,
                 simt=fa.simt_launches + pa.simt_launches)
 
 
@@ -2275,7 +2310,7 @@ def phase_serve_vlm(smi: str):
           and launches["flash_attention"] == nc
           and launches["flash_split"] == n_cross * forwards[1]
           and launches["paged_attention"] == n_self * n_fwd
-          and launches["paged_combine"] == n_self * forwards[1],
+          and launches["paged_split"] == n_self * forwards[1],
           f"vlm slot_chunked: launches {launches}, forwards {n_fwd} "
           f"({forwards[1]} one-token)")
     noncausal += nc
@@ -2482,7 +2517,7 @@ def phase_serve_recurrent(arch: str, smi: str):
     the chunked form, so both recurrence forms run on the card, in bf16
     and with the same weights in float32 (the CUDA-core instances); zamba's
     cached path launches flash once per superblock in the prefill and
-    the paged kernel (split + combine) once per superblock in each decode
+    the paged kernel (split route) once per superblock in each decode
     step, rwkv's no attention kernel.  (b) ``slot_fused`` serves 4
     requests of 64-128 tokens, 32 new each: every stream complete and
     exactly-once, flash launches = 9 x prefills and paged = 9 x decode
@@ -2526,7 +2561,7 @@ def phase_serve_recurrent(arch: str, smi: str):
                                                forwards)
     check(got["forwards"] == steps + 1 and got["causal"] == n_attn
           and got["paged"] == n_attn * steps
-          and got["combine"] == n_attn * steps and got["noncausal"] == 0
+          and got["psplit"] == n_attn * steps and got["noncausal"] == 0
           and got["simt"] == 0,
           f"{arch} model path: launches {got}")
     f32 = build_model(dataclasses.replace(cfg, dtype="float32"))
@@ -2561,7 +2596,7 @@ def phase_serve_recurrent(arch: str, smi: str):
           and n_fwd == st["prefills"] + st["decode_steps"]
           and fl == n_attn * st["prefills"]
           and pl == n_attn * st["decode_steps"]
-          and launches["paged_combine"] == n_attn * forwards[1]
+          and launches["paged_split"] == n_attn * forwards[1]
           and launches["flash_noncausal"] == launches["paged_ring"] == 0,
           f"{arch} slot_fused: launches {launches}, prefills "
           f"{st['prefills']}, decode steps {st['decode_steps']}")
@@ -2786,14 +2821,14 @@ def phase_serve_dense(model, params, forwards, smi: str):
         launches, n_fwd, *_ = serve_run(eng, work, 32, forwards, smi, sched)
         st = eng.stats
         fl, pl = launches["flash_attention"], launches["paged_attention"]
-        # Every one-token decode forward ends its 30 paged (split-route)
-        # passes in a combine; chunks and flash prefills have none, nor
-        # the wave's flash decode.
-        want_combine = 0 if sched == "wave" else L * forwards[1]
-        check(launches["paged_combine"] == want_combine
+        # Every one-token decode forward makes 30 paged passes on the split
+        # route; chunks and flash prefills none, nor the wave's flash
+        # decode.
+        want_split = 0 if sched == "wave" else L * forwards[1]
+        check(launches["paged_split"] == want_split
               and (pl == 0 or forwards[1] > 0),
-              f"{sched}: paged combine launches "
-              f"{launches['paged_combine']} != {want_combine} ({L} x "
+              f"{sched}: paged split launches "
+              f"{launches['paged_split']} != {want_split} ({L} x "
               f"{forwards[1]} decode forwards)")
         if sched == "slot_fused":
             check(fl == L * st["prefills"] and st["prefills"] == len(work)
@@ -2965,24 +3000,24 @@ def zero_counts(forwards):
     from repro_torch.kernels import paged_attention as pa
     fa.launches = fa.simt_launches = fa.noncausal_launches = 0
     fa.bwd_launches = fa.split_launches = 0
-    pa.launches = pa.combine_launches = pa.simt_launches = 0
+    pa.launches = pa.split_launches = pa.simt_launches = 0
     pa.ring_launches = 0
     forwards[0] = forwards[1] = 0
 
 
 def read_counts(forwards, label: str, L: int):
     """The launches since ``zero_counts``; checks that the paged kernel
-    ran 30 times per forward (one combine per layer of each one-token
-    decode forward), flash never, and no CUDA-core route."""
+    ran 30 times per forward (on the split route for each layer of a
+    one-token decode forward), flash never, and no CUDA-core route."""
     c = _counts()
-    got = dict(paged=c["paged"], combine=c["combine"],
+    got = dict(paged=c["paged"], psplit=c["psplit"],
                flash=c["causal"] + c["noncausal"], simt=c["simt"],
                forwards=forwards[0], decode_forwards=forwards[1])
     check(got["forwards"] > 0 and got["paged"] == L * got["forwards"],
           f"{label}: paged launches {got['paged']} != {L} x "
           f"{got['forwards']} forwards")
-    check(got["combine"] == L * got["decode_forwards"],
-          f"{label}: combine launches {got['combine']} != {L} x "
+    check(got["psplit"] == L * got["decode_forwards"],
+          f"{label}: paged split launches {got['psplit']} != {L} x "
           f"{got['decode_forwards']} decode forwards")
     check(got["flash"] == 0 and got["simt"] == 0,
           f"{label}: flash launches {got['flash']}, CUDA-core launches "
@@ -3140,8 +3175,8 @@ def phase_overload(model, params, forwards, smi: str):
           f"{st['host_syncs']}, {len(tables)} dispatched block tables, none "
           f"negative; TTFT p50 high {ttft[0]['p50_ms']:.0f} ms (n="
           f"{ttft[0]['n']}), low {ttft[1]['p50_ms']:.0f} ms (n="
-          f"{ttft[1]['n']}); launches paged {got['paged']} (combine "
-          f"{got['combine']}) over {got['forwards']} forwards [{smi}]")
+          f"{ttft[1]['n']}); launches paged {got['paged']} (split route "
+          f"{got['psplit']}) over {got['forwards']} forwards [{smi}]")
     by_id = {h.req_id: h for h in handles}
     for rid in sorted(parked_ids):
         prompt, n = prompts_of[rid]
@@ -3472,6 +3507,41 @@ def work(q, block, lens, hkv: int, itemsize: int, kv_lens=None):
     return nbytes, 4 * hd * H * visible
 
 
+def parent_paged():
+    """The paged-attention wrapper of another checkout of the repository
+    (its root in ``CHIP_SMOKE_PARENT``, e.g. the parent commit unpacked
+    under ``build/``), built from that checkout's own kernel source, so
+    phase 6 times it in turns with this tree's kernel on the same inputs;
+    None when the variable is unset."""
+    root = os.environ.get("CHIP_SMOKE_PARENT")
+    if not root:
+        return None
+    import importlib.util
+    path = Path(root) / "src" / "repro_torch" / "kernels" / \
+        "paged_attention.py"
+    spec = importlib.util.spec_from_file_location("parent_paged_attention",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.SOURCE = path.parent / "csrc" / "paged_attention.cu"
+    return mod
+
+
+def parent_turns(kern, call) -> str:
+    """With a parent checkout (:func:`parent_paged`), its kernel and this
+    tree's timed in turns (parent, this, this, parent) on the same
+    inputs, as printed text; else ''.  ``call(mod, i)`` runs one call
+    through the wrapper module ``mod``."""
+    parent = parent_paged()
+    if parent is None:
+        return ""
+    a = timed(lambda i: call(parent, i))
+    b, c = timed(kern), timed(kern)
+    d = timed(lambda i: call(parent, i))
+    return (f"; in turns, parent {a:.4f} ms, this tree {b:.4f} and "
+            f"{c:.4f} ms, parent {d:.4f} ms")
+
+
 def paged_timing_row(label: str, q, views, block, lens, smi: str,
                      kv_lens=None):
     """Device ms of the paged kernel (cycling ``views``, one layer's K/V
@@ -3509,20 +3579,23 @@ def paged_timing_row(label: str, q, views, block, lens, smi: str,
         q, kg.repeat_interleave(g, dim=2), vg.repeat_interleave(g, dim=2)))
     sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, attn_mask=mask)
-    before = (pa.launches, pa.combine_launches)
+    before = (pa.launches, pa.split_launches)
     t_kern = timed(kern)
     t_plain = timed(plain, inner=10)
     t_gather = timed(gather, inner=10)
     t_sdpa = timed(sdpa, inner=10)
-    pa.launches, pa.combine_launches = before   # timing is not counted
+    turns = parent_turns(kern, lambda mod, i: mod.paged_attention(
+        q, *views[i % n], block, lens, kv_lens=kv_lens))
+    pa.launches, pa.split_launches = before   # timing is not counted
     nbytes, flops = work(q, block, lens, Hkv, 2, kv_lens)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
     bound = max(t_bytes, t_ops)
     way = pa.route(q, *views[0])
-    plan = (f", {pa.split_plan(B, Hkv, P, ps)[0]} splits + combine"
-            if way == "split" else "")
+    runs = pa.plan(q, *views[0], block)[1]
+    plan = "" if runs is None else (f", {runs[1]} runs of {runs[0]} keys "
+                                    "at most")
     kv = "" if kv_lens is None else f", kv_lens {kv_lens.tolist()}"
     print(f"paged_attention {label} (H={H}, Hkv={Hkv}, hd={hd}, ps={ps}, "
           f"P={P}, bf16, lens {lens.tolist()}{kv}; route {way}{plan}): "
@@ -3530,8 +3603,8 @@ def paged_timing_row(label: str, q, views, block, lens, smi: str,
           f"{t_kern:.4f} ms, bound {bound:.5f} ms ({by}: "
           f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), plain "
           f"{t_plain:.4f} ms; yardstick (not used by the port): gather "
-          f"{t_gather:.4f} ms + SDPA on gathered K/V {t_sdpa:.4f} ms "
-          f"[{smi}]")
+          f"{t_gather:.4f} ms + SDPA on gathered K/V {t_sdpa:.4f} ms"
+          f"{turns} [{smi}]")
     return t_kern, t_plain, bound, by
 
 
@@ -3633,12 +3706,14 @@ def ring_timing_row(label: str, q, views, block, lens, kv_lens, smi: str):
         q, kg.repeat_interleave(g, dim=2), vg.repeat_interleave(g, dim=2)))
     sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, attn_mask=mask[:, None])
-    before = (pa.launches, pa.combine_launches, pa.ring_launches)
+    before = (pa.launches, pa.split_launches, pa.ring_launches)
     t_kern = timed(kern)
     t_plain = timed(plain, inner=10)
     t_gather = timed(gather, inner=10)
     t_sdpa = timed(sdpa, inner=10)
-    pa.launches, pa.combine_launches, pa.ring_launches = before
+    turns = parent_turns(kern, lambda mod, i: mod.paged_attention(
+        q, *views[i % n], block, lens, **kw))
+    pa.launches, pa.split_launches, pa.ring_launches = before
     nbytes, flops = ring_work(q, block, lens, kv_lens, ring, window, Hkv, 2)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
@@ -3652,7 +3727,7 @@ def ring_timing_row(label: str, q, views, block, lens, kv_lens, smi: str):
           f"bound {bound:.5f} ms ({by}: {nbytes / 1e6:.2f} MB, "
           f"{flops / 1e9:.3f} GFLOP), plain {t_plain:.4f} ms; yardstick "
           f"(not used by the port): gather into position order "
-          f"{t_gather:.4f} ms + masked SDPA {t_sdpa:.4f} ms [{smi}]")
+          f"{t_gather:.4f} ms + masked SDPA {t_sdpa:.4f} ms{turns} [{smi}]")
     return t_kern, t_plain, bound, by, t_gather + t_sdpa
 
 

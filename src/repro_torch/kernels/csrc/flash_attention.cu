@@ -79,6 +79,7 @@
 #include "flash_common.cuh"
 #include "flash_tiles.cuh"
 #include "hopper.cuh"
+#include "split_merge.cuh"
 
 #include <type_traits>
 
@@ -150,7 +151,6 @@ __global__ void __launch_bounds__(128) flash_fwd_split(const Params p) {
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // [16][LD]
   bf16* k_s = q_s + kRows * LD;                    // [2][kChunk][LD]
   bf16* v_s = k_s + 2 * kChunk * LD;               // [2][kChunk][LD]
-  __shared__ int last;
 
   // Row r of the tile is query token r / g of head kvh * g + r % g.
   const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb;
@@ -370,57 +370,13 @@ __global__ void __launch_bounds__(128) flash_fwd_split(const Params p) {
   if (p.n_split == 1) return;
 
   // Count this split in; the last to arrive merges every split's partial
-  // in split order and resets the counter.  One thread fences for the
-  // block: the barrier makes every thread's partial its to publish
-  // (release), and its fence after the count orders the block's reads of
-  // the other splits' partials after it (acquire).
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    last = atomicAdd(p.count + b * p.Hkv + kvh, 1) == p.n_split - 1;
-    __threadfence();
-  }
-  __syncthreads();
-  if (!last) return;
-  // Every split's (max, sum) of every row in one round of loads, then
-  // each row's max, its splits' weights and its sum, in split order.
-  const int n = p.n_split;
-  float* ms = reinterpret_cast<float*>(k_s);   // [n][16] (the chunk's room)
-  float* ls = ms + n * kRows;                  // [n][16]
-  float* wts = ls + n * kRows;                 // [n][16]
-  float* big = wts + n * kRows;                // [2][16]: max, sum
-  const float* ml = part_ml + slot * 2 * kRows;
-  for (int i = threadIdx.x; i < n * kRows; i += blockDim.x) {
-    const int sp2 = i / kRows, r = i % kRows;
-    if (r < R) {
-      ms[i] = __ldcg(ml + sp2 * 2 * kRows + r);
-      ls[i] = __ldcg(ml + sp2 * 2 * kRows + kRows + r);
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < R) {
-    const int r = threadIdx.x;
-    float M = kNegInf, L = 0.f;
-    for (int s = 0; s < n; ++s) M = fmaxf(M, ms[s * kRows + r]);
-    for (int s = 0; s < n; ++s) {
-      const float a = flash::fast_exp2(ms[s * kRows + r] - M);
-      wts[s * kRows + r] = a;
-      L += ls[s * kRows + r] * a;
-    }
-    big[r] = M;
-    big[kRows + r] = L;
-  }
-  __syncthreads();
-  const float* parts = p.part + slot * kRows * HD;
-  for (int i = threadIdx.x; i < R * HD; i += blockDim.x) {
-    const int r = i / HD, c = i % HD;
-    float acc = 0.f;
-#pragma unroll 8
-    for (int s = 0; s < n; ++s)
-      acc += __ldcg(parts + (s * kRows + r) * HD + c) * wts[s * kRows + r];
-    store(r, c, acc, big[r], big[kRows + r]);
-  }
-  if (threadIdx.x == 0) p.count[b * p.Hkv + kvh] = 0;
+  // in split order (the chunks' room is its scratch) and resets the
+  // counter (split_merge.cuh).
+  int* count = p.count + b * p.Hkv + kvh;
+  if (!splitkv::arrive(count, p.n_split)) return;
+  splitkv::merge<HD>(p.part + slot * kRows * HD, part_ml + slot * 2 * kRows,
+                     p.n_split, R, kRows, reinterpret_cast<float*>(k_s),
+                     count, store);
 }
 
 template <int HD>

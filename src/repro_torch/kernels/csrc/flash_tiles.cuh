@@ -1,9 +1,10 @@
-// The TMA-fed tiles of the flash kernels' wgmma routes (the forward's
-// `flash_fwd_wgmma` in flash_attention.cu, the backward's passes in
-// flash_attention_bwd.cu): the shared-memory layout of a [64][HD] bf16
-// tile, its wgmma descriptors, the product over HD with the tile read
-// MN-major, its TMA loads, and the host-side 4-D tensor maps that feed
-// them.
+// The tiles of the wgmma routes (the flash forward's `flash_fwd_wgmma`
+// in flash_attention.cu, the backward's passes in flash_attention_bwd.cu,
+// paged attention's `paged_chunk` in paged_attention.cu): the
+// shared-memory layout of a [64][HD] bf16 tile and where a gathered
+// row's chunks go in it, its wgmma descriptors, the product over HD with
+// the tile read MN-major, its TMA loads, and the host-side 4-D tensor
+// maps that feed them.
 //
 // A tile comes as HD / 64 wide boxes of [64 rows][64 columns] (128-byte
 // rows, 128-byte swizzle), then the rest, R = HD % 64 columns (16 or 32),
@@ -57,6 +58,24 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
   return hopper::smem_desc(
       tile + L::kWide * L::kWideBox + (col - 64 * L::kWide) * 2, 16,
       8 * L::kRestW, L::kRestLayout);
+}
+
+// Byte offset in a tile of the 16-byte chunk `ch` (columns 8 ch ..
+// 8 ch + 7) of row `row`, where TMA's swizzle puts it: within each box,
+// address bits 4.. (the chunk within a 128-, 64- or 32-byte row span)
+// XOR bits 7.. (3, 2 or 1 of them), the box bases 1024-aligned.  A tile
+// gathered row by row (cp.async) into these offsets is the tile TMA
+// writes, for the same descriptors.
+template <int HD>
+__device__ __forceinline__ int swizzled(int row, int ch) {
+  using L = Tile<HD>;
+  const int col = 8 * ch;
+  if (col < 64 * L::kWide)
+    return (col / 64 * L::kWideBox + row * 128 + col % 64 * 2) ^
+           ((row & 7) << 4);
+  const int off =
+      L::kWide * L::kWideBox + row * L::kRestW + (col - 64 * L::kWide) * 2;
+  return off ^ (((off >> 7) & (L::R == 32 ? 3 : 1)) << 4);
 }
 
 // acc[64 x HD] += a[64 x 16] * tile[16 rows kk.. of 64][HD], the tile read

@@ -1,8 +1,9 @@
-// Hopper building blocks shared by the hand-written TMA + wgmma kernels
-// (nbb_matmul.cu, flash_attention_bwd.cu): mbarriers, TMA and bulk
-// copies, wgmma matrix descriptors, the wgmma fence/commit/wait and the
-// m64nNk16 bf16 products with an f32 accumulator in registers, and the
-// driver's tensor-map encoder.
+// Hopper building blocks shared by the hand-written wgmma kernels
+// (nbb_matmul.cu, flash_attention.cu, flash_attention_bwd.cu,
+// paged_attention.cu): mbarriers, TMA, bulk and mbarrier-counted
+// cp.async copies, the async-proxy fence, wgmma matrix descriptors, the
+// wgmma fence/commit/wait and the m64nNk16 bf16 products with an f32
+// accumulator in registers, and the driver's tensor-map encoder.
 //
 // wgmma operands in shared memory are described by a 64-bit descriptor:
 // the start address, the leading and stride byte offsets (16-byte units)
@@ -88,6 +89,21 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "memory");
     if (polls == (1u << 26)) asm volatile("trap;");
   }
+}
+
+// Arrive on `bar` once every cp.async this thread has issued so far has
+// landed, without adding to the arrivals the phase waits for (.noinc): a
+// barrier fed by the cp.async copies of N threads is initialised with N.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Order this thread's generic-proxy shared-memory accesses (st.shared,
+// cp.async) before its later async-proxy ones (wgmma operand reads).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Global -> shared copy by the copy engine; completion is counted in

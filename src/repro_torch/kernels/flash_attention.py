@@ -224,16 +224,19 @@ def _cuda(q: torch.Tensor, what: str) -> None:
                         f"local shards")
 
 
-# The split route's arrival counters, one int32 array per (device index,
-# stream); see :func:`_counter`.
+# The split-KV arrival counters, one int32 array per (device index,
+# stream); see :func:`arrival_counters`.
 _COUNTERS: dict = {}
 
 
-def _counter(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    """The split route's arrival counters of ``stream``: int32 zeros, at
-    least ``n``, owned by this module per (device, stream) so that two
-    streams never share one.  The split that finishes last resets its
-    counter to 0, so a call leaves them as it found them."""
+def arrival_counters(device: torch.device, stream: int,
+                     n: int) -> torch.Tensor:
+    """The arrival counters of ``stream`` for a split-KV launch (this
+    module's split route and paged attention's two tensor-core routes):
+    int32 zeros, at least ``n``, one array per (device, stream) so that
+    two streams never share one; launches on one stream run in order, so
+    they share it.  The split that finishes last resets its counter to
+    0, so a launch leaves them as it found them."""
     key = (device.index, stream)
     c = _COUNTERS.get(key)
     if c is None or c.numel() < n:
@@ -275,7 +278,7 @@ def _forward(q, k, v, causal: bool, window: int, softcap: float,
         # n_split stays under the kernel's 64 (split_plan's runs).
         part = torch.empty(B * Hkv * n_split * SPLIT_ROWS * (hd + 2),
                            dtype=torch.float32, device=q.device)
-        count = _counter(q.device, stream, B * Hkv)
+        count = arrival_counters(q.device, stream, B * Hkv)
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),

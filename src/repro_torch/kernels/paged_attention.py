@@ -12,11 +12,15 @@ Dispatch is by where the tensors lie: a CPU ``q`` runs the plain PyTorch
 version (``ref.paged_attention_ref``); a CUDA ``q`` launches the kernel on
 ``torch.cuda.current_stream()`` or raises.  There is no fallback.  On the
 card :func:`route` picks one of the kernel's three routes: ``split``
-(decode: flash-decoding over :func:`split_plan`'s runs of keys, then a
-combine launch), ``chunk_tc`` (bf16 chunks on the tensor cores) or
-``simt`` (everything else, on the CUDA cores).  Every route takes the
-optional ring bound (``ring``, ``window``): a sliding-window ring read
-with wrap-around.
+(bf16 decode: split-KV on ``mma.sync``), ``wgmma`` (bf16 chunks: every
+query row of a kv head in one block, on ``wgmma``) or ``simt`` (float32
+and everything else, on the CUDA cores).  The first two cut each row's
+keys into the runs of :func:`split_plan` and merge them in split order
+in the same launch (the last run of a row to finish merges; its arrival
+counters are ``flash_attention.arrival_counters``, one array per device
+and stream).  Every
+route takes the optional ring bound (``ring``, ``window``): a
+sliding-window ring read with wrap-around.
 """
 from __future__ import annotations
 
@@ -27,31 +31,41 @@ import torch
 
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import arrival_counters
 
 SOURCE = kbuild.CSRC / "paged_attention.cu"
 
 # Kernel launches made by :func:`paged_attention` (CUDA tensors only):
 # ``launches`` counts the attention passes (one per call, or one per
-# T-piece of a chunk split along T), ``combine_launches`` the launches
-# that merge a split-KV pass's splits (one per split-route pass),
-# ``simt_launches`` the passes that took the CUDA-core ``simt`` route,
-# ``ring_launches`` the passes under the ring bound.  Callers reset them
-# to 0 and read them to show a run went through the kernel, and through
-# which route.
+# T-piece of a chunk split along T), ``split_launches`` those on the
+# ``split`` route (one-token decodes: one launch each, merge included),
+# ``simt_launches`` those on the CUDA-core ``simt`` route,
+# ``ring_launches`` those under the ring bound.  Callers reset them to 0
+# and read them to show a run went through the kernel, and through which
+# route.
 launches = 0
-combine_launches = 0
+split_launches = 0
 simt_launches = 0
 ring_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-ROUTES = ("simt", "split", "chunk_tc")
+ROUTES = ("simt", "split", "wgmma")
 _FAST_HEAD_DIMS = (16, 32, 64, 80, 128)
-# The split route's limits, fixed in the source (checked at load): query
-# rows g*T a block holds, and keys per tile (split_keys is a multiple).
+# The tensor-core routes' limits, fixed in the source (checked at load):
+# query rows g*T a split block holds (one 16-row mma tile), keys per tile
+# (split_keys is a multiple), and runs of a chunk's row at most (the
+# merge's shared memory).
 SPLIT_ROWS = 16
 SPLIT_TILE = 64
-# Blocks a split-KV pass aims to stay under: 8 per SM of an H100.
-_MAX_SPLIT_BLOCKS = 8 * 132
+CHUNK_SPLITS = 8
+# A decode row's keys are cut into about this many runs of whole tiles,
+# as flash's split route cuts its (flash_attention.SPLITS): each run
+# streams a few tiles, and the last merges few partials.
+SPLITS = 8
+# A chunk's run is at least this many tiles: its partial is g*T rows of
+# f32, as large as the run's K/V at 2 * g*T / split_keys, so a chunk
+# splits only rows long enough to fill the card with few runs.
+CHUNK_RUN_TILES = 8
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -61,29 +75,43 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.paged_attention_split_limit.restype = ctypes.c_int
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
+    lib.paged_attention_workspace.argtypes = [i32] * 7 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.paged_attention_workspace.restype = i64
     lib.paged_attention_launch.argtypes = (
-        [ptr] * 8 + [i32] * 13 + [i64] * 13 + [f32, f32, ptr])
+        [ptr] * 9 + [i32] * 13 + [i64] * 13 + [f32, f32, ptr])
     lib.paged_attention_launch.restype = ctypes.c_int
-    limits = (lib.paged_attention_split_limit(0),
-              lib.paged_attention_split_limit(1))
-    if limits != (SPLIT_ROWS, SPLIT_TILE):
+    limits = tuple(lib.paged_attention_split_limit(i) for i in range(3))
+    if limits != (SPLIT_ROWS, SPLIT_TILE, CHUNK_SPLITS):
         raise RuntimeError(f"paged_attention: the built kernel's split "
                            f"limits {limits} are not "
-                           f"{(SPLIT_ROWS, SPLIT_TILE)}")
+                           f"{(SPLIT_ROWS, SPLIT_TILE, CHUNK_SPLITS)}")
 
 
-def split_plan(B: int, Hkv: int, P: int, ps: int) -> tuple:
-    """(n_split, keys per split) of a split-KV pass, from the static
-    shapes only: never from ``lens``, whose values would need a
-    device-to-host read.  Each split is whole pages covering at least one
-    64-key tile (a multiple of it), as many splits as keep B * Hkv *
-    n_split under ``_MAX_SPLIT_BLOCKS``; the splits cover all P * ps
-    positions, and those past a row's length cost an empty block."""
-    tile_pages = -(-SPLIT_TILE // ps)
-    per_row = max(1, _MAX_SPLIT_BLOCKS // max(1, B * Hkv))
-    pages = max(tile_pages, -(-P // per_row))
-    pages = -(-pages // tile_pages) * tile_pages
-    return max(1, -(-P // pages)), pages * ps
+def split_plan(T: int, positions: int, ring: int = 0, window: int = 0,
+               chunk: bool = False) -> tuple:
+    """(split_keys, n_split) of a split-KV pass, from the static shapes of
+    one row: T queries over a table of ``positions`` (P * page_size)
+    slots, or a ring of ``ring``, with an optional ``window``; never from
+    the batch, the kv heads or ``lens`` (a device-to-host read).  A row's
+    keys, [lo, hi) from the row's own key_lo (or the first query's window
+    edge) to its key end, are at most ``ring`` or ``positions``, and
+    ``window + T - 1``; they are cut into runs of ``split_keys`` (whole
+    64-key tiles) from lo on the device: about ``SPLITS`` runs for a
+    decode (the ``split`` route), runs of at least ``CHUNK_RUN_TILES``
+    tiles and at most ``CHUNK_SPLITS`` of them for a chunk (``chunk``:
+    the ``wgmma`` route).  A batch row's sums run in the same order alone
+    as in any batch."""
+    keys = ring if ring else positions
+    if window:
+        keys = min(keys, window + T - 1)
+    tiles = max(1, -(-keys // SPLIT_TILE))
+    if chunk:
+        n = min(CHUNK_SPLITS, -(-tiles // CHUNK_RUN_TILES))
+        run = -(-tiles // n)
+    else:
+        run = max(1, (tiles + SPLITS // 2) // SPLITS)
+    return SPLIT_TILE * run, -(-tiles // run)
 
 
 def _aligned(t: torch.Tensor) -> bool:
@@ -96,18 +124,28 @@ def _aligned(t: torch.Tensor) -> bool:
 
 def route(q: torch.Tensor, k_pages: torch.Tensor,
           v_pages: torch.Tensor) -> str:
-    """The kernel route for these operands: ``split`` when the g*T query
-    rows of a kv head fit one split block (decode), else ``chunk_tc`` for
-    bf16; both need a head_dim of 16, 32, 64, 80 or 128 and 16-byte
-    aligned rows.  Everything else takes ``simt``."""
+    """The kernel route for these operands: for bf16 at a head_dim of 16,
+    32, 64, 80 or 128 with 16-byte aligned rows, ``split`` when the g*T
+    query rows of a kv head fit one 16-row tile (decode), else ``wgmma``.
+    Everything else (float32 included: no TF32) takes ``simt``."""
     B, T, H, hd = q.shape
     g = H // k_pages.shape[2]
-    if hd not in _FAST_HEAD_DIMS or not all(
+    if q.dtype != torch.bfloat16 or hd not in _FAST_HEAD_DIMS or not all(
             map(_aligned, (q, k_pages, v_pages))):
         return "simt"
-    if g * T <= SPLIT_ROWS:
-        return "split"
-    return "chunk_tc" if q.dtype == torch.bfloat16 else "simt"
+    return "split" if g * T <= SPLIT_ROWS else "wgmma"
+
+
+def plan(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+         block: torch.Tensor, ring: int = 0, window: int = 0) -> tuple:
+    """(route, (split_keys, n_split) or None) of a call on the card: the
+    :func:`route`, and for the two split-KV routes :func:`split_plan` of
+    one row of these shapes (the batch never enters it)."""
+    way = route(q, k_pages, v_pages)
+    if way == "simt":
+        return way, None
+    return way, split_plan(q.shape[1], block.shape[1] * k_pages.shape[1],
+                           ring, window, chunk=way == "wgmma")
 
 
 def _check(q, k_pages, v_pages, block, lens, kv_lens, ring: int,
@@ -192,7 +230,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         # The kernel reads a ring row's count from kv_lens: lens here, and
         # it stays lens when a simt chunk is split along T below.
         kv_lens = lens
-    global launches, combine_launches, simt_launches, ring_launches
+    global launches, split_launches, simt_launches, ring_launches
     lib = kbuild.load(SOURCE, _declare)
     B, T, H, hd = q.shape
     ps, Hkv = k_pages.shape[1], k_pages.shape[2]
@@ -200,19 +238,25 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     g = H // Hkv
     out = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    way = route(q, k_pages, v_pages)
-    n_split, split_keys, part, t_max = 1, 0, None, T
-    if way == "split":
-        n_split, split_keys = split_plan(B, Hkv, P, ps)
-        # Each split's (m, l) and f32 accumulator, for the combine launch.
-        part = torch.empty(B * Hkv * n_split * g * T * (hd + 2),
-                           dtype=torch.float32, device=q.device)
-    elif way == "simt":
+    way, runs = plan(q, k_pages, v_pages, block, ring, window)
+    split_keys, n_split, part, count, t_max = 0, 1, None, None, T
+    if way == "simt":
         t_max = lib.paged_attention_max_rows(hd, ps) // g
         if t_max < 1:
             raise ValueError(f"paged_attention: head_dim {hd} with {g} "
                              "query heads per kv head does not fit shared "
                              "memory")
+    else:
+        split_keys, n_split = runs
+        n_count = ctypes.c_int(0)
+        floats = lib.paged_attention_workspace(
+            ROUTES.index(way), B, T, H, Hkv, hd, n_split,
+            ctypes.byref(n_count))
+        if floats:
+            # Each run's f32 accumulator and (max, sum) of its rows, for
+            # the merge in the launch.
+            part = torch.empty(floats, dtype=torch.float32, device=q.device)
+            count = arrival_counters(q.device, stream, n_count.value)
     for t0 in range(0, T, t_max):
         # A chunk too long for one block's shared memory (simt) is split
         # along T: queries [t0, t1) are the newest of a row t1 - T shorter
@@ -224,7 +268,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             qs.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block.data_ptr(), ln.data_ptr(),
             None if kv_lens is None else kv_lens.data_ptr(), os_.data_ptr(),
-            None if part is None else part.data_ptr(), _DTYPES[q.dtype],
+            None if part is None else part.data_ptr(),
+            None if count is None else count.data_ptr(), _DTYPES[q.dtype],
             ROUTES.index(way), B, t1 - t0, H, Hkv, hd, ps, P, n_split,
             split_keys, ring, window, qs.stride(0), qs.stride(1), qs.stride(2),
             k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
@@ -235,7 +280,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             raise RuntimeError(f"paged_attention: kernel launch failed "
                                f"(cudaError {err})")
         launches += 1
-        combine_launches += way == "split"
+        split_launches += way == "split"
         simt_launches += way == "simt"
         ring_launches += ring > 0
     return out

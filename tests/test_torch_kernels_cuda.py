@@ -3,9 +3,14 @@ against their plain PyTorch versions, on the card (``pytest -m cuda``).
 Paged: the reference test shapes in float32 (1e-4: the summation order
 differs) and bfloat16 (3e-2), poison pages, zero-length rows, a strided
 per-layer pool view, a chunk that reaches past the block table and one
-split along T; the split-KV decode and its combine (B=8, ps=16; the
-ps=64 identity pages of a dense ring), the T=64 tensor-core chunk with
-softcap, bit-identical repeats.  Flash: the cases of the JAX package's
+split along T; the bf16 split-KV decode merged in its launch (B=8,
+ps=16; the ps=64 identity pages of a dense ring), the T=64 wgmma chunk
+with softcap, bit-identical repeats, at the smollm, olmoe and gemma-ring
+shapes a batch row bit-identical alone and in a batch of 8 on both
+routes, two streams' arrival counters apart and a call leaving them at
+0, NaN-poisoned pages past each row's key end never read, rows with no
+key exact zeros, and head dims 16/32/64/80/128 with and without a
+softcap.  Flash: the cases of the JAX package's
 flash tests, ragged T and S, a strided ring slice, rows that see no key,
 the forward's log-sum-exp, the non-causal route at the cross and encoder
 shapes of llama-3.2-vision-11b and whisper-tiny; the forward's split and
@@ -189,44 +194,54 @@ def _main_pool(seed, B, T, lens, ps=16, P=64, n_pages=512, H=9, Hkv=3,
 @pytest.mark.parametrize("dtype,atol", [("float32", 1e-4),
                                         ("bfloat16", 3e-2)])
 def test_split_kv_decode_and_combine_on_card(cuda_device, dtype, atol):
-    """The slot_paged decode shape (B=8, ps=16, P=64: 16 splits of 64
-    keys): a lens=0 row, rows shorter than one split, a row that ends on
-    a split's edge, the full table; one split launch and one combine."""
+    """The slot_paged decode shape (B=8, ps=16, P=64: 8 runs of 128
+    keys): a lens=0 row, rows shorter than one run, a row that ends on a
+    run's edge, the full table; bf16 on the split route, one launch with
+    its merge (the name is the test's from when a combine launch
+    followed), f32 on the CUDA-core route."""
     lens = [0, 5, 63, 64, 65, 300, 545, 1024]
     q, kv, vv, block, ln = _main_pool(30, 8, 1, lens)
     dt = getattr(torch, dtype)
     q, kv, vv = q.to(dt), kv.to(dt), vv.to(dt)
-    assert pa_mod.route(q, kv, vv) == "split"
-    assert pa_mod.split_plan(8, 3, 64, 16) == (16, 64)
-    before = (pa_mod.launches, pa_mod.combine_launches)
+    split_route = dtype == "bfloat16"
+    assert pa_mod.plan(q, kv, vv, block) == (
+        ("split", (128, 8)) if split_route else ("simt", None))
+    before = (pa_mod.launches, pa_mod.split_launches)
     out = pa_mod.paged_attention(q, kv, vv, block, ln)
     torch.cuda.synchronize()
-    assert (pa_mod.launches, pa_mod.combine_launches) == (before[0] + 1,
-                                                          before[1] + 1)
+    assert (pa_mod.launches, pa_mod.split_launches) == (
+        before[0] + 1, before[1] + split_route)
     want = tref.paged_attention_ref(q, kv, vv, block, ln)
     torch.testing.assert_close(out.float(), want.float(), atol=atol,
                                rtol=atol)
     assert torch.count_nonzero(out[0]) == 0
     split = tref.paged_attention_split_ref(q, kv, vv, block, ln,
-                                           split_keys=64)
+                                           split_keys=128)
     torch.testing.assert_close(out.float(), split.float(), atol=atol,
                                rtol=atol)
 
 
 @pytest.mark.cuda
 def test_split_kv_single_split_and_t_gt_1_on_card(cuda_device):
-    """A table of 64 positions is one split (its combine merges one
-    partial); T=4 decode rows (g*T = 12) with lens below T; softcap."""
+    """A table of 64 positions is one run (its rows written directly, no
+    partial); T=4 decode rows (g*T = 12) with lens below T; softcap: f32
+    on the CUDA-core route within 1e-4, bf16 on the split route within
+    3e-2."""
     q, kv, vv, block, ln = _main_pool(31, 3, 4, [2, 0, 40], P=4,
                                       n_pages=32)
-    assert pa_mod.route(q, kv, vv) == "split"
-    assert pa_mod.split_plan(3, 3, 4, 16) == (1, 64)
-    before = pa_mod.combine_launches
+    assert pa_mod.route(q, kv, vv) == "simt"
     out = pa_mod.paged_attention(q, kv, vv, block, ln, softcap=20.0)
-    torch.cuda.synchronize()
-    assert pa_mod.combine_launches == before + 1
     want = tref.paged_attention_ref(q, kv, vv, block, ln, softcap=20.0)
     torch.testing.assert_close(out, want, atol=1e-4, rtol=1e-4)
+    q, kv, vv = (t.to(torch.bfloat16) for t in (q, kv, vv))
+    assert pa_mod.plan(q, kv, vv, block) == ("split", (64, 1))
+    before = pa_mod.split_launches
+    out = pa_mod.paged_attention(q, kv, vv, block, ln, softcap=20.0)
+    torch.cuda.synchronize()
+    assert pa_mod.split_launches == before + 1
+    want = tref.paged_attention_ref(q, kv, vv, block, ln, softcap=20.0)
+    torch.testing.assert_close(out.float(), want.float(), atol=3e-2,
+                               rtol=3e-2)
     assert torch.count_nonzero(out[1]) == 0
     assert torch.count_nonzero(out[0, :2]) == 0
 
@@ -252,8 +267,8 @@ def test_split_kv_identity_pages_on_card(cuda_device, dtype, atol):
                       device=cuda_device)
     q = torch.from_numpy(rng.normal(size=(B, 1, 9, hd)).astype(
         np.float32)).to(cuda_device, dt)
-    assert pa_mod.route(q, kp, vp) == "split"
-    assert pa_mod.split_plan(B, Hkv, size // ps, ps) == (16, 64)
+    assert pa_mod.plan(q, kp, vp, block) == (
+        ("split", (128, 8)) if dtype == "bfloat16" else ("simt", None))
     out = pa_mod.paged_attention(q, kp, vp, block, ln)
     want = tref.paged_attention_ref(q, kp, vp, block, ln)
     torch.testing.assert_close(out.float(), want.float(), atol=atol,
@@ -263,17 +278,18 @@ def test_split_kv_identity_pages_on_card(cuda_device, dtype, atol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("softcap", [0.0, 30.0])
 def test_chunk_tensor_cores_on_card(cuda_device, softcap):
-    """A T=64 bf16 chunk (g*T = 192 rows) on the tensor cores: causal to
-    each row's lens, a row shorter than T, one past the table, softcap."""
+    """A T=64 bf16 chunk (g*T = 192 rows, 3 warpgroups of one block per
+    kv head) on wgmma: causal to each row's lens, a row shorter than T,
+    one past the table, softcap."""
     lens = [64, 300, 40, 1100]
     q, kv, vv, block, ln = _main_pool(33, 4, 64, lens)
     q, kv, vv = (t.to(torch.bfloat16) for t in (q, kv, vv))
-    assert pa_mod.route(q, kv, vv) == "chunk_tc"
-    before = (pa_mod.launches, pa_mod.combine_launches)
+    assert pa_mod.plan(q, kv, vv, block) == ("wgmma", (512, 2))
+    before = (pa_mod.launches, pa_mod.split_launches)
     out = pa_mod.paged_attention(q, kv, vv, block, ln, softcap=softcap)
     torch.cuda.synchronize()
-    assert (pa_mod.launches, pa_mod.combine_launches) == (before[0] + 1,
-                                                          before[1])
+    assert (pa_mod.launches, pa_mod.split_launches) == (before[0] + 1,
+                                                        before[1])
     want = tref.paged_attention_ref(q, kv, vv, block, ln, softcap=softcap)
     torch.testing.assert_close(out.float(), want.float(), atol=3e-2,
                                rtol=3e-2)
@@ -312,31 +328,32 @@ KV_LENS_CASES = {
 @pytest.mark.parametrize("dtype,atol", [("float32", 1e-4),
                                         ("bfloat16", 3e-2)])
 def test_kv_lens_at_olmoe_shapes_on_card(cuda_device, T, dtype, atol):
-    """The written-key bound on every route at hd 128, g 1: the split-KV
-    decode (8 splits of 128 keys + combine), the bf16 tensor-core chunk
-    and the f32 CUDA-core chunk, against both plain versions; rows with
-    kv_lens 0 are exact zeros, and kv_lens = lens changes no bit."""
+    """The written-key bound on every route at hd 128, g 1: the bf16
+    split-KV decode (8 runs of 128 keys, merged in the launch) and wgmma
+    chunk (2 runs of 512), and f32 on the CUDA-core route, against both
+    plain versions; rows with kv_lens 0 are exact zeros, and kv_lens =
+    lens changes no bit."""
     lens, kv = KV_LENS_CASES[T]
     dt = getattr(torch, dtype)
     q, kv_w, vv_w, block, ln = (
         t.to(dt) if t.is_floating_point() else t
         for t in _main_pool(40 + T, 8, T, lens, **OLMOE_POOL))
     kl = torch.tensor(kv, dtype=torch.int32, device=cuda_device)
-    way = pa_mod.route(q, kv_w, vv_w)
-    assert way == ("split" if T == 1 else
-                   "chunk_tc" if dtype == "bfloat16" else "simt")
-    if way == "split":
-        assert pa_mod.split_plan(8, 16, 64, 16) == (8, 128)
-    before = (pa_mod.launches, pa_mod.combine_launches)
+    way, runs = pa_mod.plan(q, kv_w, vv_w, block)
+    assert (way, runs) == (("simt", None) if dtype == "float32" else
+                           ("split", (128, 8)) if T == 1 else
+                           ("wgmma", (512, 2)))
+    before = (pa_mod.launches, pa_mod.split_launches)
     out = pa_mod.paged_attention(q, kv_w, vv_w, block, ln, kv_lens=kl)
     torch.cuda.synchronize()
     assert pa_mod.launches > before[0]
-    assert pa_mod.combine_launches - before[1] == (way == "split")
+    assert pa_mod.split_launches - before[1] == (way == "split")
     want = tref.paged_attention_ref(q, kv_w, vv_w, block, ln, kv_lens=kl)
     torch.testing.assert_close(out.float(), want.float(), atol=atol,
                                rtol=atol)
-    split = tref.paged_attention_split_ref(q, kv_w, vv_w, block, ln,
-                                           split_keys=128, kv_lens=kl)
+    split = tref.paged_attention_split_ref(
+        q, kv_w, vv_w, block, ln, split_keys=runs[0] if runs else 128,
+        kv_lens=kl)
     torch.testing.assert_close(out.float(), split.float(), atol=atol,
                                rtol=atol)
     assert torch.count_nonzero(out[kl == 0]) == 0
@@ -382,8 +399,8 @@ def _ring_setup(seed, T, cps, n_valid, dtype, device):
 @pytest.mark.parametrize("dtype,atol", [("float32", 2e-5),
                                         ("bfloat16", 3e-2)])
 def test_ring_bound_on_card(cuda_device, name, window, dtype, atol):
-    """The ring bound on every route (split + combine at T=1, the bf16
-    tensor-core chunk and the f32 CUDA-core chunk, split along T, at
+    """The ring bound on every route (in bf16 the split decode at T=1 and
+    the wgmma chunk at T=64, in f32 the CUDA-core route, split along T at
     T=64) at gemma's local-layer shapes, against both plain versions;
     queries that see no key are exact zeros; two calls bit-identical."""
     T, cps, n_valid = RING_CASES[name]
@@ -391,9 +408,9 @@ def test_ring_bound_on_card(cuda_device, name, window, dtype, atol):
     q, k, v, block, lens, kv = _ring_setup(80 + T, T, cps, n_valid, dt,
                                            cuda_device)
     kw = dict(kv_lens=kv, ring=RING["size"], window=window)
-    way = pa_mod.route(q, k, v)
-    assert way == ("split" if T == 1 else
-                   "chunk_tc" if dtype == "bfloat16" else "simt")
+    way, runs = pa_mod.plan(q, k, v, block, RING["size"], window)
+    assert way == ("simt" if dtype == "float32" else
+                   "split" if T == 1 else "wgmma")
     before = pa_mod.ring_launches
     out = pa_mod.paged_attention(q, k, v, block, lens, **kw)
     again = pa_mod.paged_attention(q, k, v, block, lens, **kw)
@@ -403,8 +420,8 @@ def test_ring_bound_on_card(cuda_device, name, window, dtype, atol):
     want = tref.paged_attention_ref(q, k, v, block, lens, **kw)
     torch.testing.assert_close(out.float(), want.float(), atol=atol,
                                rtol=atol)
-    split_keys = pa_mod.split_plan(RING["B"], RING["Hkv"], block.shape[1],
-                                   RING["ps"])[1]
+    split_keys = pa_mod.split_plan(T, block.shape[1] * RING["ps"],
+                                   RING["size"], window, T > 1)[0]
     split = tref.paged_attention_split_ref(q, k, v, block, lens, split_keys,
                                            **kw)
     torch.testing.assert_close(out.float(), split.float(), atol=atol,
@@ -431,6 +448,129 @@ def test_ring_bound_unwrapped_is_the_plain_bound_on_card(cuda_device, T,
                                     ring=RING["size"])
     torch.cuda.synchronize()
     assert torch.equal(plain, ringed)
+
+
+# The tensor-core routes at the served shapes: (H, Hkv, hd, ps, P, ring,
+# window) of smollm's slot_paged pool, olmoe's and gemma3-27b's local
+# ring (identity pages of 64 slots), and per T the rows' lens: a lens=0
+# row, rows shorter than one run, on a run's edge, long ones.
+ROUTE_SHAPES = {
+    "smollm": (9, 3, 64, 16, 64, 0, 0),
+    "olmoe": (16, 16, 128, 16, 64, 0, 0),
+    "gemma_ring": (32, 16, 128, 64, 16, 1024, 1024),
+}
+ROUTE_LENS = {1: [0, 5, 63, 64, 65, 300, 545, 1024],
+              64: [64, 40, 0, 300, 512, 576, 1024, 1100]}
+
+
+def _poisoned_pool(seed, B, T, H, Hkv, hd, ps, P, ring, lens, device):
+    """bf16 q and a strided layer view of a [n_pages, ps, 2, Hkv, hd] pool
+    whose slots that hold no key of their row (past its key end, or a
+    ring's slots not yet written) are NaN; rows on disjoint scattered
+    pages (identity pages for a ring); lens as given (a ring's count n =
+    lens)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n_pages = B * P + 4
+    pool = torch.randn((2, n_pages, ps, 2, Hkv, hd), generator=g,
+                       device=device).to(torch.bfloat16)
+    q = torch.randn((B, T, H, hd), generator=g,
+                    device=device).to(torch.bfloat16)
+    if ring:
+        block = torch.arange(B * P, dtype=torch.int32,
+                             device=device).view(B, P)
+    else:
+        block = torch.randperm(n_pages, generator=g, device=device)[
+            :B * P].reshape(B, P).to(torch.int32)
+    held = torch.zeros((n_pages, ps), dtype=torch.bool, device=device)
+    for b, n in enumerate(lens):
+        keys = (torch.arange(max(0, n - ring), n, device=device) if ring
+                else torch.arange(min(n, P * ps), device=device))
+        slots = keys % ring if ring else keys
+        held[block[b].long()[slots // ps], slots % ps] = True
+    layer = pool[:, :, :, 1]                   # a view: writes reach pool
+    layer[:, ~held] = float("nan")
+    ln = torch.tensor(lens, dtype=torch.int32, device=device)
+    return q, pool[0, :, :, 1], pool[1, :, :, 1], block, ln
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", sorted(ROUTE_LENS))
+@pytest.mark.parametrize("shape", sorted(ROUTE_SHAPES))
+def test_paged_batch_rows_alone_on_card(cuda_device, shape, T):
+    """At the smollm, olmoe and gemma-ring shapes, on the split route
+    (T=1) and the wgmma route (T=64): each batch row's output bit-equal
+    to the row alone (the plan never reads the batch), within 3e-2 of the
+    plain version, NaN in every slot past a row's keys never read, a row
+    with no key (or a query before position 0) exact zeros, and the
+    arrival counters back at 0."""
+    H, Hkv, hd, ps, P, ring, window = ROUTE_SHAPES[shape]
+    lens = ROUTE_LENS[T]
+    if ring:                                   # counts past the ring
+        lens = [n + 700 if n > 100 else n for n in lens]
+    q, k, v, block, ln = _poisoned_pool(60, 8, T, H, Hkv, hd, ps, P, ring,
+                                        lens, cuda_device)
+    kw = dict(ring=ring, window=window, kv_lens=ln if ring else None)
+    way = pa_mod.plan(q, k, v, block, ring, window)[0]
+    assert way == ("split" if T == 1 else "wgmma")
+    out = pa_mod.paged_attention(q, k, v, block, ln, **kw)
+    torch.cuda.synchronize()
+    assert not torch.isnan(out).any()
+    for b in range(8):
+        one = dict(kw, kv_lens=None if kw["kv_lens"] is None
+                   else ln[b:b + 1])
+        alone = pa_mod.paged_attention(q[b:b + 1], k, v, block[b:b + 1],
+                                       ln[b:b + 1], **one)
+        assert torch.equal(alone, out[b:b + 1]), b
+    clean = [torch.nan_to_num(t) for t in (k, v)]
+    want = tref.paged_attention_ref(q, *clean, block, ln, **kw).float()
+    torch.testing.assert_close(out.float(), want, atol=3e-2, rtol=3e-2)
+    empty = want.abs().amax((2, 3)) == 0               # [B, T]
+    assert empty.any() and torch.count_nonzero(out[empty]) == 0
+    assert all(int(c.abs().sum()) == 0 for c in fa_mod._COUNTERS.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 64])
+def test_paged_split_counters_are_per_stream(cuda_device, T):
+    """The arrival counters of both tensor-core routes belong to a
+    (device, stream): the same call on two streams, one after the other,
+    uses two counter arrays, each left at 0, and gives the same bits."""
+    q, k, v, block, ln = _poisoned_pool(61, 8, T, 16, 16, 128, 16, 64, 0,
+                                        ROUTE_LENS[T], cuda_device)
+    outs = []
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for stream in streams:
+        with torch.cuda.stream(stream):
+            outs.append(pa_mod.paged_attention(q, k, v, block, ln))
+        stream.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    mine = [fa_mod._COUNTERS[(q.device.index, st.cuda_stream)]
+            for st in streams]
+    assert mine[0].data_ptr() != mine[1].data_ptr()
+    assert all(int(c.abs().sum()) == 0 for c in mine)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("T", [1, 64])
+def test_paged_routes_at_head_dims_on_card(cuda_device, T, hd, cap):
+    """Every head dim of the split (T=1) and wgmma (T=64) instances, with
+    and without a softcap, 9/3 heads over a strided pool view: within
+    3e-2 of the plain version, NaN past each row's keys never read, rows
+    with no key exact zeros, two calls bit-identical."""
+    q, k, v, block, ln = _poisoned_pool(62 + hd, 8, T, 9, 3, hd, 16, 64, 0,
+                                        ROUTE_LENS[T], cuda_device)
+    assert pa_mod.route(q, k, v) == ("split" if T == 1 else "wgmma")
+    out = pa_mod.paged_attention(q, k, v, block, ln, softcap=cap)
+    again = pa_mod.paged_attention(q, k, v, block, ln, softcap=cap)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and not torch.isnan(out).any()
+    want = tref.paged_attention_ref(q, *(torch.nan_to_num(t) for t in (k, v)),
+                                    block, ln, softcap=cap).float()
+    torch.testing.assert_close(out.float(), want, atol=3e-2, rtol=3e-2)
+    empty = want.abs().amax((2, 3)) == 0
+    assert torch.count_nonzero(out[empty]) == 0
 
 
 # ---------------------------------------------------------------------------
@@ -1227,7 +1367,7 @@ def test_flash_hd80_on_card(cuda_device, B, T, S):
                                     (64, [64, 300, 700, 1024])])
 def test_paged_hd80_on_card(cuda_device, T, lens):
     """The paged kernel at hd 80 over a [4, 1024] ring viewed as 64-token
-    identity pages: bf16 on the split route (T=1) or ``paged_chunk_tc<80>``
+    identity pages: bf16 on the split route (T=1) or ``paged_chunk<80>``
     (T=64), no CUDA-core launch, bit-identical twice, within 3e-2 of the
     plain version (and of the plain split-KV version at T=1), zeros for a
     lens=0 row; ``kv_lens`` one tile short of each row's keys (the last
@@ -1250,16 +1390,16 @@ def test_paged_hd80_on_card(cuda_device, T, lens):
         want = tref.paged_attention_ref(qd, kp, vp, block, ln).float()
         assert torch.count_nonzero(out[ln <= 0]) == 0
         if dtype == torch.float32:
-            assert way == ("split" if T == 1 else "simt")
+            assert way == "simt"
             torch.testing.assert_close(out, want, atol=2e-5, rtol=0)
             continue
-        assert way == ("split" if T == 1 else "chunk_tc")
+        assert way == ("split" if T == 1 else "wgmma")
         assert pa_mod.simt_launches == before
         assert torch.equal(out, pa_mod.paged_attention(qd, kp, vp, block,
                                                        ln))
         assert (out.float() - want).abs().max().item() <= 3e-2
         if T == 1:
-            keys = pa_mod.split_plan(B, 32, P, ps)[1]
+            keys = pa_mod.plan(qd, kp, vp, block)[1][0]
             want2 = tref.paged_attention_split_ref(qd, kp, vp, block, ln,
                                                    keys).float()
             assert (out.float() - want2).abs().max().item() <= 3e-2

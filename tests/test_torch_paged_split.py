@@ -7,7 +7,8 @@ inputs, at several split sizes: splits wholly past a row's length, a
 zero-length row, rows shorter than one split, T=1 and T=8, page sizes
 8/16/64, GQA 9:3, 8:1 and 6:2, softcap.  Tolerance 2e-5 abs/rel (the
 reference's own; the split form sums in another order).  Also the split
-plan (a function of static shapes only) and the route the wrapper picks
+plan (a function of one row's static shapes, the same for a row alone
+and in a batch, covering the row's keys) and the route the wrapper picks
 for the card, both plain Python."""
 import inspect
 
@@ -155,32 +156,79 @@ def test_kv_lens_at_or_past_lens_changes_nothing():
 # The split plan and the route
 # ---------------------------------------------------------------------------
 def test_split_plan_takes_static_shapes_only():
-    """The plan is a function of (B, Hkv, P, ps) alone: no lens, so the
-    decode loop needs no device-to-host read to launch."""
+    """The plan is a function of one row's static shapes (T, the table's
+    positions, the ring bound, the route): no batch, no kv heads, no
+    lens, so the decode loop needs no device-to-host read to launch."""
     assert list(inspect.signature(pa_mod.split_plan).parameters) == [
-        "B", "Hkv", "P", "ps"]
-    assert pa_mod.split_plan(8, 3, 64, 16) == pa_mod.split_plan(8, 3, 64, 16)
+        "T", "positions", "ring", "window", "chunk"]
+    assert pa_mod.split_plan(1, 1024) == pa_mod.split_plan(1, 1024)
 
 
-@pytest.mark.parametrize("B,Hkv,P,ps,want", [
-    (8, 3, 64, 16, (16, 64)),      # slot_paged decode: 384 blocks
-    (4, 3, 16, 64, (16, 64)),      # slot_fused: the ring as 64-token pages
-    (3, 2, 4, 8, (1, 64)),         # 32 positions: one split
-    (64, 8, 2048, 16, (2, 16384)), # 512 (b, kv head) pairs: 2 splits
+@pytest.mark.parametrize("T,positions,ring,window,chunk,want", [
+    (1, 1024, 0, 0, False, (128, 8)),      # slot_paged decode: P=64, ps=16
+    (1, 1024, 0, 0, False, (128, 8)),      # slot_fused: the ring as 64-token
+    (1, 32, 0, 0, False, (64, 1)),         # 32 positions: one run
+    (1, 32768, 0, 0, False, (4096, 8)),    # 2048 pages of 16
+    (64, 1024, 0, 0, True, (512, 2)),      # slot_paged chunk
+    (1, 1024, 1024, 1024, False, (128, 8)),  # gemma's ring, decode
+    (64, 1024, 1024, 1024, True, (512, 2)),  # gemma's ring, chunk
+    (1, 4096, 1024, 200, False, (64, 4)),  # a window inside the ring
 ])
-def test_split_plan_main_shapes(B, Hkv, P, ps, want):
-    assert pa_mod.split_plan(B, Hkv, P, ps) == want
+def test_split_plan_main_shapes(T, positions, ring, window, chunk, want):
+    assert pa_mod.split_plan(T, positions, ring, window, chunk) == want
 
 
-@pytest.mark.parametrize("B,Hkv,P,ps", [
-    (1, 1, 1, 4), (8, 3, 64, 16), (4, 3, 16, 64), (2, 2, 7, 128),
-    (32, 8, 513, 16), (1, 1, 0, 16),
+def _walk_keys(T, positions, ring, window):
+    """The most keys a row's walk holds: the table's or the ring's, and
+    with a window no more than window + T - 1."""
+    keys = ring or positions
+    return min(keys, window + T - 1) if window else keys
+
+
+@pytest.mark.parametrize("T,positions,ring,window,chunk", [
+    (1, 4, 0, 0, False), (1, 1024, 0, 0, False), (4, 1024, 0, 0, False),
+    (1, 896, 0, 0, False), (64, 8208, 0, 0, True), (1, 0, 0, 0, False),
+    (64, 1024, 1000, 0, True), (1, 2048, 1024, 300, False),
+    (128, 32768, 0, 0, True),
 ])
-def test_split_plan_covers_the_table_in_whole_tiles(B, Hkv, P, ps):
-    n_split, keys = pa_mod.split_plan(B, Hkv, P, ps)
-    assert n_split >= 1 and keys % pa_mod.SPLIT_TILE == 0 and keys % ps == 0
-    assert n_split * keys >= P * ps
-    assert (n_split - 1) * keys < max(1, P * ps)   # no split wholly past P
+def test_split_plan_covers_the_table_in_whole_tiles(T, positions, ring,
+                                                     window, chunk):
+    keys, n_split = pa_mod.split_plan(T, positions, ring, window, chunk)
+    walk = _walk_keys(T, positions, ring, window)
+    assert n_split >= 1 and keys % pa_mod.SPLIT_TILE == 0
+    assert n_split * keys >= walk
+    assert (n_split - 1) * keys < max(1, walk)    # no run wholly past it
+    assert n_split <= (pa_mod.CHUNK_SPLITS if chunk else 64)
+
+
+@pytest.mark.parametrize("T,lens,kv_lens,ring,window", [
+    (1, [0, 5, 63, 64, 65, 300, 545, 1024], None, 0, 0),
+    (64, [64, 300, 40, 1100, 1024, 128, 900, 64], None, 0, 0),
+    (1, [700, 1024, 1500, 2047, 1, 64, 1025, 1900],
+     [700, 1024, 1500, 2047, 0, 64, 1025, 1900], 1024, 1024),
+    (64, [700, 1024, 1500, 2047, 64, 100, 1088, 2000],
+     [690, 1024, 1500, 2000, 64, 100, 1088, 1999], 1024, 200),
+])
+def test_split_plan_of_a_row_alone_and_in_a_batch(T, lens, kv_lens, ring,
+                                                  window):
+    """The plan a row gets is the same alone (B=1) and in a batch of 8,
+    and its runs cover the row's whole walk: from its key_lo (or its
+    first query's window edge) to its key end."""
+    def inputs(B):
+        q = torch.zeros((B, T, 9, 64), dtype=torch.bfloat16)
+        pages = torch.zeros((8, 64, 3, 64), dtype=torch.bfloat16)
+        return q, pages, pages, torch.zeros((B, 16), dtype=torch.int32)
+    batch = pa_mod.plan(*inputs(8), ring=ring, window=window)
+    assert batch == pa_mod.plan(*inputs(1), ring=ring, window=window)
+    assert batch[0] == ("split" if T == 1 else "wgmma")
+    keys, n_split = batch[1]
+    for b, n in enumerate(lens):
+        end = min(n, 1024) if kv_lens is None else kv_lens[b]
+        lo = max(0, end - ring) if ring else 0
+        if window:
+            lo = max(lo, n - T - window + 1)
+        hi = min(end, n)
+        assert n_split * keys >= hi - lo, (b, n)
 
 
 def _route(dtype, B, T, H, Hkv, hd, ps=16, view=False):
@@ -196,13 +244,13 @@ def _route(dtype, B, T, H, Hkv, hd, ps=16, view=False):
 def test_route_by_shape():
     bf16, f32 = torch.bfloat16, torch.float32
     assert _route(bf16, 8, 1, 9, 3, 64, view=True) == "split"
-    assert _route(f32, 8, 1, 9, 3, 64) == "split"
+    assert _route(f32, 8, 1, 9, 3, 64) == "simt"             # no TF32
     assert _route(bf16, 2, 5, 9, 3, 64) == "split"           # 15 rows
-    assert _route(bf16, 8, 64, 9, 3, 64, view=True) == "chunk_tc"
-    assert _route(bf16, 2, 6, 9, 3, 64) == "chunk_tc"        # 18 rows
+    assert _route(bf16, 8, 64, 9, 3, 64, view=True) == "wgmma"
+    assert _route(bf16, 2, 6, 9, 3, 64) == "wgmma"        # 18 rows
     assert _route(f32, 8, 64, 9, 3, 64) == "simt"
     assert _route(bf16, 2, 1, 4, 2, 80) == "split"           # head_dim 80
-    assert _route(bf16, 2, 64, 32, 32, 80) == "chunk_tc"     # zamba's
+    assert _route(bf16, 2, 64, 32, 32, 80) == "wgmma"     # zamba's
     assert _route(bf16, 2, 1, 4, 2, 48) == "simt"            # head_dim 48
     assert _route(bf16, 2, 64, 4, 2, 12) == "simt"
 

@@ -138,7 +138,9 @@ def _serve_tokens(model, params, device, scheduler="slot_paged"):
 def test_olmoe_smoke_slot_paged_tokens_equal_the_cpu_on_card(cuda_device):
     """olmoe-1b-7b's SMOKE config (8 experts, top-4) at float32, weights
     x3 so streams vary: the card's greedy tokens under slot_paged, where
-    expert capacity binds behind idle rows, equal the CPU's."""
+    expert capacity binds behind idle rows, equal the CPU's; every paged
+    pass in float32 takes the CUDA-core route (the tensor-core routes
+    are bf16: no TF32)."""
     import dataclasses
 
     from repro_torch.configs import get_smoke_config
@@ -159,7 +161,8 @@ def test_olmoe_smoke_slot_paged_tokens_equal_the_cpu_on_card(cuda_device):
                         scaled(params, cuda_device), cuda_device)
     assert got == want
     assert pa_mod.launches > before[0]
-    assert pa_mod.simt_launches == before[1]
+    assert (pa_mod.simt_launches - before[1]
+            == pa_mod.launches - before[0])
 
 
 @pytest.mark.cuda
