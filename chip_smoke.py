@@ -14,7 +14,11 @@ each of which fails the run hard:
    five head dims with and without a softcap, the backward's, the NBB
    matmul's), no forward or backward instance a spill or a ``wgmma``
    that ptxas serialized, the forward's ``mma.sync`` tile kernel
-   (``flash_fwd_tc``) gone, every float32 (CUDA-core) one none;
+   (``flash_fwd_tc``) gone, every float32 (CUDA-core) one none; and
+   each built instance's shared memory, static (the compiler's) plus the
+   dynamic bytes its launches ask for at most, under the card's
+   ``shared_memory_per_block_optin``, the dynamic bytes equal to what
+   the wrappers compute from their tile constants;
 2. each kernel against its plain PyTorch version on the card: paged
    attention at the reference test shapes and the paged main path's (a
    strided per-layer view of a [512, 16, 30, 3, 64] pool), then its
@@ -577,6 +581,28 @@ def phase_build():
         print(f"  {name} SASS tensor-core instructions (HMMA/HGMMA): "
               + ", ".join(sorted(f"{demangle(f)} {n}"
                                  for f, n in counts.items())))
+    phase_smem()
+
+
+def phase_smem() -> None:
+    """Phase 1's shared-memory line of each library: every instance's
+    static + dynamic bytes and their share of the card's opt-in limit a
+    block; fails if one exceeds it or if a library's instances or dynamic
+    sizes differ from its wrapper's (``ops.shared_memory``)."""
+    import torch
+    from repro_torch.kernels import ops
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    print(f"shared memory a block may ask for (opt-in): {optin} bytes")
+    for name, (rows, want) in ops.shared_memory().items():
+        check({r[0]: r[2] for r in rows} == want,
+              f"{name}: the built instances' dynamic shared memory "
+              f"{rows} is not the wrapper's {want}")
+        over = [r for r in rows if r[1] + r[2] > optin]
+        check(not over, f"{name}: over the opt-in limit {optin}: {over}")
+        print(f"  {name} shared memory (static + dynamic, share of "
+              f"{optin}): " + ", ".join(
+                  f"{n} {st}+{dyn} ({(st + dyn) / optin:.1%})"
+                  for n, st, dyn in rows))
 
 
 def demangle(mangled: str) -> str:

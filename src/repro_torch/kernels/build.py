@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # <repo>/build/kernels: listed in .gitignore, built at first use.
@@ -25,6 +25,11 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 _libs: Dict[Path, ctypes.CDLL] = {}
 _lock = threading.Lock()
+
+# The most shared memory a block may ask for on an H100 (sm_90's opt-in
+# limit, 227 KB; the sources' ``kMaxSmemBytes``): static and dynamic
+# together.
+SMEM_PER_BLOCK = 232448
 
 
 def nvcc() -> str:
@@ -83,3 +88,25 @@ def load(source: Path, declare: Callable[[ctypes.CDLL], None]
             declare(lib)
             _libs[source] = lib
         return lib
+
+
+def smem_report(lib: ctypes.CDLL, prefix: str) -> List[Tuple[str, int, int]]:
+    """[(instance, static bytes, dynamic bytes)] of every kernel instance
+    in a loaded library, from its ``<prefix>_smem``: the static bytes the
+    compiler gave the kernel (``cudaFuncGetAttributes``) and the dynamic
+    bytes its launches ask for at most."""
+    fn = getattr(lib, f"{prefix}_smem")
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p),
+                   ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    rows, i = [], 0
+    while True:
+        name, st, dyn = ctypes.c_char_p(), ctypes.c_int(), ctypes.c_int()
+        err = fn(i, ctypes.byref(name), ctypes.byref(st), ctypes.byref(dyn))
+        if err == -1:
+            return rows
+        if err != 0:
+            raise RuntimeError(f"{prefix}: reading instance {i}'s "
+                               f"attributes failed (cudaError {err})")
+        rows.append((name.value.decode(), st.value, dyn.value))
+        i += 1

@@ -804,6 +804,24 @@ cudaError_t launch_simt(const Params& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+#define FWD_SMEM_ROWS(HD)                                                  \
+  {"flash_fwd_split<" #HD ">", (const void*)flash_fwd_split<HD>,           \
+   split::smem_bytes<HD>()},                                               \
+  {"flash_fwd_wgmma<" #HD ", false>",                                      \
+   (const void*)flash_fwd_wgmma<HD, false>, wg::smem_bytes<HD>()},          \
+  {"flash_fwd_wgmma<" #HD ", true>",                                       \
+   (const void*)flash_fwd_wgmma<HD, true>, wg::smem_bytes<HD>()}
+
+const hopper::SmemRow kSmemRows[] = {
+    FWD_SMEM_ROWS(16), FWD_SMEM_ROWS(32), FWD_SMEM_ROWS(64),
+    FWD_SMEM_ROWS(80), FWD_SMEM_ROWS(128),
+    {"flash_fwd_simt<float>", (const void*)flash_fwd_simt<float>,
+     flash::kMaxSmemBytes},
+    {"flash_fwd_simt<bf16>", (const void*)flash_fwd_simt<bf16>,
+     flash::kMaxSmemBytes}};
+
+#undef FWD_SMEM_ROWS
+
 }  // namespace
 
 extern "C" {
@@ -823,6 +841,12 @@ int flash_attention_max_rows(int hd) {
 // block holds, 1 -> keys it stages at once (split_keys is a multiple).
 int flash_attention_split_limit(int which) {
   return which == 0 ? split::kRows : split::kChunk;
+}
+
+// Instance i's shared memory (hopper::smem_row): 0, -1 past the last.
+int flash_attention_smem(int i, const char** name, int* static_bytes,
+                         int* dynamic_bytes) {
+  return hopper::smem_row(kSmemRows, i, name, static_bytes, dynamic_bytes);
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  route: 0 = simt (CUDA cores,

@@ -866,9 +866,43 @@ cudaError_t launch_simt(const Params& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+#define BWD_SMEM_ROWS(HD)                                                  \
+  {"flash_bwd_dq_wgmma<" #HD ", false>",                                   \
+   (const void*)flash_bwd_dq_wgmma<HD, false>, tc::dq_smem_bytes<HD>()},    \
+  {"flash_bwd_dq_wgmma<" #HD ", true>",                                    \
+   (const void*)flash_bwd_dq_wgmma<HD, true>, tc::dq_smem_bytes<HD>()},     \
+  {"flash_bwd_dkdv_wgmma<" #HD ", false>",                                 \
+   (const void*)flash_bwd_dkdv_wgmma<HD, false>,                           \
+   tc::dkdv_smem_bytes<HD>(tc::kWarpgroups)},                              \
+  {"flash_bwd_dkdv_wgmma<" #HD ", true>",                                  \
+   (const void*)flash_bwd_dkdv_wgmma<HD, true>,                            \
+   tc::dkdv_smem_bytes<HD>(tc::kWarpgroups)}
+
+// The dK/dV pass at its most warpgroups a block (its launches ask for one
+// or two).
+const hopper::SmemRow kSmemRows[] = {
+    BWD_SMEM_ROWS(16), BWD_SMEM_ROWS(32), BWD_SMEM_ROWS(64),
+    BWD_SMEM_ROWS(80), BWD_SMEM_ROWS(128),
+    {"flash_bwd_dq_simt<float>", (const void*)flash_bwd_dq_simt<float>,
+     flash::kMaxSmemBytes},
+    {"flash_bwd_dkdv_simt<float>", (const void*)flash_bwd_dkdv_simt<float>,
+     flash::kMaxSmemBytes},
+    {"flash_bwd_dq_simt<bf16>", (const void*)flash_bwd_dq_simt<bf16>,
+     flash::kMaxSmemBytes},
+    {"flash_bwd_dkdv_simt<bf16>", (const void*)flash_bwd_dkdv_simt<bf16>,
+     flash::kMaxSmemBytes}};
+
+#undef BWD_SMEM_ROWS
+
 }  // namespace
 
 extern "C" {
+
+// Instance i's shared memory (hopper::smem_row): 0, -1 past the last.
+int flash_attention_bwd_smem(int i, const char** name, int* static_bytes,
+                             int* dynamic_bytes) {
+  return hopper::smem_row(kSmemRows, i, name, static_bytes, dynamic_bytes);
+}
 
 // dtype: 0 = float32, 1 = bfloat16.  route: 0 = CUDA cores, 1 = tensor
 // cores (bf16, hd 16/32/64/80/128, every row 16-byte aligned: the wrapper

@@ -4,6 +4,7 @@
 // cp.async copies, the async-proxy fence, wgmma matrix descriptors, the
 // wgmma fence/commit/wait and the m64nNk16 bf16 products with an f32
 // accumulator in registers, and the driver's tensor-map encoder.
+// Also the shared-memory report each library gives its wrapper.
 //
 // wgmma operands in shared memory are described by a 64-bit descriptor:
 // the start address, the leading and stride byte offsets (16-byte units)
@@ -391,6 +392,31 @@ inline EncodeTiledFn encode_tiled() {
       fn = reinterpret_cast<EncodeTiledFn>(p);
   }
   return fn;
+}
+
+// One kernel instance's shared memory, as a library reports it to its
+// wrapper: the dynamic bytes its launches ask for at most (the tiles fixed
+// in the source; for a CUDA-core instance sized by its shape, the limit
+// it sets) beside the static bytes the compiler gave it.
+struct SmemRow {
+  const char* name;
+  const void* fn;
+  int dynamic_bytes;
+};
+
+// Row i of `rows`: 0 with the name and both sizes set, -1 past the last
+// row, else the cudaError_t of reading the kernel's attributes.
+template <int N>
+int smem_row(const SmemRow (&rows)[N], int i, const char** name,
+             int* static_bytes, int* dynamic_bytes) {
+  if (i < 0 || i >= N) return -1;
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, rows[i].fn);
+  if (e != cudaSuccess) return e;
+  *name = rows[i].name;
+  *static_bytes = static_cast<int>(a.sharedSizeBytes);
+  *dynamic_bytes = rows[i].dynamic_bytes;
+  return 0;
 }
 
 }  // namespace hopper

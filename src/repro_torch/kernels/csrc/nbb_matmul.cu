@@ -356,6 +356,19 @@ cudaError_t launch_wgmma(const void* a, const void* b, void* c, int M, int N,
   return cudaGetLastError();
 }
 
+#define NBB_SMEM_ROW(I, NAME)                                              \
+  {NAME, (const void*)nbb_wgmma_kernel<kTiles[I].m, kTiles[I].n,            \
+                                       kTiles[I].slots>,                   \
+   WgmmaRing<kTiles[I].m, kTiles[I].n, kTiles[I].slots>::smem_bytes}
+
+// The float32 ring is static.
+const SmemRow kSmemRows[] = {
+    {"nbb_simt_kernel", (const void*)nbb_simt_kernel, 0},
+    NBB_SMEM_ROW(1, "nbb_wgmma_kernel<64, 64, 4>"),
+    NBB_SMEM_ROW(2, "nbb_wgmma_kernel<128, 128, 3>")};
+
+#undef NBB_SMEM_ROW
+
 }  // namespace
 
 extern "C" {
@@ -365,6 +378,12 @@ int nbb_matmul_tile(int instance, int which) {
   if (instance < 0 || instance > 2 || which < 0 || which > 3) return -1;
   const Tile& t = kTiles[instance];
   return which == 0 ? t.m : which == 1 ? t.n : which == 2 ? t.k : t.slots;
+}
+
+// Instance i's shared memory (hopper::smem_row): 0, -1 past the last.
+int nbb_matmul_smem(int i, const char** name, int* static_bytes,
+                    int* dynamic_bytes) {
+  return smem_row(kSmemRows, i, name, static_bytes, dynamic_bytes);
 }
 
 // instance: 0 = float32 (CUDA cores), 1 or 2 = bfloat16 (tensor cores; the

@@ -1030,6 +1030,24 @@ cudaError_t launch_tc(const Params& p, int route, int B, cudaStream_t s) {
                          : launch_chunk<HD, false>(p, B, s);
 }
 
+#define PAGED_SMEM_ROWS(HD)                                                \
+  {"paged_split<" #HD ">", (const void*)paged_split<HD>,                   \
+   split::smem_bytes<HD>()},                                               \
+  {"paged_chunk<" #HD ", false>", (const void*)paged_chunk<HD, false>,     \
+   chunk::smem_bytes<HD>(chunk::kMaxWG<HD>)},                              \
+  {"paged_chunk<" #HD ", true>", (const void*)paged_chunk<HD, true>,       \
+   chunk::smem_bytes<HD>(chunk::kMaxWG<HD>)}
+
+// The chunk route at its most warpgroups a block (the limit its launches
+// set).
+const hopper::SmemRow kSmemRows[] = {
+    PAGED_SMEM_ROWS(16), PAGED_SMEM_ROWS(32), PAGED_SMEM_ROWS(64),
+    PAGED_SMEM_ROWS(80), PAGED_SMEM_ROWS(128),
+    {"paged_simt<float>", (const void*)paged_simt<float>, kMaxSmemBytes},
+    {"paged_simt<bf16>", (const void*)paged_simt<bf16>, kMaxSmemBytes}};
+
+#undef PAGED_SMEM_ROWS
+
 }  // namespace
 
 extern "C" {
@@ -1039,6 +1057,12 @@ extern "C" {
 // of the chunk route).
 int paged_attention_split_limit(int which) {
   return which == 0 ? split::kRows : which == 1 ? kKeys : chunk::kMaxSplits;
+}
+
+// Instance i's shared memory (hopper::smem_row): 0, -1 past the last.
+int paged_attention_smem(int i, const char** name, int* static_bytes,
+                         int* dynamic_bytes) {
+  return hopper::smem_row(kSmemRows, i, name, static_bytes, dynamic_bytes);
 }
 
 // Most query rows (g*T) one simt launch can hold in shared memory for

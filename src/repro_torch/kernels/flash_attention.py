@@ -73,6 +73,58 @@ SPLIT_CHUNK = 64
 # wave's S=513, 192 at whisper's 1500, 192-512 at llama-vision's 1600
 # (PERF.md §6).
 SPLITS = 8
+# The tiles' sizes that set the tensor-core instances' shared memory,
+# fixed in the sources (the tests read them there): rows of a ``wgmma``
+# tile (``flash_tiles.cuh``), the most splits the split route merges, the
+# K/V stages of the forward's ``wgmma`` ring, and the most warpgroups of
+# a backward dK/dV block.
+TILE_ROWS = 64
+SPLIT_MAX = 64
+WGMMA_STAGES = 3
+BWD_WARPGROUPS = 2
+
+
+def tile_slots(hd: int) -> int:
+    """Ring slots of a backward warpgroup (``Tile<hd>::kSlots``): two
+    tiles in flight at head_dim 128, three below."""
+    return 2 if hd >= 128 else 3
+
+
+def smem_requests(backward: bool = False) -> dict:
+    """{instance: the dynamic shared bytes its launches ask for at most}
+    for every kernel instance of the forward's library (or the
+    backward's), named as ``build.smem_report`` names them.  The
+    tensor-core instances' sizes are computed from the tile constants
+    above, as the sources compute them; a CUDA-core instance sizes its
+    launch by the shape, up to ``build.SMEM_PER_BLOCK``."""
+    out = {}
+    for hd in TC_HEAD_DIMS:
+        tile = TILE_ROWS * hd * 2
+        if backward:
+            slots = tile_slots(hd)
+            dq = 2 * tile + slots * 2 * tile + 1024
+            w = BWD_WARPGROUPS
+            dkdv = (2 * tile + w * slots * 2 * tile
+                    + w * slots * 2 * TILE_ROWS * 4 + 1024)
+            for cap in ("false", "true"):
+                out[f"flash_bwd_dq_wgmma<{hd}, {cap}>"] = dq
+            for cap in ("false", "true"):
+                out[f"flash_bwd_dkdv_wgmma<{hd}, {cap}>"] = dkdv
+            continue
+        tiles = (SPLIT_ROWS + 4 * SPLIT_CHUNK) * (hd + 8) * 2
+        merge = (SPLIT_ROWS * (hd + 8) * 2
+                 + (3 * SPLIT_MAX + 2) * SPLIT_ROWS * 4)
+        out[f"flash_fwd_split<{hd}>"] = max(tiles, merge)
+        for cap in ("false", "true"):
+            out[f"flash_fwd_wgmma<{hd}, {cap}>"] = (
+                1024 + (1 + 2 * WGMMA_STAGES) * tile
+                + (2 * WGMMA_STAGES + 1) * 8)
+    simt = (("flash_bwd_dq_simt", "flash_bwd_dkdv_simt") if backward
+            else ("flash_fwd_simt",))
+    for t in ("float", "bf16"):
+        for kernel in simt:
+            out[f"{kernel}<{t}>"] = kbuild.SMEM_PER_BLOCK
+    return out
 
 
 def _declare(lib: ctypes.CDLL) -> None:

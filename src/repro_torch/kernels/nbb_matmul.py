@@ -38,6 +38,20 @@ INSTANCES = (("float32", 64, 64, 32, 2),      # CUDA cores
 # Each instance's block tile (M, N) and K step.
 TILE = tuple((m, n, k) for _, m, n, k, _ in INSTANCES)
 SLOTS = tuple(s for *_, s in INSTANCES)
+
+
+def smem_requests() -> dict:
+    """{instance: the dynamic shared bytes its launches ask for}, named as
+    ``build.smem_report`` names them: each bf16 instance's ring of
+    ``SLOTS`` A and B tiles and 1024 bytes to align it; the float32 ring
+    is static."""
+    out = {"nbb_simt_kernel": 0}
+    for _, m, n, k, slots in INSTANCES[1:]:
+        out[f"nbb_wgmma_kernel<{m}, {n}, {slots}>"] = (
+            slots * (m * k + k * n) * 2 + 1024)
+    return out
+
+
 # Streaming multiprocessors of an H100: the large bf16 tile is taken once
 # its tiling fills them.
 _SMS = 132

@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import arrival_counters
+from repro_torch.kernels.flash_attention import TILE_ROWS, arrival_counters
 
 SOURCE = kbuild.CSRC / "paged_attention.cu"
 
@@ -66,6 +66,43 @@ SPLITS = 8
 # f32, as large as the run's K/V at 2 * g*T / split_keys, so a chunk
 # splits only rows long enough to fill the card with few runs.
 CHUNK_RUN_TILES = 8
+# The sizes that set the tensor-core routes' shared memory, fixed in the
+# source (the tests read them there): the most runs a decode row's split
+# merges, and the K/V stages of the chunk route's ring.
+SPLIT_MAX = 64
+CHUNK_STAGES = 3
+
+
+def chunk_warpgroups(hd: int) -> int:
+    """Consumer warpgroups (64-row tiles) a chunk block holds at most
+    (``chunk::kMaxWG``): two at head_dim 128, three below."""
+    return 2 if hd >= 128 else 3
+
+
+def smem_requests() -> dict:
+    """{instance: the dynamic shared bytes its launches ask for at most}
+    for every kernel instance of the library, named as
+    ``build.smem_report`` names them: the split and chunk routes (the
+    chunk at :func:`chunk_warpgroups`) computed from the constants above
+    and the shared tile's (``flash_attention.TILE_ROWS``), as the source
+    computes them; the CUDA-core route sizes its launch by the shape, up
+    to ``build.SMEM_PER_BLOCK``."""
+    out = {}
+    for hd in _FAST_HEAD_DIMS:
+        rows = 4 * SPLIT_TILE * 8               # two tiles' row offsets
+        tiles = (SPLIT_ROWS + 4 * SPLIT_TILE) * (hd + 8) * 2
+        merge = (SPLIT_ROWS * (hd + 8) * 2
+                 + (3 * SPLIT_MAX + 2) * SPLIT_ROWS * 4)
+        out[f"paged_split<{hd}>"] = max(tiles, merge) + rows
+        wg = chunk_warpgroups(hd)
+        ring = (wg + 2 * CHUNK_STAGES) * TILE_ROWS * hd * 2
+        merge = (3 * CHUNK_SPLITS + 2) * wg * TILE_ROWS * 4
+        for cap in ("false", "true"):
+            out[f"paged_chunk<{hd}, {cap}>"] = (
+                1024 + max(ring, merge) + 2 * CHUNK_STAGES * 8 + rows)
+    for t in ("float", "bf16"):
+        out[f"paged_simt<{t}>"] = kbuild.SMEM_PER_BLOCK
+    return out
 
 
 def _declare(lib: ctypes.CDLL) -> None:

@@ -2,8 +2,8 @@
 ``tests/test_arch_smoke.py``: for every family the port builds, the
 SMOKE config at its own dtype through one loss and gradient, and one
 prefill + 3 decode steps, with inputs from ``models/inputs.py``
-(finite, shaped, in range); the parameter tree's shapes equal to the
-reference's; and, at float32 on the same weights, logits within 2e-5 of
+(finite, shaped, in range); the parameter tree's shapes and its
+logical axes equal to the reference's; and, at float32 on the same weights, logits within 2e-5 of
 the reference's (through the image or frame source where the family
 has one).  The port builds every family of the registry."""
 import dataclasses
@@ -100,6 +100,25 @@ def test_param_tree_matches_reference(arch, built):
     leaves = jax.tree.leaves(want)
     assert [tuple(a.shape) for a in got] == [b.shape for b in leaves]
     assert all(a.dtype == cfg.compute_dtype for a in got)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_axes_tree_matches(arch, built):
+    """One ``Axes`` leaf per parameter leaf, in the same tree, each of
+    the leaf's rank; the axis names equal the JAX package's."""
+    from repro.parallel.sharding import Axes as JAxes
+    from repro_torch.parallel.sharding import Axes
+    cfg, model, params = built(arch)
+    leaves, spec = tree.flatten(params)
+    axes, aspec = tree.flatten(model.param_axes(),
+                               lambda x: isinstance(x, Axes))
+    assert spec == aspec and len(leaves) == len(axes)
+    for p, a in zip(leaves, axes):
+        assert isinstance(a, Axes)
+        assert len(a.names) == p.dim(), f"{arch}: {a} vs {tuple(p.shape)}"
+    want = jax.tree.leaves(j_build(j_smoke(arch)).param_axes(),
+                           is_leaf=lambda x: isinstance(x, JAxes))
+    assert [tuple(a.names) for a in axes] == [tuple(a.names) for a in want]
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -15,7 +15,8 @@ import jax.numpy as jnp  # noqa: E402
 from hypothesis import given, settings, strategies as st  # noqa: E402
 
 from repro.core import bitset as jbitset  # noqa: E402
-from repro_torch.core import bitset, nbb, states  # noqa: E402
+from repro.core import host_queue as jhq  # noqa: E402
+from repro_torch.core import bitset, host_queue as hq, nbb, states  # noqa: E402,E501
 from repro_torch.core.channels import (ChannelType, DeviceChannel,  # noqa: E402
                                        Domain)
 from repro_torch.core.host_queue import BroadcastChannel  # noqa: E402
@@ -136,6 +137,22 @@ def test_broadcast_every_consumer_gets_every_item():
                 break
             got.append(item)
         assert got == list(range(5)), (c, got)
+
+
+@pytest.mark.parametrize("mod", [jhq, hq], ids=["repro", "repro_torch"])
+def test_broadcast_slow_consumer_only_stalls_itself(mod):
+    """A consumer that stops reading fills its own ring only: the next
+    publish reaches the fast consumer and reports FULL for the stalled
+    one, in both packages."""
+    bc = mod.BroadcastChannel(2, capacity=4)
+    for x in range(4):
+        assert bc.insert_item(x) == [nbb.OK, nbb.OK]
+    for _ in range(4):                     # consumer 0 drains, 1 stalls
+        assert bc.consumer(0).read_item()[0] == nbb.OK
+    statuses = bc.insert_item(99)
+    assert statuses[0] == nbb.OK           # the fast ring accepts
+    assert statuses[1] != nbb.OK           # the stalled ring reports FULL
+    assert statuses[1] == nbb.BUFFER_FULL
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ def pkg(request):
 
 
 def test_hostnbb_fifo_and_full_empty(pkg):
+    """``test_core_lockfree.py::test_fifo_order``."""
     q = pkg.nbb.HostNBB(8)
     for i in range(8):
         assert q.insert_item(i) == pkg.nbb.OK
@@ -38,6 +39,7 @@ def test_hostnbb_fifo_and_full_empty(pkg):
 
 
 def test_hostnbb_wraparound(pkg):
+    """``test_core_lockfree.py::test_wraparound``."""
     q = pkg.nbb.HostNBB(3)
     for round_ in range(10):
         for i in range(3):
@@ -48,7 +50,8 @@ def test_hostnbb_wraparound(pkg):
 
 @pytest.mark.parametrize("capacity", [1, 2, 16])
 def test_hostnbb_spsc_threads_in_order(pkg, capacity):
-    """The paper's stress test: transaction ids 1..1000 arrive in order."""
+    """The paper's stress test: transaction ids 1..1000 arrive in order
+    (``test_core_lockfree.py::test_spsc_transaction_ids_in_order``)."""
     q = pkg.nbb.HostNBB(capacity)
     n, received = 1000, []
     t1 = threading.Thread(target=lambda: [q.put(i) for i in
@@ -64,6 +67,7 @@ def test_hostnbb_spsc_threads_in_order(pkg, capacity):
 
 
 def test_burst_fifo_across_wraparound(pkg):
+    """``test_transport.py::test_fifo_across_wraparound``."""
     q = pkg.hq.SpscQueue(8)
     sent, got, i = [], [], 0
     for size in (5, 6, 7, 3, 8, 1, 6, 4):
@@ -87,8 +91,9 @@ def test_burst_partial_send_and_drain(pkg):
 
 
 def test_mpsc_fan_in_keeps_per_producer_fifo(pkg):
+    """``test_core_lockfree.py::test_mpsc_fan_in``."""
     q = pkg.hq.MpscQueue(nproducers=4, capacity_per_producer=16)
-    n_each, got = 300, []
+    n_each, got = 500, []
 
     def producer(pid):
         for i in range(n_each):
@@ -102,6 +107,7 @@ def test_mpsc_fan_in_keeps_per_producer_fifo(pkg):
     for t in ts + [tc]:
         t.join(30)
     assert not any(t.is_alive() for t in ts + [tc])
+    assert len(got) == 4 * n_each
     for pid in range(4):
         assert [i for (p, i) in got if p == pid] == list(range(n_each))
 
@@ -132,9 +138,11 @@ def test_buffer_fsm_figure4_and_reserved_abort(pkg):
 
 
 def test_fsm_racing_threads_single_winner(pkg):
+    """``test_core_lockfree.py::test_racing_threads_single_winner``: one
+    of four racing threads wins each FREE -> VALID claim, 50 rounds."""
     st = pkg.states
     c = st.request_cell()
-    for _ in range(30):
+    for _ in range(50):
         wins = []
 
         def claimer(tid):

@@ -1429,3 +1429,18 @@ def test_hd80_is_a_forward_instance_only(cuda_device):
         tref.flash_attention_ref(*ref_leaves).sum(), ref_leaves)
     for a, b in zip(grads, ref_grads):
         torch.testing.assert_close(a.float(), b, atol=2e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_shared_memory_fits_the_card(cuda_device):
+    """The card's counterpart of ``test_kernels_decode.py::
+    test_production_tile_fits_vmem``: in each kernel library, every built
+    instance's static shared memory plus the dynamic bytes its launches
+    ask for at most fits the card's opt-in limit a block, and the dynamic
+    bytes are those the wrapper computes from its tile constants."""
+    from repro_torch.kernels import ops
+    optin = torch.cuda.get_device_properties(
+        cuda_device).shared_memory_per_block_optin
+    for lib, (rows, want) in ops.shared_memory().items():
+        assert {name: dyn for name, _, dyn in rows} == want, lib
+        assert all(st + dyn <= optin for _, st, dyn in rows), (lib, rows)

@@ -1,10 +1,16 @@
-"""Counterparts of the flash tests of ``tests/test_kernels.py``: the
-port's ``ops`` entry points on the CPU (their plain PyTorch versions)
-against the JAX package's Pallas kernel in interpret mode, and
-``flash_attention_trainable``'s gradients against ``jax.grad`` of the
-JAX package's, on the same numpy-seeded inputs.  The shapes and the
-tolerances are the reference test's: 2e-5 in float32, 3e-2 in bfloat16
-(both packages get the same bf16-rounded inputs), 1e-4 for gradients."""
+"""Counterparts of the flash tests of ``tests/test_kernels.py`` and of
+``tests/test_kernels_decode.py``: the port's ``ops`` entry points on the
+CPU (their plain PyTorch versions) against the JAX package's Pallas
+kernel in interpret mode, and ``flash_attention_trainable``'s gradients
+against ``jax.grad`` of the JAX package's, on the same numpy-seeded
+inputs.  The shapes and the tolerances are the reference test's: 2e-5 in
+float32, 3e-2 in bfloat16 (both packages get the same bf16-rounded
+inputs), 1e-4 for gradients.  The reference's VMEM budget becomes the
+kernels' shared memory at their production tiles against an H100
+block's opt-in limit, from the tile constants the wrappers expose and
+this file checks against the CUDA sources."""
+import re
+
 import numpy as np
 import pytest
 
@@ -15,7 +21,11 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attention import (  # noqa: E402
     flash_attention as jflash, flash_attention_trainable as jtrainable)
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import nbb_matmul as nbb  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import paged_attention as pa  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -102,3 +112,70 @@ def test_flash_attention_grad_matches_ref():
         ops.flash_attention_trainable(*leaves).sum(), leaves)
     for a, b in zip(got, want):
         _close(a, b, dict(atol=1e-4, rtol=1e-4))
+
+
+def test_decode_with_window():
+    """One query over a 1024-key history under a 256-key window."""
+    B, S, H, hd = 1, 1024, 4, 64
+    (jq, jk, jv), (q, k, v) = _both(_inputs(
+        3, (B, 1, H, hd), (B, S, H, hd), (B, S, H, hd)), "float32")
+    want = jflash(jq, jk, jv, causal=True, window=256, interpret=True)
+    _close(ops.flash_attention(q, k, v, causal=True, window=256), want,
+           TOL["float32"])
+
+
+def test_production_tile_fits_vmem():
+    """The reference holds its production flash tile's working set under
+    16 MB of VMEM; here every tensor-core route's shared memory at its
+    production tiles fits an H100 block's opt-in limit (227 KB): flash's
+    split and ``wgmma`` forward at every head dim, the backward's dQ and
+    dK/dV passes (two warpgroups a block), paged attention's split and
+    chunk routes (at their most warpgroups) and the NBB ring.  The card
+    adds each kernel's static bytes and checks the sum against the card
+    (``test_torch_kernels_cuda.py::test_shared_memory_fits_the_card``)."""
+    requests = {**fa.smem_requests(), **fa.smem_requests(backward=True),
+                **pa.smem_requests(), **nbb.smem_requests()}
+    tiles = {k: v for k, v in requests.items() if "simt" not in k}
+    assert len(tiles) == 15 + 20 + 15 + 2
+    assert all(0 < v < build.SMEM_PER_BLOCK for v in tiles.values()), tiles
+    assert build.SMEM_PER_BLOCK == 227 * 1024
+
+
+def _const(text, name, namespace=None):
+    """The value of ``constexpr int name = <int>;`` in ``text``, inside
+    ``namespace <namespace> {`` when given."""
+    if namespace is not None:
+        start = text.index(f"namespace {namespace} {{")
+        text = text[start:text.index(f"}}  // namespace {namespace}", start)]
+    (value,) = re.findall(rf"constexpr int {name} = (\d+);", text)
+    return int(value)
+
+
+def test_smem_constants_match_the_sources():
+    """The tile constants the wrappers size shared memory with are the
+    sources' own."""
+    csrc = build.CSRC
+    common = (csrc / "flash_common.cuh").read_text()
+    tiles = (csrc / "flash_tiles.cuh").read_text()
+    fwd = fa.SOURCE.read_text()
+    bwd = fa.BWD_SOURCE.read_text()
+    paged = pa.SOURCE.read_text()
+    assert _const(common, "kMaxSmemBytes") == build.SMEM_PER_BLOCK
+    assert _const(nbb.SOURCE.read_text(), "kMaxSmemBytes") == \
+        build.SMEM_PER_BLOCK
+    assert _const(tiles, "kRows", "tc") == fa.TILE_ROWS
+    assert "kSlots = HD >= 128 ? 2 : 3;" in tiles
+    assert [fa.tile_slots(hd) for hd in fa.TC_HEAD_DIMS] == [3, 3, 3, 3, 2]
+    assert _const(fwd, "kRows", "split") == fa.SPLIT_ROWS
+    assert _const(fwd, "kChunk", "split") == fa.SPLIT_CHUNK
+    assert _const(fwd, "kMaxSplits", "split") == fa.SPLIT_MAX
+    assert _const(fwd, "kStages", "wg") == fa.WGMMA_STAGES
+    assert _const(bwd, "kWarpgroups", "tc") == fa.BWD_WARPGROUPS
+    assert _const(paged, "kKeys") == pa.SPLIT_TILE
+    assert _const(paged, "kRows", "split") == pa.SPLIT_ROWS
+    assert _const(paged, "kMaxSplits", "split") == pa.SPLIT_MAX
+    assert _const(paged, "kStages", "chunk") == pa.CHUNK_STAGES
+    assert _const(paged, "kMaxSplits", "chunk") == pa.CHUNK_SPLITS
+    assert "kMaxWG = HD >= 128 ? 2 : 3;" in paged
+    assert [pa.chunk_warpgroups(hd) for hd in fa.TC_HEAD_DIMS] == \
+        [3, 3, 3, 3, 2]

@@ -2,7 +2,9 @@
 same numpy-seeded hidden states, unembedding and labels: both layouts,
 chunks of 8, 16 and 2048 tokens (and a length the chunk must halve to
 divide), with and without weights, values at rtol 1e-5 and gradients at
-1e-5 (float32).  The masked position gets exactly zero gradient."""
+1e-5 (float32); the two layouts against each other (the reference's
+property over 10 seeds too); ``full_logits``.  The masked position gets
+exactly zero gradient."""
 import numpy as np
 import pytest
 
@@ -11,8 +13,15 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+try:  # optional dev dependency (requirements-dev.txt)
+    from hypothesis import given, settings, strategies as st
+except ImportError:
+    given = settings = st = None
+
 from repro.models.losses import chunked_softmax_xent as jxent  # noqa: E402
+from repro.models.losses import full_logits as jfull_logits  # noqa: E402
 from repro_torch.models.losses import chunked_softmax_xent as txent  # noqa: E402,E501
+from repro_torch.models.losses import full_logits  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -39,6 +48,8 @@ def _naive(hidden, w_out, labels, weights):
 @pytest.mark.parametrize("chunk", [8, 16, 2048])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_matches_jax_value_and_grad(layout, chunk, weighted):
+    """Also ``test_losses.py::test_layouts_match_naive``: each layout and
+    chunk against the naive full-logits loss at rtol 1e-5."""
     hidden, w_out, labels, weights = _data(chunk)
     w = weights if weighted else None
 
@@ -102,3 +113,54 @@ def test_bf16_inputs_accumulate_in_float32():
                  weights=torch.from_numpy(weights), layout="batched")
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+def _layouts(hidden, w_out, labels, weights=None, **kw):
+    """(flat, batched) of the port and the JAX package's flat value."""
+    t = [txent(torch.from_numpy(hidden), torch.from_numpy(w_out),
+               torch.from_numpy(labels),
+               weights=None if weights is None
+               else torch.from_numpy(weights), layout=layout, **kw)
+         for layout in ("flat", "batched")]
+    want = jxent(jnp.asarray(hidden), jnp.asarray(w_out),
+                 jnp.asarray(labels),
+                 weights=None if weights is None else jnp.asarray(weights),
+                 layout="flat", **kw)
+    return float(t[0]), float(t[1]), float(want)
+
+
+def test_layouts_match_each_other_with_weights():
+    hidden, w_out, labels, weights = _data(1)
+    a, b, want = _layouts(hidden, w_out, labels, weights)
+    naive = _naive(torch.from_numpy(hidden), torch.from_numpy(w_out),
+                   torch.from_numpy(labels), torch.from_numpy(weights))
+    np.testing.assert_allclose(a, b, rtol=1e-5)
+    np.testing.assert_allclose(a, float(naive), rtol=1e-5)
+    np.testing.assert_allclose(a, want, rtol=1e-5)
+
+
+if st is None:
+    def test_layout_equivalence_property():
+        pytest.importorskip("hypothesis")  # records the skip with reason
+else:
+    @given(st.integers(0, 2**31 - 1))
+    @settings(max_examples=10, deadline=None)
+    def test_layout_equivalence_property(seed):
+        """The reference's property: chunks of 4 tokens, flat equal to
+        batched (rtol 1e-5) on any seed, and to the JAX package's."""
+        hidden, w_out, labels, _ = _data(seed, B=1, T=16, D=8, V=32)
+        a, b, want = _layouts(hidden, w_out, labels, token_chunk=4)
+        np.testing.assert_allclose(a, b, rtol=1e-5)
+        np.testing.assert_allclose(a, want, rtol=1e-5)
+
+
+def test_full_logits_shape():
+    """The last position's logits, [2, 1, 64], equal to the JAX
+    package's (float32, 1e-5)."""
+    hidden, w_out, _, _ = _data(3)
+    out = full_logits(torch.from_numpy(hidden[:, -1:]),
+                      torch.from_numpy(w_out))
+    assert out.shape == (2, 1, 64)
+    want = jfull_logits(jnp.asarray(hidden[:, -1:]), jnp.asarray(w_out))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)

@@ -53,6 +53,9 @@ def _both(a, b, dtype, **blocks):
     (512, 1024, 256, 256, 256, 256),
 ])
 def test_nbb_matmul_matches_jax(M, K, N, bm, bn, bk, dtype):
+    """``test_kernels.py::test_nbb_matmul_matches_ref``: the reference
+    holds its kernel to ``ref.matmul_ref``; the port's entry point (its
+    plain version on the CPU) is held to that kernel, at its tolerance."""
     before = nbb_mod.launches
     got, want = _both(*_inputs(M + K + N, M, K, N), dtype, bm=bm, bn=bn,
                       bk=bk)
@@ -62,7 +65,7 @@ def test_nbb_matmul_matches_jax(M, K, N, bm, bn, bk, dtype):
 
 def test_nbb_matmul_odd_k_depth_matches_jax():
     """Odd K-tile count: the last slot's parity differs from the primed
-    slot's."""
+    slot's (``test_kernels.py::test_nbb_matmul_odd_k_depth``)."""
     got, want = _both(*_inputs(22, 128, 384, 128), "float32", bm=128,
                       bn=128, bk=128)
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)

@@ -5,13 +5,19 @@ page-swap preemption round trip, and the ``slot_paged`` engine under an
 same streams, the same Figure-4 states and the same counters as
 ``repro`` on the same seeded weights, at the SMOKE size in float32.
 Also: a parked sequence's tombstoned row never reaches a dispatched
-block table, and ``_block_table`` refuses one that would."""
+block table, and ``_block_table`` refuses one that would; and the
+reference's randomized preempt/resume storm on both pools."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+
+try:  # optional dev dependency (requirements-dev.txt)
+    from hypothesis import given, settings, strategies as st
+except ImportError:
+    st = None
 
 from _torch_parity import (drive, outcome, pool_clean, share_jit,  # noqa: E402
                            smoke_pair)
@@ -83,25 +89,59 @@ INTAKE_CASES = {
 }
 
 
+def _clients(order, n):
+    """The clients of the first ``n`` pops' items."""
+    return [item[0] for _, item, _ in order[:n]]
+
+
+# The reference's own assertions on each case's drain order.
+INTAKE_CHECKS = {
+    "strict": lambda o: (
+        [item[1] for _, item, _ in o[:4]] == ["h1", "h2", "n1", "l1"]
+        and o[4] == (nbb.BUFFER_EMPTY, None, False)),
+    "aging": lambda o: (
+        all(status == nbb.OK for status, _, _ in o[:7])
+        and [(item[1], p) for _, item, p in o[:3]]
+        == [("h0", False), ("h1", False), ("low", True)]
+        and [item[1] for _, item, _ in o[3:7]] == ["h2", "h3", "h4", "h5"]),
+    "wfq": lambda o: (_clients(o, 4).count(1) == 2
+                      and _clients(o, 8).count(0) == 6),
+    "weights": lambda o: _clients(o, 8).count(0) >= 5,
+    "one_class": lambda o: (
+        {o[0][1][1], o[1][1][1]} == {"x", "y"}
+        and tov.PriorityIntake(3, tov.OverloadPolicy(priorities=False),
+                               8).n_classes == 1),
+}
+
+
 @pytest.mark.parametrize("case", sorted(INTAKE_CASES))
 def test_priority_intake_order_matches_reference(case):
+    """The drain order of each case equals the reference's, and meets the
+    reference's own assertions: ``test_serve_overload.py::
+    test_intake_strict_priority_order`` (strict),
+    ``test_intake_aging_promotes_starved_class`` (aging),
+    ``test_intake_wfq_interleaves_flooding_client`` (wfq),
+    ``test_intake_wfq_weights_bias_service`` (weights) and
+    ``test_intake_priorities_off_single_class`` (one_class)."""
     n, kw, feed, pops, cost = INTAKE_CASES[case]
     got = _intake_order(tov, n, kw, feed, pops, cost)
     want = _intake_order(jov, n, kw, feed, pops, cost)
     assert got == want
     assert nbb.BUFFER_EMPTY == jnbb.BUFFER_EMPTY
-    if case == "aging":                 # bypassed twice, then promoted
-        assert got[0][2] == (nbb.OK, (0, "low"), True)
+    if case in INTAKE_CHECKS:
+        assert INTAKE_CHECKS[case](got[0]), got[0]
 
 
 def test_policy_validation_and_shed_status():
+    """``test_serve_overload.py::test_policy_validation`` and
+    ``test_shed_status_is_falsy``."""
     for kw in ({"n_classes": 0}, {"aging_limit": 0}):
         with pytest.raises(ValueError):
             tov.OverloadPolicy(**kw)
         with pytest.raises(ValueError):
             jov.OverloadPolicy(**kw)
     s = tov.ShedStatus(waited_s=1.5, slo_s=1.0, priority=tov.PRIORITY_LOW)
-    assert not s and s.priority == 2
+    assert not s and isinstance(s, tov.ShedStatus) and s.priority == 2
     assert (tov.PRIORITY_HIGH, tov.PRIORITY_NORMAL, tov.PRIORITY_LOW) == \
         (jov.PRIORITY_HIGH, jov.PRIORITY_NORMAL, jov.PRIORITY_LOW)
 
@@ -154,6 +194,7 @@ def test_pool_preempt_roundtrip_byte_identical():
 
 
 def test_pool_preempt_releases_reserved_ahead_without_copy():
+    """``test_serve_overload.py::test_pool_preempt_skips_reserved_ahead_pages``."""
     pool = _pool(8, L=1, hkv=1, hd=2)
     assert pool.try_admit(1, 20) == OK          # 5 pages reserved
     img = pool.swap_out_preempt(1, 6)           # only 2 pages live
@@ -210,22 +251,23 @@ def test_pool_free_while_parked():
     assert pool.free_pages() == 4 and pool.n_seqs() == 0
 
 
-def test_pool_preempt_storm_matches_reference_accounting():
-    """A fixed admit/preempt/resume/free interleaving on both pools: the
-    same images (rows, dead rows, shared rows), the same page numbers,
-    the same counters, and every resumed page reads back its bytes."""
+def _storm(ops):
+    """Run an admit (0) / preempt oldest live (1) / resume oldest parked
+    (2) / free newest (3) sequence on both pools: the same statuses,
+    images (rows, dead rows, shared rows), page numbers and counters;
+    every resumed page and every survivor reads back its bytes; freeing
+    everything leaks nothing, and the copy ledger is swap traffic."""
     import jax.numpy as jnp
     from repro.serve.kv_cache import PagedKVPool as JaxPool
-    ops = [0, 0, 1, 0, 2, 3, 0, 1, 1, 2, 0, 2, 3, 1, 2, 0, 3, 2, 1, 2]
     tp = _pool(12, ps=2, L=1, hkv=1, hd=2)
     jp = JaxPool(12, 2, 1, 1, 2, dtype=jnp.float32)
     nxt, live, parked, want = 0, {}, {}, {}
     for op in ops:
         if op == 0:
             n_tok = 3 + (nxt % 3)
-            st = tp.try_admit(nxt, n_tok)
-            assert st == jp.try_admit(nxt, n_tok)
-            if st == OK:
+            st_ = tp.try_admit(nxt, n_tok)
+            assert st_ == jp.try_admit(nxt, n_tok)
+            if st_ == OK:
                 want[nxt], _ = _stamp(tp, tp.table(nxt).pages, 100.0 * nxt)
                 live[nxt] = n_tok
                 nxt += 1
@@ -239,9 +281,9 @@ def test_pool_preempt_storm_matches_reference_accounting():
         elif op == 2 and parked:
             sid = min(parked)
             ti, ji = parked[sid]
-            st = tp.swap_in_preempt(sid, ti)
-            assert st == jp.swap_in_preempt(sid, ji)
-            if st == OK:
+            st_ = tp.swap_in_preempt(sid, ti)
+            assert st_ == jp.swap_in_preempt(sid, ji)
+            if st_ == OK:
                 parked.pop(sid)
                 live[sid] = len(ti.rows) * tp.page_size
                 pages = tp.table(sid).pages
@@ -257,6 +299,31 @@ def test_pool_preempt_storm_matches_reference_accounting():
     for key in ("kv_copy_bytes", "swap_in_bytes", "swap_out_bytes", "used",
                 "free"):
         assert tp.stats()[key] == jp.stats()[key], key
+    for sid in live:                            # survivors unscathed
+        assert torch.equal(tp.k[torch.tensor(tp.table(sid).pages)],
+                           want[sid])
+    for sid in list(live) + list(parked):
+        tp.free(sid)
+        jp.free(sid)
+    assert tp.free_pages() == jp.free_pages() == tp.n_pages
+    assert tp.kv_copy_bytes == tp.swap_in_bytes + tp.swap_out_bytes
+
+
+def test_pool_preempt_storm_matches_reference_accounting():
+    """A fixed admit/preempt/resume/free interleaving on both pools."""
+    _storm([0, 0, 1, 0, 2, 3, 0, 1, 1, 2, 0, 2, 3, 1, 2, 0, 3, 2, 1, 2])
+
+
+if st is not None:
+    @settings(deadline=None, max_examples=20)
+    @given(st.lists(st.integers(0, 3), min_size=1, max_size=32))
+    def test_pool_preempt_resume_storm(ops):
+        """The reference's property: randomized admit/preempt/resume/free
+        interleavings on both pools."""
+        _storm(ops)
+else:                                               # pragma: no cover
+    def test_pool_preempt_resume_storm():
+        pytest.skip("hypothesis not installed")
 
 
 # ---------------------------------------------------------------------------
@@ -310,9 +377,18 @@ def _preempt_scenario(eng, vocab, cancel_parked=False):
                                  priority=0)
     eng.tick()                          # the sweep preempts and binds high
     seen = [(p.fsm.state, p.req.req_id, p.generated) for p in eng._parked]
+    assert len(eng._parked) == 1
+    parked = eng._parked[0]
+    assert parked.fsm.state == states.BUFFER_PREEMPTED
+    assert parked.req is hl.req and parked.generated > 0
+    slot = eng.slots[0]                 # the vacated slot binds high
+    assert slot.request is not None and slot.request.eff_priority == 0
+    assert all(p == -1 or eng.pool.refcount(p) >= 1
+               for p in eng.pool.table(parked.req.req_id).pages)
     if cancel_parked:
         assert hl.cancel()
     drive(eng, [hl, hh])
+    assert not eng._parked
     return hl, hh, seen
 
 
@@ -321,12 +397,16 @@ def test_preempt_resume_matches_reference(pair):
     decoding low-priority sequence (its private pages swap host-side),
     runs to completion, and the victim resumes — streams, Figure-4
     states while parked and every counter equal the reference's, and
-    both streams equal the unpreempted runs."""
+    both streams equal the unpreempted runs.  Holds
+    ``test_serve_overload.py::test_engine_preempt_resume_byte_identical``
+    and ``test_engine_preempted_slot_fsm_states`` (the parked cell
+    PREEMPTED, the vacated slot bound to the preemptor)."""
     vocab = pair[0].vocab_size
     je, te = _engines(pair, overload=tov.OverloadPolicy())
     jl, jh, jseen = _preempt_scenario(je, vocab)
     tl, th, tseen = _preempt_scenario(te, vocab)
     assert outcome([tl, th]) == outcome([jl, jh])
+    assert [o[0] for o in outcome([tl, th])] == [states.REQUEST_COMPLETED] * 2
     assert tseen == jseen
     assert tseen and tseen[0][0] == states.BUFFER_PREEMPTED
     assert _counters(te) == _counters(je)
@@ -404,6 +484,7 @@ def test_block_table_refuses_a_negative_page(pair):
 
 
 def test_preempted_fsm_states_and_cancel_while_parked(pair):
+    """``test_serve_overload.py::test_engine_cancel_while_parked``."""
     vocab = pair[0].vocab_size
     je, te = _engines(pair, overload=tov.OverloadPolicy())
     jres = _preempt_scenario(je, vocab, cancel_parked=True)
@@ -417,8 +498,9 @@ def test_preempted_fsm_states_and_cancel_while_parked(pair):
 
 
 def test_slo_shed_matches_reference(pair):
-    """An SLO of 1 ns always sheds, 300 s never: the verdicts cannot
-    depend on the host's speed."""
+    """``test_serve_overload.py::test_engine_slo_shed``.  An SLO of 1 ns
+    always sheds, 300 s never: the verdicts cannot depend on the host's
+    speed."""
     vocab = pair[0].vocab_size
     res = []
     for eng, mod in zip(_engines(pair, overload=tov.OverloadPolicy(
@@ -429,12 +511,16 @@ def test_slo_shed_matches_reference(pair):
         drive(eng, hs)
         assert isinstance(hs[0].status, mod.ShedStatus) and not hs[0].status
         assert hs[0].status.slo_s == 1e-9 and hs[1].status is None
+        assert hs[0].response.fsm.state == states.REQUEST_CANCELLED
+        assert len(hs[0].response.tokens_out) == 0
+        assert hs[1].response.fsm.state == states.REQUEST_COMPLETED
         res.append((outcome(hs), _counters(eng)))
     assert res[0] == res[1]
     assert res[1][1]["shed_requests"] == 1
 
 
 def test_no_starvation_under_high_flood_matches_reference(pair):
+    """``test_serve_overload.py::test_engine_no_starvation_under_high_flood``."""
     vocab = pair[0].vocab_size
     res = []
     for eng in _engines(pair, max_batch=2, pool_pages=32,
@@ -444,6 +530,8 @@ def test_no_starvation_under_high_flood_matches_reference(pair):
                              priority=0) for i in range(10)]
         low = s1.submit_i(np.arange(4) % vocab, max_tokens=2, priority=2)
         drive(eng, highs + [low])
+        assert all(h.response.fsm.state == states.REQUEST_COMPLETED
+                   for h in highs + [low])
         order = sorted(range(11), key=lambda i: (highs + [low])[i]
                        .response.done_t)
         assert order.index(10) < 10     # low finished before the tail
@@ -452,8 +540,9 @@ def test_no_starvation_under_high_flood_matches_reference(pair):
 
 
 def test_overload_off_is_unchanged(pair):
-    """overload=None keeps the flat FIFO intake: the priority argument
-    is carried but ignored, and no SLO sheds."""
+    """``test_serve_overload.py::test_engine_overload_off_is_unchanged``:
+    overload=None keeps the flat FIFO intake, the priority argument is
+    carried but ignored, and no SLO sheds."""
     vocab = pair[0].vocab_size
     je, te = _engines(pair)
     res = []
@@ -469,6 +558,7 @@ def test_overload_off_is_unchanged(pair):
 
 
 def test_preemption_refused_outside_slot_paged(pair):
+    """``test_serve_overload.py::test_preemption_requires_paged_scheduler``."""
     _, jm, jp, tm, tp, _ = pair
     with pytest.raises(ValueError, match="slot_paged"):
         JaxEngine(jm, jp, scheduler="slot_chunked",

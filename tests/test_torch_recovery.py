@@ -5,7 +5,9 @@ tick boundary of a run and restored in a fresh engine from snapshot +
 journal — every stream byte-identical to the uninterrupted port run and
 equal to the JAX package's, also with a preempted sequence parked at the
 snapshot.  Plus torn snapshots, a lost journal record, restore faults, a
-config or weights mismatch, and ``serve_forever(restart=True)``.  SMOKE
+config or weights mismatch, ``serve_forever(restart=True)``, a session's
+close, reconnect and adoption on both engines, and the reference's
+property that snapshot -> restore is the identity on the pool.  SMOKE
 size, float32."""
 import os
 import threading
@@ -17,6 +19,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+
+try:  # optional dev dependency (requirements-dev.txt); property tests
+    from hypothesis import given, settings, strategies as st  # skip without it
+except ImportError:
+    given = settings = st = None
 
 from _torch_parity import (drive, pool_clean, share_jit,  # noqa: E402
                            smoke_pair)
@@ -62,6 +69,15 @@ def _mk(pair, snapshot_dir=None, fault_plan=None, params=None, **kw):
     return ServeEngine(tm, tp if params is None else params, device="cpu",
                        snapshot_dir=snapshot_dir, fault_plan=fault_plan,
                        **_kw(**kw))
+
+
+def _mk_jax(pair, snapshot_dir=None, **kw):
+    """The reference engine with the same knobs, sharing the donor's
+    compiled functions."""
+    _, jm, jp, _, _, donor = pair
+    je = JaxEngine(jm, jp, snapshot_dir=snapshot_dir, **_kw(**kw))
+    share_jit(je, donor)
+    return je
 
 
 def _submit(sessions, vocab, n=4, max_tokens=12, seed=3, priorities=None):
@@ -216,14 +232,8 @@ def _kill_sweep(pair, tmp_path, wl, jax_kw, **ekw):
     """The uninterrupted port run (equal to the reference's), then a kill
     at every one of its tick boundaries; returns (reference engine,
     port engine, sequences parked at each kill)."""
-    jcfg, jm, jp, _, _, donor = pair
-    vocab = jcfg.vocab_size
-
-    def jax_engine():
-        je = JaxEngine(jm, jp, **_kw(**jax_kw))
-        share_jit(je, donor)
-        return je
-    je, jh, _, _ = _serve(jax_engine, vocab, wl)
+    vocab = pair[0].vocab_size
+    je, jh, _, _ = _serve(lambda: _mk_jax(pair, **jax_kw), vocab, wl)
     te, th, ticks, _ = _serve(lambda: _mk(pair, **ekw), vocab, wl)
     ref = _tokens(th)
     assert ref == _tokens(jh)
@@ -235,6 +245,8 @@ def _kill_sweep(pair, tmp_path, wl, jax_kw, **ekw):
         def make():
             return _mk(pair, snapshot_dir=d, **ekw)
         eng, handles, _, n_parked = _serve(make, vocab, wl, t, make)
+        assert all(h.response.fsm.state.endswith("COMPLETED")
+                   for h in handles), f"kill@{t}"
         assert _tokens(handles) == ref, f"kill@{t}"
         for h, want in zip(handles, ref):       # exactly once
             assert sorted(h.tokens(timeout_s=5)) == list(enumerate(want))
@@ -245,12 +257,20 @@ def _kill_sweep(pair, tmp_path, wl, jax_kw, **ekw):
 
 
 def _run_port(pair, **wl):
-    eng, hs, ticks, _ = _serve(lambda: _mk(pair), pair[0].vocab_size, wl)
+    """The port's uninterrupted run of ``wl``: every request COMPLETED,
+    the tokens equal to the reference engine's run; -> (tokens, ticks)."""
+    vocab = pair[0].vocab_size
+    eng, hs, ticks, _ = _serve(lambda: _mk(pair), vocab, wl)
     assert all(h.response.fsm.state.endswith("COMPLETED") for h in hs)
+    _, jh, _, _ = _serve(lambda: _mk_jax(pair), vocab, wl)
+    assert _tokens(hs) == _tokens(jh)
     return _tokens(hs), ticks
 
 
 def test_kill_at_every_tick_resumes_byte_identical(pair, tmp_path):
+    """``test_serve_recovery.py::test_every_boundary_resumes_byte_identical``:
+    every request COMPLETED, streams equal to the uninterrupted run (and
+    the reference's), each position delivered once, the pool clean."""
     _kill_sweep(pair, tmp_path, {}, {})
 
 
@@ -272,6 +292,10 @@ def test_kill_with_a_parked_sequence_resumes_byte_identical(pair, tmp_path):
 # Journal replay, torn snapshots, faults, mismatches
 # ---------------------------------------------------------------------------
 def test_binds_after_the_snapshot_replay_from_the_journal(pair, tmp_path):
+    """``test_serve_recovery.py::
+    test_binds_after_snapshot_replay_deterministically``: two binds after
+    the snapshot replay from the journal; the tokens equal the
+    uninterrupted run's, itself equal to the reference engine's."""
     ref, _ = _run_port(pair, n=4, max_tokens=8)
     d = str(tmp_path / "wal")
     eng = _mk(pair, snapshot_dir=d)
@@ -300,6 +324,7 @@ def test_binds_after_the_snapshot_replay_from_the_journal(pair, tmp_path):
 
 
 def test_lost_journal_record_fails_typed(pair, tmp_path):
+    """``test_serve_recovery.py::test_lost_journal_record_fails_typed_not_hangs``."""
     vocab = pair[0].vocab_size
     plan = FaultPlan([FaultRule("journal.append", nth=3)])
     d = str(tmp_path / "lost")
@@ -320,12 +345,19 @@ def test_lost_journal_record_fails_typed(pair, tmp_path):
     assert eng2.restore_latest() is not None
     sessions = [eng2.connect(c, resume=s) for c, s in enumerate(sessions)]
     assert h3.test() and isinstance(h3.status, FailedStatus)
+    assert not h3.status
     assert "lost across restart" in h3.status.reason
     drive(eng2, handles)
     assert all(h.response.fsm.state.endswith("COMPLETED") for h in handles)
 
 
 def test_torn_snapshot_and_restore_faults(pair, tmp_path):
+    """``test_serve_recovery.py::test_torn_write_never_corrupts_last_good``
+    and ``test_restore_fault_retries_then_gives_up_typed``: the torn write
+    leaves a file that reads as damaged, the newest good snapshot stays
+    the one loaded, an unbounded restore fault gives up empty and a
+    finite one is retried through; the tokens equal the uninterrupted
+    run's (and the reference engine's)."""
     vocab = pair[0].vocab_size
     ref, _ = _run_port(pair, max_tokens=24)
     d = str(tmp_path / "torn")
@@ -339,6 +371,10 @@ def test_torn_snapshot_and_restore_faults(pair, tmp_path):
     for _ in range(2):
         eng.tick()
     assert good is not None and eng.save_snapshot() is None   # torn
+    torn = [p for p in snapshot_mod._snap_paths(d) if p != good]
+    assert torn, "the torn write must still have left a file"
+    with pytest.raises(SnapshotError):
+        snapshot_mod.read_snapshot(torn[0])
     assert snapshot_mod.load_latest(d)[1] == good
     for s in sessions:
         s.pump()
@@ -358,12 +394,14 @@ def test_torn_snapshot_and_restore_faults(pair, tmp_path):
 
 
 def test_config_or_weights_mismatch_refuses_restore(pair, tmp_path):
+    """``test_serve_recovery.py::test_config_mismatch_refuses_restore``,
+    and a weights mismatch, which the port's fingerprint adds."""
     d = str(tmp_path / "shape")
     eng = _mk(pair, snapshot_dir=d)
     eng.connect(0)
     assert eng.save_snapshot() is not None
     snap, _ = snapshot_mod.load_latest(d)
-    with pytest.raises(SnapshotError, match="pool_pages"):
+    with pytest.raises(SnapshotError, match="config mismatch.*pool_pages"):
         _mk(pair, snapshot_dir=d, pool_pages=12).restore(snap)
     _, _, _, tm, tp, _ = pair
     other = {k: v for k, v in tp.items()}
@@ -405,6 +443,7 @@ def test_loop_crash_restores_and_finishes(pair, tmp_path):
 
 
 def test_restart_budget_bounds_a_crash_loop(pair, tmp_path):
+    """``test_serve_recovery.py::test_restart_budget_bounds_crash_loops``."""
     eng = _mk(pair, snapshot_dir=str(tmp_path / "budget"), snapshot_every=2)
     eng.connect(0)
     eng.tick()
@@ -435,3 +474,158 @@ def test_terminal_redelivery_is_deduped(pair, tmp_path):
         s.pump()
     assert all(not s._completed for s in sessions)
     assert [len(s._finalized) for s in sessions] == n_final
+
+
+# ---------------------------------------------------------------------------
+# The restore report; session close, reconnect and adoption
+# ---------------------------------------------------------------------------
+def _both_engines(pair, tmp_path, **kw):
+    """(label, make(dir)) for the port and the reference engine."""
+    return [("port", lambda d: _mk(pair, snapshot_dir=d, **kw)),
+            ("jax", lambda d: _mk_jax(pair, snapshot_dir=d, **kw))]
+
+
+def test_restore_reports_resumed_work(pair, tmp_path):
+    """Four ticks into four requests of 24 tokens, a snapshot restored in
+    a fresh engine reports at least two resumed sequences and one
+    restore, and every request completes: the report and the tokens
+    equal the reference engine's on the same run."""
+    vocab, res = pair[0].vocab_size, []
+    for label, make in _both_engines(pair, tmp_path):
+        d = str(tmp_path / label)
+        eng = make(d)
+        sessions = [eng.connect(c) for c in range(2)]
+        handles = _submit(sessions, vocab, max_tokens=24)
+        for _ in range(4):
+            eng.tick()
+        assert eng.save_snapshot() is not None
+        eng2 = make(d)
+        report = eng2.restore_latest()
+        assert report is not None and report["resumed"] >= 2
+        assert eng2.stats["restores"] == 1
+        sessions = [eng2.connect(c, resume=s)
+                    for c, s in enumerate(sessions)]
+        drive(eng2, handles)
+        assert all(h.response.fsm.state.endswith("COMPLETED")
+                   for h in handles)
+        res.append(({**report, "path": os.path.basename(report["path"])},
+                    _tokens(handles)))
+    assert res[0] == res[1]
+
+
+def test_close_is_idempotent_and_reconnect_reopens(pair, tmp_path):
+    """A second close is a no-op; connecting again reopens the same
+    session, which serves a request to completion (the same tokens as the
+    reference engine's)."""
+    res = []
+    for _, make in _both_engines(pair, tmp_path):
+        eng = make(None)
+        sess = eng.connect(0)
+        sess.close()
+        sess.close()                            # idempotent
+        assert sess.closed
+        again = eng.connect(0)
+        assert again is sess and not again.closed
+        h = again.submit_i(np.arange(4, dtype=np.int32), max_tokens=2)
+        drive(eng, [h])
+        assert h.response.fsm.state.endswith("COMPLETED")
+        res.append(_tokens([h]))
+    assert res[0] == res[1]
+
+
+def test_adopt_is_idempotent_and_closes_donor(pair, tmp_path):
+    """``connect(resume=old)`` after a restore closes the donor session
+    and moves its live handle to the new one; closing the husk and a
+    self-adoption are no-ops, and the request completes with the
+    reference engine's tokens."""
+    vocab, res = pair[0].vocab_size, []
+    for label, make in _both_engines(pair, tmp_path):
+        d = str(tmp_path / label)
+        eng = make(d)
+        old = eng.connect(0)
+        h = old.submit_i(np.arange(4, dtype=np.int32) % vocab, max_tokens=24)
+        for _ in range(2):
+            eng.tick()
+        assert eng.save_snapshot() is not None
+        old.pump()
+        eng2 = make(d)
+        assert eng2.restore_latest() is not None
+        new = eng2.connect(0, resume=old)
+        assert old.closed and not new._handles.keys() - {h.req_id}
+        assert h._session is new
+        old.close()                             # closing the husk: no-op
+        eng2.connect(0, resume=new)             # self-adopt: no-op
+        assert not new.closed
+        drive(eng2, [h])
+        assert h.response.fsm.state.endswith("COMPLETED")
+        res.append(_tokens([h]))
+    assert res[0] == res[1]
+
+
+# ---------------------------------------------------------------------------
+# Property: the restored pool is exactly the captured pool
+# ---------------------------------------------------------------------------
+def _assert_state_equal(a, b, path=""):
+    assert type(a) is type(b), f"{path}: {type(a)} != {type(b)}"
+    if isinstance(a, dict):
+        assert set(a) == set(b), f"{path}: keys {set(a) ^ set(b)}"
+        for k in a:
+            _assert_state_equal(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), f"{path}: len {len(a)} != {len(b)}"
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_state_equal(x, y, f"{path}[{i}]")
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and np.array_equal(a, b), \
+            f"{path}: arrays differ"
+    else:
+        assert a == b, f"{path}: {a!r} != {b!r}"
+
+
+def _pool_state(eng):
+    extra = (eng.prefix_cache.resident_pages()
+             if eng.prefix_cache is not None else ())
+    return eng.pool.snapshot_state(extra_pages=extra)
+
+
+if st is None:
+    def test_hypothesis_roundtrip_property():
+        pytest.importorskip("hypothesis")   # records the skip with reason
+else:
+    @given(n_requests=st.integers(1, 4), max_tokens=st.integers(2, 12),
+           kill_tick=st.integers(1, 8), seed=st.integers(0, 2**16))
+    @settings(max_examples=8, deadline=None)
+    def test_restore_is_exact(pair, tmp_path_factory, n_requests, max_tokens,
+                              kill_tick, seed):
+        """The reference's property on the port: snapshot -> restore is
+        the identity on the pool (refcounts, block tables, the free-page
+        ledger, page bytes and the copy ledger come back exactly), and
+        the resumed engine finishes with the uninterrupted run's tokens,
+        which equal the reference engine's."""
+        d = str(tmp_path_factory.mktemp("prop"))
+        eng = _mk(pair, snapshot_dir=d)
+        sessions = [eng.connect(c) for c in range(2)]
+        handles = _submit(sessions, pair[0].vocab_size, n=n_requests,
+                          max_tokens=max_tokens, seed=seed)
+        for _ in range(kill_tick):
+            if all(h.test() for h in handles):
+                break
+            eng.tick()
+        snap = eng.snapshot()
+        want = _pool_state(eng)
+        eng2 = _mk(pair, snapshot_dir=d)
+        eng2.restore(snap)
+        _assert_state_equal(want, _pool_state(eng2), "pool")
+        pool = eng2.pool
+        assert pool.kv_copy_bytes == (pool.cow_copy_bytes
+                                      + pool.swap_in_bytes
+                                      + pool.swap_out_bytes)
+        for s in sessions:
+            s.pump()
+        for c, s in enumerate(sessions):
+            eng2.connect(c, resume=s)
+        drive(eng2, handles)
+        ref, _ = _run_port(pair, n=n_requests, max_tokens=max_tokens,
+                           seed=seed)
+        assert _tokens(handles) == ref
+        pool_clean(eng2)

@@ -6,7 +6,8 @@ pages, a refused preemption leaving its victim decoding, the engine's own
 stalled stream ring rolled back, per-session leases, ``Session.close``
 and a dead engine.  Then a seeded ``FaultPlan.sweep`` run on both
 engines: equal terminals, survivors byte-identical to the run with no
-fault, pool invariants exact after every plan.  SMOKE size, float32."""
+fault, pool invariants exact after every plan; and the reference's own
+50-plan sweep on the port's engine.  SMOKE size, float32."""
 import time
 
 import numpy as np
@@ -104,6 +105,9 @@ def _one(vocab, n=8, budget=8):
 
 
 def test_failed_status_and_knob_validation(pair):
+    """``test_serve_faults.py::test_failed_status_is_falsy_with_reason``,
+    ``test_ctor_validates_robustness_knobs`` and
+    ``test_no_plan_means_no_fault_layer``."""
     s = FailedStatus("tick failed: boom")
     assert not s and s.reason == "tick failed: boom"
     _, _, _, tm, tp, _ = pair
@@ -128,6 +132,8 @@ def test_transient_dispatch_fault_is_invisible(pair):
 
 
 def test_retries_exhausted_fail_slots_and_keep_serving(pair):
+    """``test_serve_faults.py::
+    test_dispatch_retries_exhausted_fails_slots_keeps_serving``."""
     vocab = pair[0].vocab_size
 
     def scenario(eng):
@@ -139,6 +145,7 @@ def test_retries_exhausted_fail_slots_and_keep_serving(pair):
         return [h, h2]
     te, (h, h2) = _both(pair, scenario,
                         [{"site": "engine.dispatch", "nth": 1, "times": 2}])
+    assert h.response.fsm.state == states.REQUEST_CANCELLED
     assert isinstance(h.response.status, FailedStatus)
     assert "tick failed" in h.response.status.reason
     assert h2.response.fsm.state == states.REQUEST_COMPLETED
@@ -147,6 +154,7 @@ def test_retries_exhausted_fail_slots_and_keep_serving(pair):
 
 
 def test_sync_fault_is_not_retried(pair):
+    """``test_serve_faults.py::test_sync_timeout_is_not_retried``."""
     vocab = pair[0].vocab_size
     te, (h,) = _both(pair, _one(vocab),
                      [{"site": "engine.sync", "nth": 1, "times": 1}],
@@ -303,6 +311,8 @@ def test_session_close_cancels_and_refuses(pair):
 
 
 def test_dead_engine_resolves_handles_and_tick_is_inert(pair):
+    """``test_serve_faults.py::test_dead_engine_resolves_handles_fast`` and
+    ``test_tick_after_death_is_inert``."""
     vocab = pair[0].vocab_size
     te, _ = _engines(pair)
     sess = te.connect(0)
@@ -312,13 +322,18 @@ def test_dead_engine_resolves_handles_and_tick_is_inert(pair):
     t0 = time.monotonic()
     r = h.wait(timeout_s=30)
     assert time.monotonic() - t0 < 5
-    assert isinstance(r, FailedStatus) and "crashed" in r.reason
+    assert isinstance(r, FailedStatus) and not r and "crashed" in r.reason
+    t0 = time.monotonic()
     assert not te.get_response(0, timeout_s=30)
+    assert time.monotonic() - t0 < 5
     h2 = sess.submit_i(np.arange(4) % vocab, max_tokens=4)
     assert isinstance(h2.wait(timeout_s=5), FailedStatus)
     assert te.pool.n_seqs() == 0
     pool_clean(te)
     assert te.tick() == (0, False) and te.dead.endswith("test")
+    fresh, _ = _engines(pair)
+    fresh._die("x")
+    assert fresh.tick() == (0, False) and fresh.dead == "x"
 
 
 # ---------------------------------------------------------------------------
@@ -365,3 +380,55 @@ def test_fault_plan_sweep_matches_reference(pair):
                 assert got[0] == states.REQUEST_CANCELLED, tplan
         pool_clean(te)
     assert {s.split(".")[0] for s in hit} == {"transport", "pool", "engine"}
+
+
+def test_fault_plan_sweep_engine_never_wedges(pair):
+    """The reference's acceptance sweep on the port's engine: its own
+    ``FaultPlan.sweep(50, seed=11)`` over every site (each plan's rules
+    equal to ``repro``'s), the priority workload under preemption.  No
+    tick raises and nothing wedges, every COMPLETED stream equals the run
+    with no fault (itself equal to the reference engine's), every other
+    request ends CANCELLED, the pool invariants hold after every plan,
+    and every site class but the snapshot and journal ones (armed only
+    with a snapshot directory) fires somewhere."""
+    vocab = pair[0].vocab_size
+    prompts = [(np.arange(8) + 3 * i) % vocab for i in range(4)]
+    pris, budgets = [2, 0, 1, 0], [12, 4, 6, 4]
+    ov = OverloadPolicy(priorities=True, preemption=True)
+
+    def run(eng):
+        sessions = [eng.connect(c) for c in range(2)]
+        hs = [sessions[i % 2].submit_i(p, max_tokens=budgets[i],
+                                       priority=pris[i])
+              for i, p in enumerate(prompts)]
+        drive(eng, hs)
+        pool_clean(eng)
+        return eng, hs
+
+    _, ref_handles = _both(pair, lambda e: run(e)[1], overload=ov,
+                           pool_pages=8)
+    ref = outcome(ref_handles)
+    assert all(r[0] == states.REQUEST_COMPLETED for r in ref)
+    tplans = FaultPlan.sweep(50, seed=11)
+    jplans = jfaults.FaultPlan.sweep(50, seed=11)
+    assert faults.SITES == jfaults.SITES
+    hit = set()
+    for tplan, jplan in zip(tplans, jplans):
+        rules = [(r.site, r.nth, r.times) for r in tplan.rules]
+        assert rules == [(r.site, r.nth, r.times) for r in jplan.rules]
+        te = ServeEngine(pair[3], pair[4], device="cpu", fault_plan=tplan,
+                         overload=ov, **_kw(pool_pages=8, tick_retries=1))
+        te, th = run(te)
+        hit.update(tplan.fired)
+        assert te.dead is None, (tplan, te.dead)
+        for got, want in zip(outcome(th), ref):
+            if got[0] == states.REQUEST_COMPLETED:
+                assert got[1] == want[1], tplan
+            else:
+                assert got[0] == states.REQUEST_CANCELLED, tplan
+        s = te.stats
+        terminal = (s["served"] + s["rejected"] + s["cancelled"]
+                    + s["shed_requests"] + s["requests_failed"])
+        assert terminal >= len(th)
+    assert {s.split(".")[0] for s in hit} == \
+        {s.split(".")[0] for s in faults.SITES} - {"snapshot", "journal"}

@@ -323,6 +323,9 @@ def _state():
 
 
 def test_checkpoint_roundtrip_with_bf16(tmp_path):
+    """``test_trainer.py::test_checkpoint_roundtrip``, with a bf16 leaf
+    beside the float32, int32 and int8 ones: every leaf comes back equal,
+    in its dtype, at its step."""
     state = _state()
     d = ckpt_lib.save(tmp_path, 7, state)
     manifest = json.loads((d / "manifest.json").read_text())
@@ -367,6 +370,8 @@ def test_checkpoint_detects_corruption(tmp_path):
 
 
 def test_checkpoint_shape_and_structure_mismatch(tmp_path):
+    """``test_trainer.py::test_checkpoint_shape_mismatch``, and a tree of
+    another structure."""
     ckpt_lib.save(tmp_path, 1, {"a": torch.zeros(4)})
     with pytest.raises(ValueError, match="shape"):
         ckpt_lib.restore(tmp_path, {"a": torch.zeros(5)})
@@ -422,12 +427,18 @@ def test_async_checkpointer_publish_between_read_and_save(tmp_path):
                                   (0, 1, 2, 4, 8, 100, (24, 64)),
                                   (7, 3, 1, 2, 448, 51865, (1500, 384))])
 def test_synth_batch_equals_jax(args):
+    """Bit for bit the JAX package's batch; and
+    ``test_trainer.py::test_synth_batch_deterministic``: the same
+    arguments draw the same tokens again, the next step other ones."""
     a = synth_batch(*args)
     b = jsynth(*args)
     assert a.keys() == b.keys()
     for k in a:
         assert a[k].dtype == b[k].dtype
         np.testing.assert_array_equal(a[k], b[k])
+    np.testing.assert_array_equal(synth_batch(*args)["tokens"], a["tokens"])
+    step = (*args[:2], args[2] + 1, *args[3:])
+    assert not np.array_equal(synth_batch(*step)["tokens"], a["tokens"])
 
 
 def test_pipeline_carries_extras():
@@ -448,15 +459,19 @@ def test_pipeline_carries_extras():
 
 
 def test_pipeline_delivers_every_batch_once_in_producer_order():
+    """``test_trainer.py::test_pipeline_delivers_unique_batches``: [2, 8]
+    batches, each delivered once, in each producer's order."""
     n_prod = 3
     index = {synth_batch(0, p, s, 2, 8, 1000)["tokens"].tobytes(): (p, s)
              for p in range(n_prod) for s in range(64)}
     pipe = DataPipeline(batch=2, seq_len=8, vocab=1000, nproducers=n_prod,
                         seed=0, depth=4)
     try:
-        got = [index[pipe.get()["tokens"].tobytes()] for _ in range(24)]
+        batches = [pipe.get()["tokens"] for _ in range(24)]
     finally:
         pipe.close()
+    assert all(b.shape == (2, 8) for b in batches)
+    got = [index[b.tobytes()] for b in batches]
     assert len(set(got)) == 24                 # exactly once
     for p in range(n_prod):                    # FIFO per producer
         seqs = [s for q, s in got if q == p]
