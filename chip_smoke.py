@@ -260,13 +260,15 @@ each of which fails the run hard:
    NBW writes and reads on CUDA tensors under
    ``torch.cuda.set_sync_debug_mode("error")``, equal to the same on the
    CPU; (9d) ``python -m repro_torch.launch.dryrun --arch smollm-135m
-   --shape train_4k`` (started in the background at the lowest CPU
-   priority once phase 7's smollm training has been timed, as it plans on
-   the host's CPU: it shares the host with phases 7b-10, and with no
-   earlier phase; read after phase 10): its per-device FLOPs, argument
-   bytes, peak estimate and collective bytes by kind, printed as plan
-   estimates, and its argument bytes equal to the count derived from the
-   specs;
+   --shape train_4k`` and ``--arch rwkv6-1.6b --shape prefill_32k`` (a
+   recurrent family's cached prefill: its 32768-step scan planned by trip
+   count), two processes started in the background at the lowest CPU
+   priority once phase 7's smollm training has been timed, as they plan
+   on the host's CPU: they share the host with phases 7b-10, and with no
+   earlier phase; read after phase 10): each plan's per-device FLOPs,
+   argument bytes, bytes, peak estimate and collective bytes by kind,
+   printed as plan estimates, its argument bytes equal to the count
+   derived from the specs and ``0 < bytes_min <= bytes``;
 10. the four examples of ``examples_torch/`` on the card, each ``main``
    run in this process: (10a) ``quickstart`` for ``smollm-135m`` and
    ``olmoe-1b-7b`` (SMOKE, bf16, head_dim 16: one train step, prefill of
@@ -4528,26 +4530,35 @@ def phase_train_whisper(smi: str):
     return c
 
 
-DRYRUN_OUT = ROOT / "results" / "dryrun_torch" / \
-    "smollm-135m__train_4k__16x16.json"
+# 9d's cells on the 16x16 mesh: a dense train step, and a recurrent
+# family's cached prefill, whose 32768-step scan is planned by trip count.
+DRYRUN_CELLS = (("smollm-135m", "train_4k"), ("rwkv6-1.6b", "prefill_32k"))
+
+
+def _dryrun_out(arch, shape):
+    return ROOT / "results" / "dryrun_torch" / f"{arch}__{shape}__16x16.json"
 
 
 def start_dryrun():
-    """9d's dry-run in a process of its own (it plans a 256-rank step on
-    a fake process group, on the host's CPU), at the lowest CPU priority
-    so that it runs beside the phases on the card and takes the host's
-    cores only when they idle."""
+    """9d's dry-runs, each in a process of its own (each plans a 256-rank
+    step on a fake process group, on the host's CPU), at the lowest CPU
+    priority so that they run beside the phases on the card and take the
+    host's cores only when they idle.  Returns ((arch, shape), process)
+    pairs."""
     import atexit
-    DRYRUN_OUT.unlink(missing_ok=True)
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "smollm-135m", "--shape", "train_4k"], cwd=str(ROOT), env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        preexec_fn=lambda: os.nice(19))
-    # A failed phase ends the run early: the dry-run must not outlive it.
-    atexit.register(lambda: proc.poll() is None and proc.kill())
-    return proc
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        _dryrun_out(arch, shape).unlink(missing_ok=True)
+        procs.append(((arch, shape), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape], cwd=str(ROOT), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            preexec_fn=lambda: os.nice(19))))
+    # A failed phase ends the run early: the dry-runs must not outlive it.
+    atexit.register(lambda: [p.kill() for _, p in procs
+                             if p.poll() is None])
+    return procs
 
 
 def _step_times(trainer, batches):
@@ -4654,32 +4665,45 @@ def phase_parallel(smi: str):
     dist.destroy_process_group()
 
 
-def read_dryrun(dryrun):
-    """9d: the dry-run's plan, read once its process ends (it runs beside
-    phases 7b-10)."""
-    try:
-        log = dryrun.communicate(timeout=900)[0]
-    except subprocess.TimeoutExpired:
-        dryrun.kill()
-        dryrun.communicate()
-        check(False, "dry-run: no result within 900 s")
-    check(dryrun.returncode == 0 and DRYRUN_OUT.exists(),
-          f"dry-run failed: {log[-3000:]}")
-    r = json.loads(DRYRUN_OUT.read_text())
-    mem = r["memory"]
-    check(mem["argument_bytes"] == mem["argument_bytes_from_specs"],
-          f"dry-run argument bytes {mem['argument_bytes']} != "
-          f"{mem['argument_bytes_from_specs']} from the specs")
-    check(r["flops_per_device"] > 0 and r["n_devices"] == 256,
-          f"dry-run: {r['flops_per_device']} flops, {r['n_devices']} ranks")
-    print(f"parallel 9d: dry-run smollm-135m x train_4k x 16x16 (plan "
-          f"estimate on a fake 256-rank process group, not a card "
-          f"measurement): {r['flops_per_device']:.4g} FLOPs/device, "
-          f"argument bytes {mem['argument_bytes']} (= from specs), peak "
-          f"estimate {mem['peak_estimate_bytes'] / 1e9:.2f} GB (fits "
-          f"{r['device_memory_bytes'] / 1e9:.1f} GB: {r['fits']}), "
-          f"collective bytes/device {r['collective_bytes_per_device']}, "
-          f"counts {r['collective_counts']}, planned in {r['run_s']} s")
+def read_dryrun(dryruns):
+    """9d: each dry-run's plan, read once its process ends (they run
+    beside phases 7b-10)."""
+    deadline = time.monotonic() + 900
+    for (arch, shape), proc in dryruns:
+        name = f"dry-run {arch} x {shape}"
+        try:
+            log = proc.communicate(
+                timeout=max(deadline - time.monotonic(), 1))[0]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            check(False, f"{name}: no result within 900 s")
+        out = _dryrun_out(arch, shape)
+        check(proc.returncode == 0 and out.exists(),
+              f"{name} failed: {log[-3000:]}")
+        r = json.loads(out.read_text())
+        mem = r["memory"]
+        check(mem["argument_bytes"] == mem["argument_bytes_from_specs"],
+              f"{name}: argument bytes {mem['argument_bytes']} != "
+              f"{mem['argument_bytes_from_specs']} from the specs")
+        check(r["flops_per_device"] > 0 and r["n_devices"] == 256,
+              f"{name}: {r['flops_per_device']} flops, "
+              f"{r['n_devices']} ranks")
+        check(0 < r["bytes_min_per_device"]
+              <= r["bytes_accessed_per_device"],
+              f"{name}: bytes_min {r['bytes_min_per_device']}, bytes "
+              f"{r['bytes_accessed_per_device']}")
+        print(f"parallel 9d: {name} x 16x16 (plan estimate on a fake "
+              f"256-rank process group, not a card measurement): "
+              f"{r['flops_per_device']:.4g} FLOPs/device, bytes "
+              f"{r['bytes_accessed_per_device']:.4g} (min "
+              f"{r['bytes_min_per_device']:.4g}), argument bytes "
+              f"{mem['argument_bytes']} (= from specs), peak estimate "
+              f"{mem['peak_estimate_bytes'] / 1e9:.2f} GB (fits "
+              f"{r['device_memory_bytes'] / 1e9:.1f} GB: {r['fits']}), "
+              f"collective bytes/device {r['collective_bytes_per_device']}"
+              f", counts {r['collective_counts']}, planned in "
+              f"{r['run_s']} s")
 
 
 def phase_parallel_olmoe(mesh):

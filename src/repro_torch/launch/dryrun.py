@@ -27,9 +27,12 @@ These are plan estimates, not measurements on a card.
 Train cells run the sharded train step.  Prefill and decode cells run
 the serving step batch-parallel (``serving_layout``): each rank serves
 its own rows with the whole model, as the port's engine takes no mesh.
-The recurrent families' prefill and train cells are refused: a cached
-prefill, and a train batch of 4097 tokens (no multiple of the chunk),
-take the sequential scan, one dispatch a token and layer.
+The recurrent families' cached prefills, and their train batches of
+4097 tokens (no multiple of the chunk), take the sequential scan: the
+accountant plans it as the JAX module counts a ``while`` loop, one
+step's operations (and their backward) times the trip count
+(``hlo_analysis.scan``), so a 32k-token scan costs the plan one step a
+layer.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k
@@ -64,10 +67,6 @@ from repro_torch.train.train_step import (batch_shardings,
                                           param_shardings)
 
 RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
-
-# The exit code of a cell the dry-run refuses to plan (``--all`` lists
-# it apart from the failures).
-NOT_PLANNED = 3
 
 # One H100 SXM's memory, used when no card is present to ask.
 H100_80GB_HBM3_BYTES = 80 * 10 ** 9
@@ -144,16 +143,8 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool = False,
     if rules_override:
         rules.update(rules_override)
 
-    if _scans(cfg, shape):
-        # The recurrences' sequential scan is T steps a layer, each
-        # dispatched (the reference's is one compiled loop): 32k steps
-        # x 54 layers is beyond an eager plan.
-        steps = shape.seq_len + (shape.kind == "train")
-        raise NotImplementedError(
-            f"{arch} x {shape_name}: the recurrence would scan {steps} "
-            f"steps a layer; not planned eagerly")
     t0 = time.time()
-    acc = hlo_analysis.Accountant(track_memory=True)
+    acc = hlo_analysis.Accountant(track_memory=True, planning=True)
     layout = "sharded"
     with FakeTensorMode(allow_non_fake_inputs=True), \
             shlib.axis_rules(mesh, rules), implicit_replication():
@@ -226,16 +217,6 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool = False,
     return result
 
 
-def _scans(cfg, shape) -> bool:
-    """Whether the cell runs a recurrent family's sequential scan: a
-    prefill (it carries a cache), or a train batch whose length (the
-    shape's + 1 tokens) is no multiple of the chunk."""
-    rec = cfg.ssm or cfg.rwkv
-    if rec is None or shape.kind == "decode":
-        return False
-    return shape.kind == "prefill" or (shape.seq_len + 1) % rec.chunk != 0
-
-
 def _serving_cell(model, cfg, shape, mesh, params_abs):
     """(values, shardings, placed arguments, step) of a prefill or decode
     step on this rank's rows (the batch over the batch axes when it
@@ -295,7 +276,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.all:
-        failures, unplanned = [], []
+        failures = []
         for arch in list_archs():
             for shape in shapes_for(arch):
                 for mp in (False, True):
@@ -308,27 +289,18 @@ def main(argv=None):
                            "--remat", args.remat] + (
                                ["--multi-pod"] if mp else [])
                     rc = subprocess.run(cmd, env=dict(os.environ)).returncode
-                    if rc == NOT_PLANNED:
-                        unplanned.append((arch, shape.name, tag))
-                    elif rc:
+                    if rc:
                         failures.append((arch, shape.name, tag))
                         print(f"[dryrun] FAIL {arch} x {shape.name} x {tag}",
                               flush=True)
-        print(f"\n[dryrun] done; {len(failures)} failures, "
-              f"{len(unplanned)} cells not planned")
-        for f in unplanned:
-            print("  not planned:", *f)
+        print(f"\n[dryrun] done; {len(failures)} failures")
         for f in failures:
             print("  FAIL:", *f)
         sys.exit(1 if failures else 0)
     if args.arch is None:
         ap.error("--arch is required without --all")
-    try:
-        result = dryrun_cell(args.arch, args.shape, args.multi_pod,
-                             remat=args.remat)
-    except NotImplementedError as e:
-        print(f"[dryrun] not planned: {e}", flush=True)
-        sys.exit(NOT_PLANNED)
+    result = dryrun_cell(args.arch, args.shape, args.multi_pod,
+                         remat=args.remat)
     save(result)
     print(json.dumps(result, indent=1))
 

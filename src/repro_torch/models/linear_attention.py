@@ -13,7 +13,8 @@ Recurrence over a state S_t in R^{N x P} (N key/state channels, P value):
 
 Two forms of the same function, plain tensor code (no kernel: the
 reference leaves both to XLA): :func:`decay_linear_attention_scan`, a
-loop over tokens, and :func:`decay_linear_attention_chunked`, matrix
+loop over tokens (``hlo_analysis.scan``, which a dry-run plans by its
+trip count), and :func:`decay_linear_attention_chunked`, matrix
 products within chunks (batched over all chunks) and a loop over chunks
 that hands the state on, which separates the decay as exp(L_t - L_s) =
 exp(L_t) exp(-L_s) with L the running log-decay sum.  ``ld`` is clamped
@@ -26,6 +27,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.launch.hlo_analysis import scan
 
 
 def _clamp(ld: torch.Tensor, clamp: float) -> torch.Tensor:
@@ -57,19 +60,21 @@ def decay_linear_attention_scan(
     P = v.shape[-1]
     decay = torch.exp(_clamp(ld.float(), clamp))[..., None]   # [B,T,H,N,1]
     qf, kf, vf = q.float(), k.float(), v.float()
-    bonus = None if u is None else u.float()[None, :, :, None]
-    S = _state0(initial_state, B, H, N, P, q.device)
-    ys = []
-    for t in range(T):
-        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]      # [B,H,N,P]
+    consts = () if u is None else (u.float()[None, :, :, None],)
+
+    def step(S, k_t, v_t, q_t, decay_t, *bonus):
+        kv = k_t[..., None] * v_t[..., None, :]               # [B,H,N,P]
         if decay_at_readout:
-            S = decay[:, t] * S + kv
+            S = decay_t * S + kv
             read = S
         else:
-            read = S + (kv if bonus is None else bonus * kv)
-            S = decay[:, t] * S + kv
-        ys.append(torch.einsum("bhn,bhnp->bhp", qf[:, t], read))
-    return torch.stack(ys, dim=1).to(v.dtype), S
+            read = S + (bonus[0] * kv if bonus else kv)
+            S = decay_t * S + kv
+        return S, torch.einsum("bhn,bhnp->bhp", q_t, read)
+
+    S, y = scan(step, _state0(initial_state, B, H, N, P, q.device),
+                (kf, vf, qf, decay), consts)
+    return y.to(v.dtype), S
 
 
 def decay_linear_attention_chunked(
@@ -120,9 +125,9 @@ def decay_linear_attention_chunked(
     kv_tail = torch.einsum("bcthn,bcthp->bchnp", k_tail, vc)
     decay = torch.exp(Ltot)[..., None]                  # [B,NC,H,N,1]
     entering = []
-    for c in range(NC):
+    for decay_c, kv_c in zip(decay.unbind(1), kv_tail.unbind(1)):
         entering.append(S)
-        S = decay[:, c] * S + kv_tail[:, c]
+        S = decay_c * S + kv_c
     y = y + torch.einsum("bcthn,bchnp->bcthp", q_in,
                          torch.stack(entering, dim=1))
     return y.reshape(B, T, H, P).to(v.dtype), S

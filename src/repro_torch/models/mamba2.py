@@ -18,7 +18,7 @@ from torch.profiler import record_function
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
-from repro_torch.parallel.sharding import on_local_rows, shard
+from repro_torch.parallel.sharding import grad_like, on_local_rows, shard
 from repro_torch.models.linear_attention import (
     decay_linear_attention_chunked, decay_linear_attention_scan)
 
@@ -89,8 +89,8 @@ def mamba2_block(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     chunked form, else the scan (``mamba2.py:116`` there)."""
     ss, d_in, nh = _dims(cfg)
     B, T, _ = x.shape
-    proj = shard(torch.einsum("btd,de->bte", x, p["in_proj"]),
-                 "batch", "seq", "mlp")
+    proj = grad_like(shard(torch.einsum("btd,de->bte", x, p["in_proj"]),
+                           "batch", "seq", "mlp"))
     z, xBC, dt = _split_proj(cfg, proj)
     # softplus as the JAX package's ``jax.nn.softplus``: logaddexp(x, 0).
     dt = torch.logaddexp(dt.float() + p["dt_bias"].float(),

@@ -22,7 +22,7 @@ from torch.profiler import record_function
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
-from repro_torch.parallel.sharding import on_local_rows, shard
+from repro_torch.parallel.sharding import grad_like, on_local_rows, shard
 from repro_torch.models.linear_attention import (
     decay_linear_attention_chunked, decay_linear_attention_scan)
 
@@ -75,8 +75,8 @@ def rwkv6_time_mix(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     v = torch.einsum("btd,de->bte", mixed(p["mix_v"]), p["wv"])
     g = torch.einsum("btd,de->bte", mixed(p["mix_g"]), p["wg"])
     # Data-dependent decay (LoRA): w_t = exp(-exp(w0 + tanh(x A) B)).
-    wx = torch.tanh(torch.einsum("btd,dr->btr", mixed(p["mix_w"]),
-                                 p["w_lora_a"]))
+    wx = torch.tanh(grad_like(torch.einsum("btd,dr->btr", mixed(p["mix_w"]),
+                                           p["w_lora_a"])))
     wlog = (p["w0"].float()[None, None, :]
             + torch.einsum("btr,re->bte", wx, p["w_lora_b"]).float())
     ld = -torch.exp(wlog)                                   # [B, T, D] < 0

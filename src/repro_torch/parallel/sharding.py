@@ -202,6 +202,18 @@ def shard(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:
     return x.redistribute(x.device_mesh, want)
 
 
+def grad_like(x: torch.Tensor) -> torch.Tensor:
+    """``x`` unchanged, its gradient redistributed to ``x``'s placements
+    (the cotangent of a ``with_sharding_constraint`` carries the
+    constraint's sharding).  A no-op on plain tensors."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(x.to_local(), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
 class Axes:
     """Logical axes metadata for one parameter (a tree *leaf*)."""
 

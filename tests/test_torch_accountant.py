@@ -204,16 +204,3 @@ def test_smoke_dryrun_flops_are_a_shard_of_the_step(smoke_cell):
     assert whole / 256 <= per < whole
     np.testing.assert_array_less(0, per)
 
-
-def test_dryrun_refuses_the_recurrent_scans():
-    """The cells whose recurrence would take the sequential scan (a
-    cached prefill; a 4097-token train batch, no multiple of the chunk)
-    are not planned; their decode cells and every other family's are."""
-    from repro_torch.configs import get_config, list_archs, shapes_for
-    from repro_torch.launch import dryrun
-    for arch in list_archs():
-        cfg = get_config(arch)
-        recurrent = cfg.ssm is not None or cfg.rwkv is not None
-        for shape in shapes_for(arch):
-            want = recurrent and shape.kind in ("prefill", "train")
-            assert dryrun._scans(cfg, shape) == want, (arch, shape.name)
