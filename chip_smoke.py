@@ -80,7 +80,13 @@ each of which fails the run hard:
    at lens 0, 1, 63, 64, 700, ...) and its T=64 chunk, bf16 on the
    tensor-core instances (3e-2 x max |plain| for the T=1 flash read, else
    3e-2) and f32 on the CUDA-core ones (2e-5), each bound rejecting the
-   kernel's output with its last key tile dropped;
+   kernel's output with its last key tile dropped; (2g) the last three
+   architectures' heads: the paged split (T=1) and wgmma (T=64) routes at
+   qwen3-14b's 40/8 heads of 128 (g 5), arctic-480b's 56/8 (g 7) and
+   stablelm-3b's 32/32 heads of 80 over real 16-slot pages (B=8, NaN in
+   every slot past a row's keys) against both plain versions (3e-2),
+   and flash's wgmma prefill and split read at the same heads over ring
+   slices with NaN past S, each twice, bit-identical;
 3. the paged main path at full width: ``smollm-135m`` (random weights
    from a seed) served by the ``slot_paged`` engine to 4 client sessions
    x 4 requests, every stream complete and exactly-once, the paged kernel
@@ -187,6 +193,25 @@ each of which fails the run hard:
 3k. the uniform_rwkv family the same way: ``rwkv6-1.6b`` (24 layers,
    d=2048, vocab 65536 untied, 1,583,941,632 parameters), no attention
    launch of either kind;
+3l-3n. the registry's last three architectures at full width, bf16,
+   seed-0 weights, each under ``slot_paged`` (``max_batch=8``,
+   ``max_len=1024``, 512 pages of 16, ``chunk_tokens=64``, ``k_max=8``) on
+   the main workload's 16 requests: the parameter count, every stream
+   complete and exactly-once, paged launches = L x forwards, paged split
+   launches = L x one-token forwards, no flash, no CUDA-core route, no
+   watchdog catch, then where a decode block's and a chunk's time goes
+   and the peak device memory: (3l) ``qwen3-14b`` (40 layers, d=5120,
+   40/8 heads of 128, qk-norm, vocab 151936 untied; no cut), then 2
+   requests each under ``slot_fused`` (flash's wgmma prefills at g 5)
+   and ``wave`` (its split-route decode), then the serve launcher's
+   ``main`` with its own parser and default scheduler (``slot_chunked``)
+   for 4 requests; (3m) ``stablelm-3b`` (32 layers, d=2560, 32/32 heads
+   of 80, vocab 50304 untied; no cut): the paged kernel at hd 80 over
+   real pages; (3n) ``arctic-480b`` at full width on 2 of its 35 layers
+   (d=7168, 56/8 heads of 128, 128 experts top-2 beside a dense residual
+   MLP, capacity 1 at decode and 10 in a chunk), its expert leaves drawn
+   an expert at a time (the draw's peak under 80 GB, beside what one
+   expert layer drawn whole took: the rule before);
 5. CPU/CUDA parity: the SMOKE configs at float32, same weights on both
    devices, identical greedy tokens: smollm under ``slot_paged``,
    ``slot_fused`` and ``wave``, olmoe (weights x3) under ``slot_paged``
@@ -195,7 +220,9 @@ each of which fails the run hard:
    llama-vision and whisper (weights x3) through ``prefill`` with an
    image or frame source + 4 decode steps and under ``slot_chunked``,
    zamba and rwkv (weights x3) under ``slot_fused``, ``slot`` and
-   ``wave``; and 3 training steps' losses (within 1e-4 relative) of the
+   ``wave``, qwen3 and arctic widened to 10/2 and 14/2 heads (g 5 and 7;
+   weights x3) under ``slot_paged`` and ``slot_fused``; and 3 training
+   steps' losses (within 1e-4 relative) of the
    zamba, rwkv and whisper (with frames) SMOKE configs;
 6. kernel timing at the main paths' shapes (CUDA events around windows
    enqueued behind a device-side spin, so they time the card's work and
@@ -206,7 +233,9 @@ each of which fails the run hard:
    encoder and cross decode; the flash forward's training shapes with
    lse at head_dim 64 and 80; head_dim 80 at zamba's B=1 T=S=256 prefill
    and B=4 dense-ring decode, and the trainable flash forward + backward
-   and the backward alone at zamba's training shape; every flash forward
+   and the backward alone at zamba's training shape; paged at 3l-3n's
+   T=1 decode and T=64 chunk: qwen3's g 5, arctic's g 7, stablelm's hd 80
+   over real pages, with ``kv_lens``; every flash forward
    row also with the host's µs to enqueue a call), beside each kernel's
    bound,
    its plain version and the one PyTorch call that computes the same
@@ -294,8 +323,10 @@ flash row's are 3h's and 3i's non-causal launches, the split route's
 row's are its launches in phase 4's wave run, 3h and 3i (whisper's cross
 decode row: 3i's), the hd 80 serving
 rows' are 3j's served launches, the trainable flash and flash backward
-rows' are phase 7's, 7d's and 10b's, and the hd 80 training rows' are
-7b's.
+rows' are phase 7's, 7d's and 10b's, the hd 80 training rows' are
+7b's, and the rows of the last three architectures' paged reads
+(``paged_attention_g5``, ``_g7``, ``_hd80_pages``) their ``slot_paged``
+runs' in 3l-3n.
 Every
 kernel counter is set to 0 just before a served or trained run (or the
 NBB matmul's entry-point call) and read just after it; launches made to
@@ -362,6 +393,13 @@ def lap(label: str) -> None:
     if label:
         print(f"phase time: {label} {now - _LAP[0]:.1f} s")
     _LAP[0] = now
+
+
+def part_time(label: str) -> None:
+    """Print the seconds since the previous lap, not restarting it: the
+    parts of a long phase, read against the lap that closes it."""
+    print(f"  part time: {label} {time.monotonic() - _LAP[0]:.1f} s "
+          "into the phase")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1100,7 +1138,7 @@ FLASH_SPLIT_CASES = [
 ]
 
 
-def phase_compare_flash_split():
+def phase_compare_flash_split(cases=None, poison: bool = False):
     """The flash forward's split route against the plain version and the
     plain split form at the wrapper's own plan (bf16: 3e-2 x max |plain|,
     a mean over many keys; lse 1e-4), K/V read in place from [B, S + 64]
@@ -1108,19 +1146,22 @@ def phase_compare_flash_split():
     count; two calls bit-identical; the first and last batch rows alone
     bit-identical to the same rows in the batch; queries with no key
     exactly 0 with lse -1e30; the arrival counters back at 0; and the
-    bound rejecting the output with the last key tile dropped.  Returns
-    the max error."""
+    bound rejecting the output with the last key tile dropped.  ``cases``
+    default to ``FLASH_SPLIT_CASES``; with ``poison`` the rings' slots
+    past S hold NaN, and no output may be NaN.  Returns the max error."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     g = torch.Generator(device="cuda").manual_seed(700)
     worst, lines = 0.0, []
-    for label, B, T, S, H, Hkv, hd, kw in FLASH_SPLIT_CASES:
+    for label, B, T, S, H, Hkv, hd, kw in cases or FLASH_SPLIT_CASES:
         q = torch.randn((B, T, H, hd), generator=g, device="cuda").to(
             torch.bfloat16)
         rk, rv = (torch.randn((B, S + 64, Hkv, hd), generator=g,
                               device="cuda").to(torch.bfloat16)
                   for _ in range(2))
+        if poison:
+            rk[:, S:], rv[:, S:] = float("nan"), float("nan")
         k, v = rk[:, :S], rv[:, :S]
         way, plan = fa.forward_route(T, S, H, Hkv, hd, q.dtype,
                                      fa.tensor_core_route(q, k, v),
@@ -1135,6 +1176,8 @@ def phase_compare_flash_split():
               f"flash split {label}: launches")
         check(torch.equal(out, again), f"flash split {label}: two calls "
                                        "differ")
+        check(not bool(torch.isnan(out).any()),
+              f"flash split {label}: a NaN past S was read")
         for b in {0, B - 1}:
             alone = fa.flash_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
                                        **kw)
@@ -1524,13 +1567,16 @@ def phase_compare_trainable():
 # ---------------------------------------------------------------------------
 # Phases 3 and 4: the paged and dense main paths at full width
 # ---------------------------------------------------------------------------
-def full_width_model(arch: str = "smollm-135m"):
-    """``arch`` at full width on the card, random weights from seed 0,
-    with a count of model forwards: [all, one-token decode forwards]."""
+def full_width_model(arch: str = "smollm-135m", layers: int = 0):
+    """``arch`` at full width on the card (its depth cut to ``layers``
+    where given), random weights from seed 0, with a count of model
+    forwards: [all, one-token decode forwards]."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     model = build_model(cfg)                          # cuda by default
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     forwards = [0, 0]
@@ -1836,12 +1882,15 @@ def phase_serve_gemma(smi: str):
         del eng
         gc.collect()        # the engine's sessions hold it in a cycle
         torch.cuda.empty_cache()
+        part_time(f"gemma {sched}")
     phase_split_gemma(model, params, smi)
     return paged_launches, ring_launches
 
 
 def phase_split_gemma(model, params, smi: str):
-    """gemma3-27b's dense rings (slot_chunked): one K=8 decode block and
+    """gemma3-27b's dense rings (slot_chunked): one K=4 decode block (the
+    profile's events cost ~0.1 ms of host time each to read, and K=8
+    cost the script ~35 s more) and
     one T=64 chunk at B=4, every row past the window (positions
     1100-2000), so every local layer reads its ring with wrap-around."""
     import torch
@@ -1861,8 +1910,8 @@ def phase_split_gemma(model, params, smi: str):
     nval = torch.full((B,), C, **i32)
     torch.cuda.reset_peak_memory_stats()
     profile_split((
-        ("gemma3-27b slot_chunked decode block K=8 B=4", 8,
-         lambda: model.decode_loop(params, caches, cur, pos, rem, eos, k=8,
+        ("gemma3-27b slot_chunked decode block K=4 B=4", 4,
+         lambda: model.decode_loop(params, caches, cur, pos, rem, eos, k=4,
                                    max_len=GEMMA_SERVE["max_len"])),
         ("gemma3-27b slot_chunked prefill chunk T=64 B=4", 1,
          lambda: model.prefill_chunk_into(params, caches, chunk, pos,
@@ -2551,8 +2600,8 @@ def phase_serve_recurrent(arch: str, smi: str):
     exactly-once, flash launches = 9 x prefills and paged = 9 x decode
     forwards (0 and 0 for rwkv), no CUDA-core route, no watchdog catch,
     ``dense_cache_bytes`` and the peak device memory printed.  (c) Where a
-    B=1 prefill's and a K=8 decode block's time goes, the recurrences
-    under their profiler ranges.  Returns (b)'s launches."""
+    B=1 prefill's of 64 tokens and a K=4 decode block's time goes, the
+    recurrences under their profiler ranges.  Returns (b)'s launches."""
     import torch
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import ServeEngine
@@ -2610,6 +2659,7 @@ def phase_serve_recurrent(arch: str, smi: str):
               f"form; bound 2^{math.log2(bound):.0f} x max |logit| "
               f"{sc:.3f}), argmax equal at {sm:.3f} of the positions")
     print(f"  {arch} model path bf16 launches {got}")
+    part_time(f"{arch} drawn, plumbing in bf16 and f32")
     # (b) served.
     work = gemma_workload(cfg.vocab_size, (64, 100, 128, 80))
     eng = ServeEngine(model, params, n_clients=len(work),
@@ -2635,15 +2685,18 @@ def phase_serve_recurrent(arch: str, smi: str):
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     del eng
     _fresh_memory()
+    part_time(f"{arch} slot_fused")
     phase_split_recurrent(model, params, smi)
     return {"flash": fl, "paged": pl}
 
 
 def phase_split_recurrent(model, params, smi: str):
-    """Where a slot_fused B=1 prefill of 128 tokens (the scan, with
-    zamba's flash) and a K=8 decode block at B=4 (rows at 65-160, zamba's
+    """Where a slot_fused B=1 prefill of 64 tokens (the scan, with
+    zamba's flash) and a K=4 decode block at B=4 (rows at 65-160, zamba's
     rings read by the paged kernel) spend their time; the recurrences
-    are the ranges ``mamba.ssd`` and ``rwkv.wkv``."""
+    are the ranges ``mamba.ssd`` and ``rwkv.wkv``.  (The profile's
+    events cost ~0.1 ms of host time each to read: a prefill of 128
+    tokens and K=8 cost zamba's split ~50 s more, rwkv's ~28 s.)"""
     import torch
     cfg = model.cfg
     vocab, B = cfg.vocab_size, RECURRENT_SERVE["max_batch"]
@@ -2656,14 +2709,14 @@ def phase_split_recurrent(model, params, smi: str):
     cur = torch.randint(0, vocab, (B,), generator=g, device="cuda").to(
         torch.int32)
     rem, eos = torch.full((B,), 1000, **i32), torch.full((B,), -1, **i32)
-    prompt = torch.randint(0, vocab, (1, 128), generator=g,
+    prompt = torch.randint(0, vocab, (1, 64), generator=g,
                            device="cuda").to(torch.int32)
     torch.cuda.reset_peak_memory_stats()
     profile_split((
-        (f"{cfg.name} slot_fused prefill B=1 T=128", 1,
+        (f"{cfg.name} slot_fused prefill B=1 T=64", 1,
          lambda: model.prefill(params, prompt, max_len)),
-        (f"{cfg.name} slot_fused decode block K=8 B=4", 8,
-         lambda: model.decode_loop(params, caches, cur, pos, rem, eos, k=8,
+        (f"{cfg.name} slot_fused decode block K=4 B=4", 4,
+         lambda: model.decode_loop(params, caches, cur, pos, rem, eos, k=4,
                                    max_len=max_len))), smi)
     print(f"  {cfg.name} time split: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -2909,13 +2962,16 @@ def profile_split(cases, smi: str):
                 fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) / 3 * 1e3
+            t0 = time.perf_counter()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 fn()
                 torch.cuda.synchronize()
-        rows = kernel_rows(prof)
+        t1 = time.perf_counter()
+        averages = prof.key_averages()
+        rows = kernel_rows(prof, averages)
         busy = sum(dev_us(e) for e in rows) / 1e3
-        every_row = sum(dev_us(e) for e in prof.key_averages()) / 1e3
+        every_row = sum(dev_us(e) for e in averages) / 1e3
         if busy == 0:
             print(f"time split, {name}: wall {wall:.2f} ms; device time "
                   f"not measured (the profiler saw no device activity) "
@@ -2930,6 +2986,7 @@ def profile_split(cases, smi: str):
                                   ("paged_attention", "paged_"))}
         top = sorted(rows, key=dev_us, reverse=True)[:5]
         ranges = range_ms(prof)
+        read_s = time.perf_counter() - t1
         print(f"time split, {name}: wall {wall:.2f} ms "
               f"({wall / steps:.2f} ms per forward), device busy "
               f"{busy:.3f} ms (idle share {1 - busy / wall:.3f}; every "
@@ -2940,12 +2997,15 @@ def profile_split(cases, smi: str):
                         for k, v in sorted(ranges.items()) if v)
               + "; top device ops: "
               + "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.3f} ms"
-                          for e in top) + f" [{smi}]")
+                          for e in top)
+              + f"; host time: the profiled call {t1 - t0:.1f} s, its "
+                f"{len(prof.events())} events read in {read_s:.1f} s "
+                f"[{smi}]")
 
 
-def phase_split(model, params, smi: str, m=MAIN):
-    """The paged path: one K=8 decode block and one T=64 prefill chunk at
-    its shapes (``m``; B=8, lengths 65..512)."""
+def phase_split(model, params, smi: str, m=MAIN, k: int = 8):
+    """The paged path: one K=``k`` decode block and one T=64 prefill
+    chunk at its shapes (``m``; B=8, lengths 65..512)."""
     import torch
     vocab = model.cfg.vocab_size
     B, P, C = m["B"], m["P"], m["chunk"]
@@ -2971,8 +3031,8 @@ def phase_split(model, params, smi: str, m=MAIN):
     nval = torch.full((B,), C, **i32)
     name = model.cfg.name
     profile_split((
-        (f"{name} slot_paged decode block K=8", 8,
-         lambda: model.decode_loop(params, caches, cur, pos, rem, eos, k=8,
+        (f"{name} slot_paged decode block K={k}", k,
+         lambda: model.decode_loop(params, caches, cur, pos, rem, eos, k=k,
                                    max_len=1024)),
         (f"{name} slot_paged prefill chunk T=64", 1,
          lambda: model.prefill_chunk_into(params, caches, chunk, start,
@@ -3392,7 +3452,8 @@ def phase_parity():
     local rings wrap in prefill, in chunks and in decode; llama-vision
     and whisper (weights x3) through an image- or frame-conditioned
     prefill + decode and under slot_chunked; zamba and rwkv (weights x3)
-    under slot_fused, slot and wave."""
+    under slot_fused, slot and wave; qwen3 and arctic at 10/2 and 14/2
+    heads (g 5 and 7; weights x3) under slot_paged and slot_fused."""
     for arch, scheds, scale in (
             ("smollm-135m", ("slot_paged", "slot_fused", "wave"), 1.0),
             ("olmoe-1b-7b", ("slot_paged", "slot_fused"), 3.0)):
@@ -3406,16 +3467,21 @@ def phase_parity():
     for arch in ("zamba2-2.7b", "rwkv6-1.6b"):
         parity(arch, ("slot_fused", "slot", "wave"), 3.0)
     lap("5 parity (zamba, rwkv)")
+    for arch, heads in (("qwen3-14b", 10), ("arctic-480b", 14)):
+        parity(arch, ("slot_paged", "slot_fused"), 3.0, num_heads=heads,
+               num_kv_heads=2)
+    lap("5 parity (qwen3 g 5, arctic g 7)")
 
 
 def parity(arch: str, scheds, scale: float, prompt_extra=(0,),
-           chunk_tokens: int = 4):
+           chunk_tokens: int = 4, **overrides):
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import ServeEngine
-    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                              **overrides)
     cpu_model = build_model(cfg, device="cpu")
     params = _scaled(cpu_model.init(torch.Generator().manual_seed(7)), scale)
 
@@ -3449,7 +3515,8 @@ def parity(arch: str, scheds, scale: float, prompt_extra=(0,),
               f"{arch} {sched}: CPU and CUDA greedy tokens differ")
         print(f"cpu/cuda parity, {arch} {sched}: "
               f"{sum(map(len, seqs['cuda']))} greedy tokens identical "
-              f"(SMOKE, float32, weights x{scale:g})")
+              f"(SMOKE, {cfg.num_heads}/{cfg.num_kv_heads} heads, float32, "
+              f"weights x{scale:g})")
 
 
 # ---------------------------------------------------------------------------
@@ -4119,13 +4186,14 @@ def range_ms(prof) -> dict:
     return out
 
 
-def kernel_rows(prof):
+def kernel_rows(prof, averages=None):
     """The profiler's device-side rows (kernels, copies, memsets): each
     device op once.  The host-side rows carry the same device time again
     under the op that launched it, so summing every row counts it twice;
-    user ranges are left out too."""
+    user ranges are left out too.  ``averages``: ``prof.key_averages()``
+    where the caller has it (each call walks every event again)."""
     from torch.autograd import DeviceType
-    return [e for e in prof.key_averages()
+    return [e for e in (averages or prof.key_averages())
             if e.device_type == DeviceType.CUDA and e.key not in RANGES]
 
 
@@ -4869,6 +4937,7 @@ def phase_examples(smi: str):
               f"{c['causal']}, backward {c['bwd']}, paged {c['paged']}, "
               f"CUDA-core {c['simt']}")
 
+    part_time("10a quickstart")
     # 10b: train_e2e --full-135m, then a resume from its checkpoint.
     train_e2e = load_example("train_e2e")
     L = get_config("smollm-135m").num_layers
@@ -4909,6 +4978,7 @@ def phase_examples(smi: str):
           f"+ {c2['causal']}, backward {c1['bwd']} + {c2['bwd']}, "
           f"CUDA-core 0 [{smi}]")
 
+    part_time("10b train_e2e")
     # 10c: serve_batched (slot_fused, SMOKE).
     serve_batched = load_example("serve_batched")
     zero_counts(forwards)
@@ -4938,6 +5008,7 @@ def phase_examples(smi: str):
           f"{c['simt']}")
     del eng, r
 
+    part_time("10c serve_batched")
     # 10d: the pipeline demo as an NCCL world of one.
     demo = load_example("lockfree_pipeline_demo")
     rows, _ = run_example(demo, ["--ranks", "1"])
@@ -4949,6 +5020,372 @@ def phase_examples(smi: str):
           + ", ".join(f"{row['schedule']} {row['bytes']} B {row['ms']} ms"
                       for row in rows) + " [plumbing only]")
     return c1["causal"], c1["bwd"]
+
+
+# ---------------------------------------------------------------------------
+# Phases 2g, 3l-3n and their timing: the registry's last three
+# architectures (qwen3-14b, stablelm-3b, arctic-480b)
+# ---------------------------------------------------------------------------
+# Their slot_paged pools (3l-3n) in 3f's geometry: 512 pages of 16 slots,
+# B=8 rows of 64 pages, 64-token chunks; qwen3-14b's 40/8 heads of 128
+# (g 5), arctic-480b's 56/8 (g 7) at 2 of its 35 layers, stablelm-3b's
+# 32/32 heads of 80 (g 1).  ``L`` is the pool's layers in phase 6's
+# timing (arctic's 2 layers padded to 16 views, so a call finds its K/V
+# out of L2 as the served model does behind 53.5 GB of expert reads).
+QWEN3 = dict(MAIN, L=40, Hkv=8, hd=128, H=40)
+ARCTIC = dict(MAIN, L=16, Hkv=8, hd=128, H=56)
+STABLELM = dict(MAIN, L=32, Hkv=32, hd=80, H=32)
+ARCTIC_LAYERS = 2            # of 35: one card holds 80 GB
+LAST_ARCHS = (("qwen3-14b", QWEN3, "g5"),
+              ("stablelm-3b", STABLELM, "hd80_pages"),
+              ("arctic-480b", ARCTIC, "g7"))
+LAST_SERVE = dict(max_batch=8, max_len=1024, pool_pages=512, page_size=16,
+                  chunk_tokens=64, k_max=8)
+# Rows of phase 2g's paged cases per T: a lens=0 row, rows shorter than
+# one run, on a run's edge, long ones; at T=64 rows shorter than T and
+# one past the table.
+GROUP_LENS = {1: [0, 5, 63, 64, 65, 300, 545, 1024],
+              64: [64, 40, 0, 300, 512, 576, 1024, 1100]}
+# The flash forward at the same heads: the wave's one-token read (split
+# route) over [4, S + 64] rings whose slots past S hold NaN.
+GROUP_FLASH_SPLIT = [
+    (f"{arch} {tag} read", 4, 1, 513, m["H"], m["Hkv"], m["hd"], {})
+    for arch, m, tag in LAST_ARCHS]
+
+
+def poisoned_pool(torch, seed: int, B: int, T: int, m, lens):
+    """bf16 q and a strided layer view of a [n_pages, ps, 2, Hkv, hd]
+    pool at ``m``'s heads whose slots past each row's keys are NaN, the
+    rows on disjoint scattered pages -> (q, k view, v view, block,
+    lens)."""
+    ps, P, Hkv, hd = m["ps"], m["P"], m["Hkv"], m["hd"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n_pages = B * P + 4
+    pool = torch.randn((2, n_pages, ps, 2, Hkv, hd), generator=g,
+                       device="cuda").to(torch.bfloat16)
+    q = torch.randn((B, T, m["H"], hd), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    block = torch.randperm(n_pages, generator=g, device="cuda")[
+        :B * P].reshape(B, P).to(torch.int32)
+    held = torch.zeros((n_pages, ps), dtype=torch.bool, device="cuda")
+    for b, n in enumerate(lens):
+        keys = torch.arange(min(n, P * ps), device="cuda")
+        held[block[b].long()[keys // ps], keys % ps] = True
+    layer = pool[:, :, :, 1]                   # a view: writes reach pool
+    layer[:, ~held] = float("nan")
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return q, pool[0, :, :, 1], pool[1, :, :, 1], block, ln
+
+
+def phase_compare_groups():
+    """2g: the paged kernel's split (T=1) and wgmma (T=64) routes at
+    qwen3-14b's 40/8 heads of 128 (g 5), arctic-480b's 56/8 (g 7) and
+    stablelm-3b's 32/32 heads of 80 over real 16-slot pages (B=8, 64
+    pages a row, slots past each row's keys NaN), against the plain
+    version and the plain split-KV version at the wrapper's plan: within
+    3e-2 in bf16, two calls bit-identical, no NaN read, rows with no key
+    (or queries before position 0) exact zeros, one launch a pass, the
+    arrival counters back at 0.  Then flash at the same heads: a causal
+    B=1 prefill of 300 tokens on the wgmma route (3e-2) and the split
+    route's one-token read (``phase_compare_flash_split``), each over
+    ring slices with NaN past S.  Returns ({tag: paged max err}, flash
+    max err)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    errs, lines = {}, []
+    for i, (arch, m, tag) in enumerate(LAST_ARCHS):
+        for T, lens in sorted(GROUP_LENS.items()):
+            q, k, v, block, ln = poisoned_pool(torch, 800 + 2 * i + T, 8, T,
+                                               m, lens)
+            way, runs = pa.plan(q, k, v, block)
+            check(way == ("split" if T == 1 else "wgmma"),
+                  f"2g {arch} T={T}: route {way}")
+            before = (pa.launches, pa.split_launches, pa.simt_launches)
+            out = pa.paged_attention(q, k, v, block, ln)
+            again = pa.paged_attention(q, k, v, block, ln)
+            torch.cuda.synchronize()
+            check((pa.launches - before[0], pa.split_launches - before[1],
+                   pa.simt_launches - before[2])
+                  == (2, 2 * (way == "split"), 0), f"2g {arch} T={T}: "
+                                                   "launches")
+            check(counters_at_zero(), f"2g {arch} T={T}: arrival counters "
+                                      "not at 0")
+            check(torch.equal(out, again), f"2g {arch} T={T}: two calls "
+                                           "differ")
+            check(not bool(torch.isnan(out).any()),
+                  f"2g {arch} T={T}: a NaN past a row's keys was read")
+            clean = [torch.nan_to_num(t) for t in (k, v)]
+            want = ref.paged_attention_ref(q, *clean, block, ln).float()
+            want2 = ref.paged_attention_split_ref(q, *clean, block, ln,
+                                                  runs[0]).float()
+            err = max((out.float() - w).abs().max().item()
+                      for w in (want, want2))
+            check(err <= TOLS["bfloat16"], f"2g {arch} T={T}: err {err}")
+            empty = want.abs().amax((2, 3)) == 0               # [B, T]
+            check(bool(empty.any())
+                  and torch.count_nonzero(out[empty]) == 0,
+                  f"2g {arch} T={T}: a query with no key is not 0")
+            errs[tag] = max(errs.get(tag, 0.0), err)
+            lines.append(f"{arch} ({m['H']}/{m['Hkv']} hd {m['hd']}) T={T} "
+                         f"({way}, runs {runs}) {err:.3g}")
+            del q, k, v, out, again, want, want2, clean
+    print("paged at the last three architectures' heads vs both plain "
+          "versions (bf16, tol 3e-2; NaN past each row's keys, two calls "
+          "bit-identical): " + "; ".join(lines))
+    g = torch.Generator(device="cuda").manual_seed(820)
+    flash_err, lines = 0.0, []
+    for arch, m, tag in LAST_ARCHS:
+        T = S = 300
+        q = torch.randn((1, T, m["H"], m["hd"]), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        rk, rv = (torch.randn((1, S + 64, m["Hkv"], m["hd"]), generator=g,
+                              device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        rk[:, S:], rv[:, S:] = float("nan"), float("nan")
+        k, v = rk[:, :S], rv[:, :S]
+        way = fa.forward_route(T, S, m["H"], m["Hkv"], m["hd"], q.dtype,
+                               fa.tensor_core_route(q, k, v), 0)[0]
+        check(way == "wgmma", f"2g flash {arch}: route {way}")
+        before = (fa.launches, fa.split_launches, fa.simt_launches)
+        out = fa.flash_attention(q, k, v)
+        again = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        check((fa.launches - before[0], fa.split_launches - before[1],
+               fa.simt_launches - before[2]) == (2, 0, 0),
+              f"2g flash {arch}: launches")
+        check(torch.equal(out, again) and not bool(torch.isnan(out).any()),
+              f"2g flash {arch}: two calls differ or a NaN was read")
+        err = (out.float() - ref.flash_attention_ref(q, k, v).float()
+               ).abs().max().item()
+        check(err <= TOLS["bfloat16"], f"2g flash {arch} prefill: err {err}")
+        flash_err = max(flash_err, err)
+        lines.append(f"{arch} ({m['H']}/{m['Hkv']} hd {m['hd']}) B=1 "
+                     f"T=S={S} (wgmma) {err:.3g}")
+        del q, rk, rv, k, v, out, again
+    print("flash at the last three architectures' heads vs plain (bf16, "
+          "tol 3e-2, NaN past S, two calls bit-identical): "
+          + "; ".join(lines))
+    split_err = phase_compare_flash_split(GROUP_FLASH_SPLIT, poison=True)
+    return errs, max(flash_err, split_err)
+
+
+def old_draw_peak(arch: str) -> float:
+    """The device bytes the draw of one layer slice of ``arch``'s expert
+    ``wi_gate`` took before ``Model.init`` cut large leaves into slices
+    (an f32 draw of the whole slice, scaled out of place, then cast to
+    bf16): the peak over what was held before, with nothing kept."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    shape = (cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert)
+    fan_in = cfg.d_model
+    _fresh_memory()
+    held = torch.cuda.memory_allocated()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(shape, generator=g, dtype=torch.float32,
+                    device="cuda") * fan_in ** -0.5
+    x = x.to(torch.bfloat16)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    del x
+    _fresh_memory()
+    return peak
+
+
+def phase_serve_last(arch: str, smi: str, layers: int = 0,
+                     old_draw: float = 0.0):
+    """3l (``qwen3-14b``: 40 layers, d=5120, 40/8 heads of 128 (g 5),
+    qk-norm, rope theta 1e6, d_ff 17408, vocab 151936 untied; no cut),
+    3m (``stablelm-3b``: 32 layers, d=2560, 32/32 heads of 80, d_ff 6912,
+    vocab 50304 untied; no cut) and 3n (``arctic-480b``: d=7168, 56/8
+    heads of 128 (g 7), 128 experts top-2 of d_ff 4864 beside a dense
+    residual MLP of 4864, vocab 32000 untied; 2 of its 35 layers), bf16,
+    seed-0 weights drawn on the card (arctic's expert leaves an expert at
+    a time).  ``slot_paged`` (``max_batch=8``, ``max_len=1024``, 512
+    pages of 16, ``chunk_tokens=64``, ``k_max=8``) on the main workload's
+    16 requests: the parameter count, every stream complete and
+    exactly-once, paged launches = L x forwards, paged split launches = L
+    x one-token forwards, no flash, no CUDA-core route, no watchdog
+    catch.  qwen3 also serves 2 requests under ``slot_fused`` (flash's
+    wgmma prefills at g 5) and ``wave`` (its split-route decode), then
+    the serve launcher's ``main`` (its own parser and default scheduler,
+    ``slot_chunked``) for 4 requests.  Then where a K=4 decode block's
+    and a chunk's time goes, and the peak device memory.  ``old_draw``
+    (bytes, arctic): the transient of one expert leaf's layer slice drawn
+    whole, as ``Model.init`` drew it before it cut such leaves, printed
+    beside what the tree held when that draw came.  Returns the
+    ``slot_paged`` run's paged launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import _capacity
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import tree
+    m = dict(next(m for a, m, _ in LAST_ARCHS if a == arch))
+    _fresh_memory()
+    before = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    model, params, forwards = full_width_model(arch, layers)
+    torch.cuda.synchronize()
+    draw_s = time.monotonic() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    cfg = model.cfg
+    L, d, hd = cfg.num_layers, cfg.d_model, cfg.head_dim_
+    g = cfg.num_heads // cfg.num_kv_heads
+    check((cfg.num_heads, cfg.num_kv_heads, hd) == (m["H"], m["Hkv"],
+                                                     m["hd"]),
+          f"{arch}: heads {cfg.num_heads}/{cfg.num_kv_heads} of {hd}")
+    n_params = sum(t.numel() for t in tree.flatten(params)[0])
+    # ModelConfig.param_count leaves out the 2 L + 1 norm vectors of d
+    # and qk-norm's 2 L of head_dim.
+    want = (cfg.param_count() + (2 * L + 1) * d
+            + (2 * L * hd if cfg.qk_norm else 0))
+    check(n_params == want, f"{arch} params {n_params} != {want}")
+    cut = (f"{L} of {get_config(arch).num_layers} layers" if layers
+           else "no cut")
+    moe = ""
+    if cfg.moe is not None:
+        mo = cfg.moe
+        caps = {t: _capacity(t, cfg) for t in (8, 8 * 64)}
+        check(caps == {8: 1, 512: 10}, f"{arch}: capacities {caps}")
+        moe = (f", {mo.num_experts} experts top-{mo.top_k} of d_ff "
+               f"{mo.d_ff_expert} + a dense residual MLP of {cfg.d_ff}, "
+               f"capacity C = {caps[8]} at 8 decode tokens and "
+               f"{caps[512]} at 512 chunk tokens")
+    print(f"{arch} main path ({cut}: d={d}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads of {hd} (g {g}), d_ff {cfg.d_ff}"
+          f"{moe}, vocab {cfg.vocab_size}, bf16): {n_params} params drawn "
+          f"in {draw_s:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"on the card, the draw's peak {init_peak / 1e9:.2f} GB; "
+          f"{before / 1e9:.2f} GB held before [{smi}]")
+    if old_draw:
+        # The whole-slice rule drew wo's layers once the tree held all but
+        # the dense residual MLP and the final norm (wo's stack allocated).
+        held = sum(t.numel() * t.element_size()
+                   for t in tree.flatten(params)[0]) - sum(
+            t.numel() * t.element_size()
+            for t in tree.flatten(params["layers"]["dense"])[0]) - sum(
+            t.numel() * t.element_size() for t in (params["final_norm"],))
+        print(f"  {arch} Model.init: drawn an expert at a time, peak "
+              f"{init_peak / 1e9:.2f} GB; one expert layer slice drawn "
+              f"whole (the rule before) took {old_draw / 1e9:.2f} GB more "
+              f"on the card, so the draw of wo with {held / 1e9:.2f} GB "
+              f"held would have peaked at {(held + old_draw) / 1e9:.2f} GB "
+              f"(80 GB card)")
+        check(init_peak < 80e9, f"{arch}: the draw peaked at {init_peak}")
+    eng = ServeEngine(model, params, n_clients=4, scheduler="slot_paged",
+                      **LAST_SERVE)
+    kv_mb = 2 * eng.pool.store_k.numel() * eng.pool.store_k.element_size()
+    torch.cuda.reset_peak_memory_stats()
+    launches, n_fwd, *_ = serve_run(eng, main_workload(cfg.vocab_size), 32,
+                                    forwards, smi, f"{arch} slot_paged")
+    check(n_fwd > 0 and launches["paged_attention"] == L * n_fwd,
+          f"{arch}: paged launches {launches['paged_attention']} != {L} x "
+          f"{n_fwd} forwards")
+    check(forwards[1] > 0 and launches["paged_split"] == L * forwards[1],
+          f"{arch}: split launches {launches['paged_split']} != {L} x "
+          f"{forwards[1]} decode forwards")
+    check(launches["flash_attention"] == 0, f"{arch} slot_paged launched "
+                                            "flash")
+    print(f"  {arch} slot_paged: forwards {n_fwd} ({forwards[1]} "
+          f"one-token), paged {launches['paged_attention']} = {L} x "
+          f"forwards (split route {launches['paged_split']}), pool "
+          f"{kv_mb / 1e6:.0f} MB of K/V, prefix_hits "
+          f"{eng.stats['prefix_hits']}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del eng
+    _fresh_memory()
+    part_time(f"{arch} drawn, slot_paged")
+    paged = launches["paged_attention"]
+    if arch == "qwen3-14b":
+        two = gemma_workload(cfg.vocab_size, (400, 200))
+        for sched in ("slot_fused", "wave"):
+            eng = ServeEngine(model, params, n_clients=len(two),
+                              scheduler=sched, **dict(LAST_SERVE,
+                                                      max_batch=4))
+            launches, n_fwd, *_ = serve_run(eng, two, 32, forwards, smi,
+                                            f"{arch} {sched}")
+            st = eng.stats
+            fl, pl = launches["flash_attention"], launches["paged_attention"]
+            fs = launches["flash_split"]
+            if sched == "slot_fused":
+                ok = (fl == L * st["prefills"] and fs == 0
+                      and pl == L * st["decode_steps"]
+                      and launches["paged_split"] == L * forwards[1])
+            else:
+                ok = (pl == 0 and fl == L * n_fwd
+                      and fs == L * st["decode_steps"] > 0)
+            check(ok and st["prefills"] == len(two)
+                  and n_fwd == st["prefills"] + st["decode_steps"],
+                  f"{arch} {sched}: launches {launches}, prefills "
+                  f"{st['prefills']}, decode steps {st['decode_steps']}")
+            print(f"  {arch} {sched}: forwards {n_fwd} ({st['prefills']} "
+                  f"prefills on flash's wgmma route, {st['decode_steps']} "
+                  f"decode steps), flash {fl} (split route {fs}), paged "
+                  f"{pl}")
+            del eng
+            _fresh_memory()
+            part_time(f"{arch} {sched}")
+    phase_split(model, params, smi, m=dict(m, L=L), k=4)
+    print(f"  {arch} time split: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del model, params
+    _fresh_memory()
+    part_time(f"{arch} time split")
+    if arch == "qwen3-14b":
+        from repro_torch.launch import serve as launcher
+        zero_counts([0, 0])
+        eng = launcher.main(["--arch", arch, "--max-len", "1024",
+                             "--prompt-len", "200", "--max-tokens", "16",
+                             "--clients", "2", "--requests-per-client", "2",
+                             "--chunk-tokens", "64"])
+        c = _counts()
+        fr = eng.fault_report()
+        check(eng.scheduler == "slot_chunked" and eng.stats["served"] == 4
+              and fr["tick_failures"] == 0 and fr["requests_failed"] == 0
+              and c["paged"] > 0 and c["paged"] % L == 0
+              and c["psplit"] % L == 0 and c["causal"] == 0
+              and c["simt"] == 0,
+              f"{arch} launcher: scheduler {eng.scheduler}, stats "
+              f"{eng.stats}, launches {c}, faults {fr}")
+        print(f"  {arch} launcher (repro_torch.launch.serve main, "
+              f"slot_chunked): 4 requests served, paged {c['paged']} "
+              f"(split route {c['psplit']}), no flash, no CUDA-core route")
+        del eng
+        _fresh_memory()
+    return paged
+
+
+def phase_timing_groups(served: dict, errs: dict, smi: str):
+    """The paged kernel at 3l-3n's slot_paged shapes (B=8 over strided
+    layer views of the pool, lens as the served traffic's): T=1 decode
+    (split) and T=64 chunk (wgmma) at qwen3-14b's g 5, arctic-480b's g 7
+    and stablelm-3b's hd 80, each beside its bound, its plain version
+    and gather + SDPA.  Returns a JSON row per architecture (its T=1
+    decode), with its slot_paged run's launches."""
+    import torch
+    rows = []
+    for i, (arch, m, tag) in enumerate(LAST_ARCHS):
+        got = {}
+        for T in (1, m["chunk"]):
+            q, pk, pv, block, lens = main_path_inputs(torch, T, 900 + 2 * i
+                                                      + T, m)
+            views = [(pk[:, :, li], pv[:, :, li]) for li in range(m["L"])]
+            got[T] = paged_timing_row(f"{arch} T={T} B={m['B']}", q, views,
+                                      block, lens, smi,
+                                      kv_lens=lens.clone())
+            del q, pk, pv, views
+        t_kern, t_plain, bound, by = got[1]
+        rows.append({"name": f"paged_attention_{tag}", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/"
+                               "paged_attention.cu",
+                     "replaces": "src/repro/kernels/paged_attention.py:152",
+                     "launches": served[arch],
+                     "max_abs_err": errs[tag], "ms": t_kern,
+                     "plain_ms": t_plain, "bound_ms": bound, "bound_by": by,
+                     "library_ms": None})
+    return rows
 
 
 def main() -> int:
@@ -4982,6 +5419,8 @@ def main() -> int:
     lap("2e non-causal flash vs plain")
     hd80_flash_err, hd80_paged_err = phase_compare_hd80()
     lap("2f hd 80 vs plain")
+    group_errs, _ = phase_compare_groups()
+    lap("2g groups 5 and 7, hd 80 pages vs plain")
     model, params, forwards = full_width_model()
     paged_launches = phase_serve(model, params, forwards, smi)
     phase_split(model, params, smi)
@@ -5009,6 +5448,13 @@ def main() -> int:
     lap("3j zamba")
     phase_serve_recurrent("rwkv6-1.6b", smi)
     lap("3k rwkv")
+    last = {}
+    for tag, (arch, _, _) in zip("lmn", LAST_ARCHS):
+        arctic = arch == "arctic-480b"
+        last[arch] = phase_serve_last(
+            arch, smi, ARCTIC_LAYERS if arctic else 0,
+            old_draw_peak(arch) if arctic else 0.0)
+        lap(f"3{tag} {arch}")
     phase_parity()
     phase_train_parity(FAMILY_TRAIN_PARITY_ARCHS)
     lap("5 parity")
@@ -5055,7 +5501,8 @@ def main() -> int:
                    smi, ZAMBA_ATTN, "flash_attention_trainable_hd80"),
                phase_timing_flash_bwd(zamba_train["bwd"], hd80_grad_err,
                                       smi, ZAMBA_ATTN,
-                                      "flash_attention_bwd_hd80")]
+                                      "flash_attention_bwd_hd80"),
+               *phase_timing_groups(last, group_errs, smi)]
     lap("6 timing")
     print(f"chip smoke: {time.monotonic() - t0:.1f} s")
     print(f"nvidia-smi: {smi}")

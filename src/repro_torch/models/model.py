@@ -44,6 +44,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import hashlib
+import math
 import operator
 from typing import Any, Dict, Union
 
@@ -64,6 +65,11 @@ from repro_torch.models.moe import moe_block
 from repro_torch.parallel.sharding import Axes, shard
 
 Params = Dict[str, Any]
+
+# A layer slice of more elements than this is drawn by ``Model.init`` one
+# slice of its leading axis at a time (arctic-480b's expert leaves,
+# [128, 7168, 4864] a layer: 17.8 GB in float32 drawn whole).
+DRAW_WHOLE_MAX = 1 << 31
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
@@ -247,10 +253,13 @@ class Model:
         layers' own ``scale=`` normals and ``zero=`` leaves.  Drawn in
         float32 on the generator's device, then cast to the compute dtype
         on the model's device: every layer-stacked leaf one layer at a
-        time, and an embedding table of more than 2^28 entries in pieces
-        of rows, so the float32 transient is one layer's (olmoe's whole
-        expert ``wi_gate`` would be 8.6 GB, gemma3-27b's ``wi_gate``
-        stack 28.7 GB and its table 5.6 GB).  The numbers differ from
+        time, a layer slice of more than ``DRAW_WHOLE_MAX`` elements one
+        slice of its leading axis (an expert) at a time, and an embedding
+        table of more than 2^28 entries in pieces of rows, so the float32
+        transient is one layer's at most (olmoe's whole expert
+        ``wi_gate`` would be 8.6 GB, gemma3-27b's ``wi_gate`` stack 28.7
+        GB and its table 5.6 GB) and one expert's for arctic-480b (a
+        layer's expert leaf is 17.8 GB).  The numbers differ from
         ``jax.random``'s."""
         cfg = self.cfg
         d, f = cfg.d_model, cfg.d_ff
@@ -260,13 +269,15 @@ class Model:
         def normal(shape, fan_in, scale=None):
             s = fan_in ** -0.5 if scale is None else scale
             x = torch.randn(shape, generator=generator, dtype=torch.float32,
-                            device=generator.device) * s
-            return x.to(device=self.device, dtype=dt)
+                            device=generator.device)
+            return x.mul_(s).to(device=self.device, dtype=dt)
 
         def stacked(lead, shape, fan_in=None, scale=None):
             out = torch.empty(lead + shape, dtype=dt, device=self.device)
+            whole = math.prod(shape) <= DRAW_WHOLE_MAX
             for one in out.view((-1,) + shape):
-                one.copy_(normal(shape, fan_in, scale))
+                for piece in ([one] if whole else one):
+                    piece.copy_(normal(piece.shape, fan_in, scale))
             return out
 
         def ones(*shape):

@@ -14,16 +14,20 @@ from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.model import build_model as torch_build_model
 
 
-def smoke_pair(arch: str = "smollm-135m", seed: int = 0, scale: float = 1.0):
+def smoke_pair(arch: str = "smollm-135m", seed: int = 0, scale: float = 1.0,
+               **overrides):
     """-> (jax cfg, jax model, jax params, torch model, torch params).
 
     ``scale`` multiplies every weight matrix (each leaf of rank >= 2) in
     both packages alike.  At the initializer's own scale the SMOKE model
     echoes its last prompt token forever; at ``scale=3`` its greedy
     streams vary token to token and depend on the whole KV cache, which
-    is what a test of moved, parked or restored KV needs."""
-    jcfg = dataclasses.replace(jax_smoke_config(arch), dtype="float32")
-    tcfg = dataclasses.replace(torch_smoke_config(arch), dtype="float32")
+    is what a test of moved, parked or restored KV needs.  ``overrides``
+    replace fields of both SMOKE configs alike (``num_heads=10``)."""
+    jcfg = dataclasses.replace(jax_smoke_config(arch), dtype="float32",
+                               **overrides)
+    tcfg = dataclasses.replace(torch_smoke_config(arch), dtype="float32",
+                               **overrides)
     jm = jax_build_model(jcfg)
     jp = jm.init(jax.random.PRNGKey(seed))
     if scale != 1.0:

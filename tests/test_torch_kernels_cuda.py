@@ -452,12 +452,17 @@ def test_ring_bound_unwrapped_is_the_plain_bound_on_card(cuda_device, T,
 
 # The tensor-core routes at the served shapes: (H, Hkv, hd, ps, P, ring,
 # window) of smollm's slot_paged pool, olmoe's and gemma3-27b's local
-# ring (identity pages of 64 slots), and per T the rows' lens: a lens=0
-# row, rows shorter than one run, on a run's edge, long ones.
+# ring (identity pages of 64 slots), qwen3-14b's (g 5) and arctic-480b's
+# (g 7) pools at hd 128 and stablelm-3b's at hd 80 over real pages, and
+# per T the rows' lens: a lens=0 row, rows shorter than one run, on a
+# run's edge, long ones.
 ROUTE_SHAPES = {
     "smollm": (9, 3, 64, 16, 64, 0, 0),
     "olmoe": (16, 16, 128, 16, 64, 0, 0),
     "gemma_ring": (32, 16, 128, 64, 16, 1024, 1024),
+    "qwen3": (40, 8, 128, 16, 64, 0, 0),
+    "arctic": (56, 8, 128, 16, 64, 0, 0),
+    "stablelm": (32, 32, 80, 16, 64, 0, 0),
 }
 ROUTE_LENS = {1: [0, 5, 63, 64, 65, 300, 545, 1024],
               64: [64, 40, 0, 300, 512, 576, 1024, 1100]}
@@ -497,7 +502,7 @@ def _poisoned_pool(seed, B, T, H, Hkv, hd, ps, P, ring, lens, device):
 @pytest.mark.parametrize("T", sorted(ROUTE_LENS))
 @pytest.mark.parametrize("shape", sorted(ROUTE_SHAPES))
 def test_paged_batch_rows_alone_on_card(cuda_device, shape, T):
-    """At the smollm, olmoe and gemma-ring shapes, on the split route
+    """At every served shape of ``ROUTE_SHAPES``, on the split route
     (T=1) and the wgmma route (T=64): each batch row's output bit-equal
     to the row alone (the plan never reads the batch), within 3e-2 of the
     plain version, NaN in every slot past a row's keys never read, a row
@@ -559,7 +564,22 @@ def test_paged_routes_at_head_dims_on_card(cuda_device, T, hd, cap):
     and without a softcap, 9/3 heads over a strided pool view: within
     3e-2 of the plain version, NaN past each row's keys never read, rows
     with no key exact zeros, two calls bit-identical."""
-    q, k, v, block, ln = _poisoned_pool(62 + hd, 8, T, 9, 3, hd, 16, 64, 0,
+    _paged_routes_check(cuda_device, T, hd, cap, 9, 3, 62 + hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("T", [1, 64])
+def test_paged_routes_at_gqa_10_2_on_card(cuda_device, T, cap):
+    """The same at 10/2 heads of 128: a group of 5 (qwen3-14b's), whose
+    T=64 chunk is 5 tiles of 64 rows over 3 blocks of 2 warpgroups, the
+    last with one, and whose decode fills 5 of the split tile's 16
+    rows."""
+    _paged_routes_check(cuda_device, T, 128, cap, 10, 2, 75)
+
+
+def _paged_routes_check(cuda_device, T, hd, cap, H, Hkv, seed):
+    q, k, v, block, ln = _poisoned_pool(seed, 8, T, H, Hkv, hd, 16, 64, 0,
                                         ROUTE_LENS[T], cuda_device)
     assert pa_mod.route(q, k, v) == ("split" if T == 1 else "wgmma")
     out = pa_mod.paged_attention(q, k, v, block, ln, softcap=cap)
@@ -593,6 +613,10 @@ FLASH_CASES = {
     "gqa_16_1": (1, 128, 128, 16, 1, 64, {}),
     "gqa_12_4": (1, 128, 128, 12, 4, 64, {}),
     "gqa_9_3": (1, 128, 128, 9, 3, 64, {}),
+    "gqa_40_8": (1, 256, 256, 40, 8, 128, {}),
+    "gqa_40_8_decode": (4, 1, 513, 40, 8, 128, {}),
+    "gqa_56_8": (1, 256, 256, 56, 8, 128, {}),
+    "gqa_56_8_decode": (4, 1, 513, 56, 8, 128, {}),
     "ragged_37_101": (2, 37, 101, 9, 3, 64, {}),
     "ragged_window": (1, 45, 77, 6, 2, 32, dict(window=20, softcap=30.0)),
     "ragged_noncausal": (1, 3, 70, 4, 1, 16, dict(causal=False)),

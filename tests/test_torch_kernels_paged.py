@@ -4,7 +4,11 @@ against the JAX package's Pallas kernel in interpret mode, on the same
 numpy-seeded inputs at the reference test's shapes and its tolerance,
 2e-5 in float32: a one-token decode over scattered pages, a T=8 chunk
 causal within itself, GQA groups of 8, 3 and 3 query heads per kv head,
-and rows ending just before, at and just past a page boundary."""
+and rows ending just before, at and just past a page boundary.  Then
+the groups of 5 and 7 (qwen3-14b's 40/8 heads and arctic-480b's 56/8,
+at 10/2 and 14/2), through the plain version and the split-KV plain
+version (``ref.paged_attention_split_ref``, the kernel's split-route
+arithmetic) alike."""
 import numpy as np
 import pytest
 
@@ -16,6 +20,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.paged_attention import (  # noqa: E402
     paged_attention as jpaged)
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -33,11 +38,15 @@ def _setup(seed, B, T, H, Hkv, hd, n_pages, ps, P, lens):
     return q, kp, vp, block, np.asarray(lens, np.int32)
 
 
-def _check(arrays):
+def _check(arrays, split_keys=()):
     want = jpaged(*(jnp.asarray(a) for a in arrays), interpret=True)
-    got = ops.paged_attention(*(torch.from_numpy(a) for a in arrays))
+    args = [torch.from_numpy(a) for a in arrays]
+    got = ops.paged_attention(*args)
     assert got.dtype == torch.float32 and got.shape == arrays[0].shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for sk in split_keys:
+        split = tref.paged_attention_split_ref(*args, split_keys=sk)
+        np.testing.assert_allclose(split.numpy(), np.asarray(want), **TOL)
 
 
 def test_decode_single_query():
@@ -57,6 +66,18 @@ def test_chunk_query_causal_within_chunk():
 def test_gqa_group_sizes(H, Hkv):
     _check(_setup(2, B=2, T=1, H=H, Hkv=Hkv, hd=16, n_pages=16, ps=4, P=4,
                   lens=[5, 13]))
+
+
+@pytest.mark.parametrize("T", [1, 4])
+@pytest.mark.parametrize("H,Hkv", [(10, 2), (14, 2)])
+def test_odd_gqa_groups_5_and_7(H, Hkv, T):
+    """Groups of 5 and 7 query heads per kv head, one-token decode and a
+    T=4 chunk (20 and 28 rows of a kv head: no power of two), over rows
+    of T, T + 3, 13 and 16 keys: the plain version and the split form at
+    runs of 4 and 8 keys (runs wholly past a row's keys) against the
+    Pallas kernel."""
+    _check(_setup(4, B=4, T=T, H=H, Hkv=Hkv, hd=16, n_pages=24, ps=4, P=4,
+                  lens=[T, 3 + T, 13, 16]), split_keys=(4, 8))
 
 
 @pytest.mark.parametrize("length", [7, 8, 9])
